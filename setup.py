@@ -8,7 +8,9 @@ setup(
     description=("TPU-native camera+LiDAR point-wise segmentation framework "
                  "(JAX/XLA/Pallas re-design of FusionTransformer)"),
     packages=find_packages(exclude=("tests",)),
-    package_data={"fusiontransformer_tpu.native": ["*.cpp"]},
+    package_data={"fusiontransformer_tpu.native": ["*.cpp"],
+                  "fusiontransformer_tpu_torch": ["csrc/*.cu",
+                                                  "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",
