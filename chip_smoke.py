@@ -14,15 +14,30 @@ the card, in phases; any failure raises and the exit code is non-zero:
 3. K1 ``binned_conv_grouped_fwd`` against its plain version on the same
    batch's group-pooled maps at L0-L3, for every (Cin, Cout) the flagship
    runs there, bf16 and f32;
-4. the main path — ``InferenceEngine`` for
+4. the inference path — ``InferenceEngine`` for
    ``configs/semantic_kitti/middlefusion.yaml`` (DeiT-B/384 + SPVCNN cr 1.0,
    20 classes, random weights from a seed): warmup, then requests of
    SyntheticSCN scans of about 18,000 points at batch 1, with the kernels'
    launch counts read around them;
-5. the main path against the plain path — the same weights and records in
-   f32 on the card (TF32 off) and through the port on the CPU; and the
-   bf16 main path's drift from the f32 one on the card (reported);
-6. a ``{"kernels": [...]}`` line: launches, errors and times of each kernel.
+5. the inference path against the plain path — the same weights and records
+   in f32 on the card (TF32 off) and through the port on the CPU; and the
+   bf16 path's drift from the f32 one on the card (reported);
+6. K2 ``binned_conv_grouped_bwd`` against its plain version at every
+   grouped (level, Cin, Cout) of the flagship's train step, on a real
+   training batch (10 scans, adaptive capacities), bf16 and f32, with dW
+   bitwise equal across two launches; and K3 at E=8 (the devoxelize
+   adjoint) at L4 and L2 of the same batch;
+7. one train step, card against CPU: f32, TF32 off, shared weights,
+   dropout off, 2 scans (the batch is cut from 10 to keep the CPU's time
+   short); losses, every gradient, BN running statistics, confusion
+   matrices;
+8. the training path — ``SemanticTrainer`` at the flagship's widths in
+   bf16, batch 10 as ``middlefusion.yaml`` sets it, 3 steps and one
+   validation over 30 SyntheticSCN scans, with the kernels' launch counts
+   read around it; then the per-step breakdown (host collate + slot maps,
+   copy, step; forward / backward / optimizer inside the step; device busy
+   share; scans/s);
+9. a ``{"kernels": [...]}`` line: launches, errors and times of each kernel.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -48,6 +63,13 @@ K1_SOURCE = "fusiontransformer_tpu_torch/csrc/binned_conv.cu"
 K1_REPLACES = "fusiontransformer_tpu/ops/pallas/binned_conv.py:123"
 K3_SOURCE = "fusiontransformer_tpu_torch/csrc/segment_sum.cu"
 K3_REPLACES = "fusiontransformer_tpu/ops/pallas/segment_sum.py:129"
+K2_REPLACES = "fusiontransformer_tpu/ops/pallas/binned_conv.py:198"
+# The training path: the flagship's model and training settings
+# (middlefusion.yaml) on SyntheticSCN scans, 3 steps of batch 10 and one
+# validation over the same number of scans.
+TRAIN_STEPS = 3
+TRAIN_BATCH = 10
+PARITY_SCANS = 2
 # Kernel vs plain version: both sum the same f32 products in another order,
 # so the difference is held against the sum of |products| (the plain
 # version on absolute values) times this factor.
@@ -57,6 +79,18 @@ SUM_ORDER_RTOL = 2e-5
 # |logit|; H100 runs measured ~1e-6 of it (PERF.md), so 1e-4 leaves 100x.
 F32_LOGIT_RTOL = 1e-4
 LABEL_AGREEMENT = 0.999
+# Train step in f32, card vs CPU (phase 7): losses to 1e-5 relative;
+# gradients, as shares of each leaf's largest |g|: the median over all
+# leaves within MEDIAN_RTOL, the median over the K1/K2 conv kernels within
+# CONV_MEDIAN_RTOL (a kernel fault moves every conv leaf by O(1)), each leaf
+# within LEAF_RTOL plus LEAF_ATOL.  A conv kernel's gradient sums 10^5-10^6
+# products per element that mostly cancel, and gradients cross ~40
+# train-mode BatchNorms (variance as E[x^2] - E[x]^2) and ReLU ties, all of
+# which amplify f32 summation-order differences: the H100 runs measured a
+# median of 8.7e-6 over all leaves, 1.3e-3 over the conv kernels and a
+# worst leaf of 2.5% (an L3 conv) while the losses agreed to 1e-7.  BN
+# running statistics to 1e-4 of each buffer's largest value.
+LEAF_RTOL, LEAF_ATOL, MEDIAN_RTOL, CONV_MEDIAN_RTOL = 0.1, 1e-7, 1e-4, 1e-2
 
 
 def log(msg=""):
@@ -298,7 +332,8 @@ def step_breakdown(engine, db, top=12):
         torch.cuda.synchronize()
     by_name = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False):
             n, ms = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
     kernel_ms = sum(ms for _, ms in by_name.values())
@@ -320,6 +355,365 @@ def step_breakdown(engine, db, top=12):
 
 
 # --------------------------------------------------------------------------- #
+def train_cfg():
+    """The flagship's model and training settings (``middlefusion.yaml``:
+    Adam, wd 5e-4, lambda_xm 0.1, its class weights, batch 10, its capacity
+    buckets, bf16) on SyntheticSCN scans of ``N_POINTS`` rays."""
+    from fusiontransformer_tpu_torch.config.defaults import get_default_cfg
+    cfg = get_default_cfg()
+    cfg.merge_from_file(CONFIG)
+    cfg.DATASET.TYPE = "SyntheticSCN"
+    cfg.DATASET.SyntheticSCN.num_points = N_POINTS
+    cfg.DATASET.SyntheticSCN.num_scans = TRAIN_STEPS * TRAIN_BATCH
+    cfg.TRAIN.BATCH_SIZE = TRAIN_BATCH
+    cfg.VAL.BATCH_SIZE = TRAIN_BATCH
+    cfg.VAL.PERIOD = 1
+    cfg.SCHEDULER.MAX_EPOCH = 1
+    cfg.OUTPUT_DIR = ""
+    cfg.AUTO_RESUME = False
+    cfg.freeze()
+    return cfg
+
+
+def phase_k2(hier, model, gen):
+    """K2 vs plain at every grouped (level, Cin, Cout) of the train step,
+    bf16 and f32; dW bitwise equal across two launches."""
+    import torch
+    from fusiontransformer_tpu_torch.ops.kernels.binned_conv import (
+        binned_conv_grouped_bwd, binned_conv_grouped_bwd_ref)
+    dev = hier.pt_valid.device
+    shapes = {}
+    for level, cin, cout, w in grouped_convs(model, hier):
+        shapes.setdefault((level, cin, cout), [0, w])[0] += 1
+    rows, main = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                      "max_abs_err": 0.0, "bound_t": {}}
+    for (level, cin, cout), (count, w) in sorted(shapes.items()):
+        src, binp = hier.levels[level].slot_idx
+        v = hier.levels[level].valid.shape[0]
+        live = int(((binp < 216) & (src < v)).sum())
+        x32 = torch.randn(v, cin, generator=gen).to(dev)
+        d32 = torch.randn(v, cout, generator=gen).to(dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            x, d, wd = x32.to(dtype), d32.to(dtype), w.to(dtype).contiguous()
+            dx, dw = binned_conv_grouped_bwd(d, x, src, binp, wd)
+            _, dw2 = binned_conv_grouped_bwd(d, x, src, binp, wd)
+            rdx, rdw = binned_conv_grouped_bwd_ref(d, x, src, binp, wd)
+            sdx, sdw = binned_conv_grouped_bwd_ref(d.abs(), x.abs(), src,
+                                                   binp, wd.abs())
+            torch.cuda.synchronize()
+            if not torch.equal(dw, dw2):
+                raise AssertionError(f"K2 L{level} {cin}->{cout} {dtype}: dW "
+                                     f"differs between two launches")
+            tname = str(dtype).replace("torch.", "")
+            errs = {}
+            for key, got, ref, terms in (("dX", dx, rdx, sdx),
+                                         ("dW", dw, rdw, sdw)):
+                err = (got - ref).abs().max().item()
+                tol = SUM_ORDER_RTOL * terms.max().item()
+                if not err <= tol:
+                    raise AssertionError(f"K2 L{level} {cin}->{cout} {tname} "
+                                         f"{key}: max abs err {err} > {tol}")
+                errs[key] = (err, tol)
+            del rdx, rdw, sdx, sdw
+            ms = cuda_ms(lambda: binned_conv_grouped_bwd(d, x, src, binp, wd),
+                         iters=3, reps=3)
+            plain_ms = (cuda_ms(lambda: binned_conv_grouped_bwd_ref(
+                d, x, src, binp, wd), iters=1, reps=3)
+                if dtype == torch.bfloat16 else None)
+            es = x.element_size()
+            nbytes = (es * (d.numel() + x.numel() + wd.numel())
+                      + 8 * src.numel() + 4 * (v * cin + wd.numel()))
+            b_ms, b_by = bound(nbytes, 4 * live * cin * cout, tname)
+            rows.append(dict(level=level, cin=cin, cout=cout, dtype=tname,
+                             per_step=count, V=v, S=src.shape[1],
+                             live_slots=live,
+                             max_abs_err_dx=errs["dX"][0],
+                             tol_dx=errs["dX"][1],
+                             max_abs_err_dw=errs["dW"][0],
+                             tol_dw=errs["dW"][1], dw_bitwise_repeat=True,
+                             ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by))
+            log(f"  K2 L{level} {cin:3d}->{cout:3d} {tname:8s} x{count} "
+                f"V={v} S={src.shape[1]} live={live}: err dX "
+                f"{errs['dX'][0]:.3g} (tol {errs['dX'][1]:.3g}) dW "
+                f"{errs['dW'][0]:.3g} (tol {errs['dW'][1]:.3g}), dW bitwise "
+                f"repeatable  kernel {ms:.4f} ms  plain "
+                f"{plain_ms if plain_ms is None else round(plain_ms, 4)} ms  "
+                f"bound {b_ms:.4f} ms ({b_by})")
+            if dtype == torch.bfloat16:
+                main["ms"] += count * ms
+                main["plain_ms"] += count * plain_ms
+                main["bound_ms"] += count * b_ms
+                main["bound_t"][b_by] = (main["bound_t"].get(b_by, 0)
+                                         + count * b_ms)
+            main["max_abs_err"] = max(main["max_abs_err"], errs["dX"][0],
+                                      errs["dW"][0])
+    return rows, main
+
+
+def phase_k3_e8(hier, gen):
+    """K3 at E=8, the devoxelize adjoint of the train step, at L4 (C=256)
+    and L2 (C=128) of a real training batch, vs plain."""
+    import torch
+    from fusiontransformer_tpu_torch.ops import sparse_conv as sc
+    from fusiontransformer_tpu_torch.ops.kernels.segment_sum import (
+        sorted_segment_weighted_sum, sorted_segment_weighted_sum_ref)
+    dev = hier.pt_valid.device
+    n_pts = hier.pt_valid.shape[0]
+    rows, main = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                      "library_ms": 0.0, "max_abs_err": 0.0, "bound_t": {}}
+    for level, width in ((4, 256), (2, 128)):
+        plan = sc.devox_plan(hier, level)
+        num_out = hier.levels[level].valid.shape[0]
+        dout = torch.randn(n_pts, width, generator=gen).to(dev)
+        g, w, ids = sc.devox_adjoint_stream(dout, hier.pt_corner_w[level],
+                                            plan)
+        for precise in (False, True):
+            out = sorted_segment_weighted_sum(g, w, ids, num_out, precise)
+            ref = sorted_segment_weighted_sum_ref(g, w, ids, num_out, precise)
+            scale = sorted_segment_weighted_sum_ref(
+                g.abs(), w.abs(), ids, num_out, True).max().item()
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            if not err <= SUM_ORDER_RTOL * scale:
+                raise AssertionError(f"K3 E=8 L{level} precise={precise}: max "
+                                     f"abs err {err} > {SUM_ORDER_RTOL} x "
+                                     f"{scale}")
+            ms = cuda_ms(lambda: sorted_segment_weighted_sum(
+                g, w, ids, num_out, precise))
+            plain_ms = cuda_ms(lambda: sorted_segment_weighted_sum_ref(
+                g, w, ids, num_out, precise), iters=3, reps=3)
+            live = int((ids < num_out).sum())
+            nbytes = 4 * (g.numel() + w.numel() + ids.numel()
+                          + num_out * 8 * width)
+            b_ms, b_by = bound(nbytes, 2 * live * 8 * width, "float32")
+            contrib = (w[:, :, None] * g[:, None, :]).reshape(len(ids), -1)
+            ids_c = ids.long().clamp(max=num_out)
+            acc = torch.zeros(num_out + 1, 8 * width, device=dev)
+            lib_ms = cuda_ms(lambda: acc.index_add_(0, ids_c, contrib))
+            del contrib, acc
+            rows.append(dict(level=level, precise=precise, N=len(ids),
+                             C=width, E=8, num_out=num_out, max_abs_err=err,
+                             tol=SUM_ORDER_RTOL * scale, ms=ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=lib_ms))
+            log(f"  K3 E=8 L{level} precise={int(precise)} N={len(ids)} "
+                f"C={width} rows={num_out}: err {err:.3g} (tol "
+                f"{SUM_ORDER_RTOL * scale:.3g})  kernel {ms:.4f} ms  plain "
+                f"{plain_ms:.4f} ms  index_add_ {lib_ms:.4f} ms  bound "
+                f"{b_ms:.4f} ms ({b_by})")
+            if not precise:
+                main["ms"] += ms
+                main["plain_ms"] += plain_ms
+                main["bound_ms"] += b_ms
+                main["library_ms"] += lib_ms
+                main["bound_t"][b_by] = main["bound_t"].get(b_by, 0) + b_ms
+            main["max_abs_err"] = max(main["max_abs_err"], err)
+    return rows, main
+
+
+def phase_train_parity(cfg, state, host_batch, caps, conv_names):
+    """One f32 train step (TF32 off, dropout off) on the card and on the
+    CPU from the same weights and batch."""
+    import numpy as np
+    import torch
+    from fusiontransformer_tpu_torch.models import spvcnn
+    from fusiontransformer_tpu_torch.models.build import build_model
+    from fusiontransformer_tpu_torch.modules.steps import (device_batch,
+                                                           make_train_step)
+    from fusiontransformer_tpu_torch.solver.build import build_optimizer
+    cfg32 = cfg.clone()
+    cfg32.TPU.COMPUTE_DTYPE = "float32"
+    cfg32.freeze()
+    res = {}
+    dropout, spvcnn.DROPOUT = spvcnn.DROPOUT, 0.0
+    try:
+        for dev in ("cuda", "cpu"):
+            model = build_model(cfg32, dev)
+            model.load_state_dict(state)
+            opt, _ = build_optimizer(cfg32, model.parameters())
+            grads = {}
+            opt.register_step_pre_hook(
+                lambda o, a, k, m=model, g=grads: g.update(
+                    {n: p.grad.detach().cpu() for n, p in
+                     m.named_parameters()}))
+            t0 = time.time()
+            metrics = make_train_step(cfg32, model, opt)(
+                device_batch(host_batch, dev), torch.Generator(dev), caps)
+            metrics = {k: v.cpu() for k, v in metrics.items()}
+            res[dev] = (metrics, grads,
+                        {n: b.cpu() for n, b in model.named_buffers()},
+                        time.time() - t0)
+            del model, opt
+    finally:
+        spvcnn.DROPOUT = dropout
+    (mg, gg, bg, tg), (mc, gc, bc, tc) = res["cuda"], res["cpu"]
+    log(f"  step on the card {tg:.1f} s (first call), on the CPU {tc:.1f} s")
+    for k in ("total_loss", "seg_loss_2d", "seg_loss_3d", "xm_loss_2d",
+              "xm_loss_3d"):
+        d = abs(mg[k].item() - mc[k].item())
+        log(f"  {k}: card {mg[k].item():.7f} CPU {mc[k].item():.7f} "
+            f"(diff {d:.3g})")
+        if not d <= 1e-5 * abs(mc[k].item()):
+            raise AssertionError(f"{k}: card {mg[k].item()} vs CPU "
+                                 f"{mc[k].item()}")
+    for k in ("cm_2d", "cm_3d"):
+        if not torch.equal(mg[k], mc[k]):
+            raise AssertionError(f"{k} differs between card and CPU")
+    log("  confusion matrices: equal")
+    shares, conv_shares, bad = {}, [], []
+    for n, g in gc.items():
+        scale = g.abs().max().item()
+        err = (gg[n] - g).abs().max().item()
+        if not err <= LEAF_RTOL * scale + LEAF_ATOL:
+            bad.append((n, err, scale))
+        if scale > 0:
+            shares[n] = err / scale
+            if n in conv_names:
+                conv_shares.append(err / scale)
+    median = float(np.median(list(shares.values())))
+    conv_median = float(np.median(conv_shares))
+    for n, sh in sorted(shares.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"  gradient share {sh:.3g}: {n}")
+    if bad:
+        raise AssertionError(f"gradients beyond {LEAF_RTOL} x max|g| + "
+                             f"{LEAF_ATOL}: {bad}")
+    if not (median <= MEDIAN_RTOL and conv_median <= CONV_MEDIAN_RTOL):
+        raise AssertionError(f"median gradient share {median} (bound "
+                             f"{MEDIAN_RTOL}), conv kernels {conv_median} "
+                             f"(bound {CONV_MEDIAN_RTOL})")
+    stat_worst = 0.0
+    for n, b in bc.items():
+        err = (bg[n] - b).abs().max().item()
+        tol = 1e-4 * b.abs().max().item() + 1e-6
+        stat_worst = max(stat_worst, err / (b.abs().max().item() + 1e-12))
+        if not err <= tol:
+            raise AssertionError(f"BN statistic {n}: card vs CPU {err} > "
+                                 f"{tol}")
+    log(f"  gradients of {len(gc)} leaves: median share of the leaf's max "
+        f"|g| {median:.3g}, worst {max(shares.values()):.3g}; the "
+        f"{len(conv_shares)} K1/K2 conv kernels: median {conv_median:.3g}, "
+        f"worst {max(conv_shares):.3g} (bounds: medians {MEDIAN_RTOL} and "
+        f"{CONV_MEDIAN_RTOL}, each "
+        f"{LEAF_RTOL} + {LEAF_ATOL} abs); BN running statistics of "
+        f"{len(bc)} buffers: worst {stat_worst:.3g} of their max (bound "
+        f"1e-4)")
+    return {"cpu_s": tc, "card_s": tg, "median_grad_share": median,
+            "worst_grad_share": max(shares.values()),
+            "conv_median_share": conv_median,
+            "conv_worst_share": max(conv_shares),
+            "bn_worst_share": stat_worst,
+            "losses": {k: [mg[k].item(), mc[k].item()]
+                       for k in ("total_loss", "seg_loss_2d",
+                                 "seg_loss_3d")}}
+
+
+def train_step_split(trainer, db, caps):
+    """One train step with CUDA events between its parts (the body of
+    ``modules.steps.make_train_step``): hierarchy + forward + losses,
+    backward, optimizer, metrics.  Returns the parts in ms."""
+    import torch
+    from fusiontransformer_tpu_torch.modules.steps import (class_weights_of,
+                                                           confusions,
+                                                           hier_from_cfg,
+                                                           losses)
+    cfg, model, opt = trainer.cfg, trainer.model, trainer.optimizer
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ev[0].record()
+    model.train()
+    hier = hier_from_cfg(cfg, db, caps)
+    out = model(db, hier, generator=trainer.generator)
+    total, _ = losses(cfg, out, db, class_weights_of(cfg, db["feats"].device))
+    ev[1].record()
+    opt.zero_grad(set_to_none=True)
+    total.backward()
+    ev[2].record()
+    for p in model.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    opt.step()
+    ev[3].record()
+    with torch.no_grad():
+        confusions(cfg, out, db)
+    ev[4].record()
+    ev[4].synchronize()
+    return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+
+
+def train_breakdown(trainer, top=12):
+    """Where a train step's time goes, on batches of the trainer's own
+    loader: host collate + slot maps (host clock), copy and step (CUDA
+    events), the step's parts, the device busy share (profiler kernel time
+    over the step's CUDA-event time), steady scans/s."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from fusiontransformer_tpu_torch.modules.steps import device_batch
+    loader = trainer.train_dataloader
+    ds, collate = loader.dataset, loader.collate_fn
+    t0 = time.perf_counter()
+    items = [ds[i] for i in range(TRAIN_BATCH)]
+    item_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_BATCH
+    rows = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        hb = collate(items)
+        t1 = time.perf_counter()
+        caps = trainer.level_caps(hb)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        db = device_batch(hb, trainer.device)
+        e1.record()
+        parts = train_step_split(trainer, db, caps)
+        wall = (time.perf_counter() - t1) * 1e3
+        rows.append([(t1 - t0) * 1e3, e0.elapsed_time(e1)] + parts + [wall])
+    med = [statistics.median(r[i] for r in rows) for i in range(len(rows[0]))]
+    collate_ms, copy_ms, fwd_ms, bwd_ms, opt_ms, met_ms, wall_ms = med
+    step_ms = fwd_ms + bwd_ms + opt_ms + met_ms
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(db, trainer.generator, caps)
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False):
+            n, ms = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    kernel_ms = sum(ms for _, ms in by_name.values())
+    n_kernels = sum(n for n, _ in by_name.values())
+    busy = kernel_ms / step_ms if n_kernels else None
+    log(f"train step (batch {TRAIN_BATCH}, medians of 3): dataset item "
+        f"{item_ms:.1f} ms/scan, collate + slot maps {collate_ms:.1f} ms "
+        f"(host clock), copy {copy_ms:.2f} ms, step {step_ms:.2f} ms (CUDA "
+        f"events) = hierarchy + forward + losses {fwd_ms:.2f} + backward "
+        f"{bwd_ms:.2f} + optimizer {opt_ms:.2f} + metrics {met_ms:.2f}; "
+        f"copy + step {wall_ms:.1f} ms on the host clock -> "
+        f"{TRAIN_BATCH / max(wall_ms, collate_ms) * 1e3:.2f} scans/s with "
+        f"the next batch's collate overlapped (the loader's prefetch "
+        f"thread), {TRAIN_BATCH / (wall_ms + collate_ms) * 1e3:.2f} scans/s "
+        f"without")
+    log(f"profiler: {n_kernels} device activities, {kernel_ms:.2f} ms, busy "
+        f"share {busy if busy is None else round(busy, 3)}")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    for name, (n, ms) in ranked:
+        log(f"  {ms:8.3f} ms  x{n:<5d} {name[:100]}")
+    return {"item_ms_per_scan": item_ms, "collate_ms": collate_ms,
+            "copy_ms": copy_ms, "step_ms": step_ms,
+            "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+            "optimizer_ms": opt_ms, "metrics_ms": met_ms,
+            "copy_and_step_wall_ms": wall_ms,
+            "scans_per_s_collate_overlapped":
+                TRAIN_BATCH / max(wall_ms, collate_ms) * 1e3,
+            "scans_per_s_serial": TRAIN_BATCH / (wall_ms + collate_ms) * 1e3,
+            "device_activities": n_kernels, "kernel_ms": kernel_ms,
+            "busy_share": busy,
+            "top": [{"name": k, "count": n, "ms": ms}
+                    for k, (n, ms) in ranked]}
+
+
+# --------------------------------------------------------------------------- #
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -333,12 +727,22 @@ def main() -> int:
     from fusiontransformer_tpu_torch.ops.kernels import (LAUNCHES,
                                                          reset_launches)
     from fusiontransformer_tpu_torch.ops.kernels import build as kbuild
+    from fusiontransformer_tpu_torch.ops.kernels.segment_sum import (
+        launch_name)
+    k3_name, k3e8_name = launch_name(1), launch_name(8)
     from fusiontransformer_tpu_torch.serving.engine import InferenceEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
     card = card_line()
+    t_start = time.time()
+    phase_s = {}
+
+    def phase_end(name):
+        phase_s[name] = round(time.time() - t_start - sum(phase_s.values()),
+                              1)
+        log(f"-- phase {name}: {phase_s[name]} s")
 
     # ---- 1. device and build
     log("== 1. device and build")
@@ -379,13 +783,16 @@ def main() -> int:
         f"{[l.valid.shape[0] for l in hier.levels]}, pool sizes "
         f"{[l.slot_idx[0].shape[1] for l in hier.levels if l.slot_idx]}")
 
+    phase_end("1")
     log("== 2. K3 sorted_segment_weighted_sum vs plain")
     k3_rows, k3 = phase_k3(hier, gen)
+    phase_end("2")
     log("== 3. K1 binned_conv_grouped_fwd vs plain")
     k1_rows, k1, k1_per_request = phase_k1(hier, engine.model, gen)
+    phase_end("3")
 
     # ---- 4. main path
-    log("== 4. main path: InferenceEngine, bf16, batch 1")
+    log("== 4. inference path: InferenceEngine, bf16, batch 1")
     warm = engine.warmup()
     log(f"warmup (s per bucket): {warm}")
     reset_launches()
@@ -406,7 +813,7 @@ def main() -> int:
     if stats["voxel_overflow"] != 0 or stats["collate_dropped_points"] != 0:
         raise AssertionError(f"lossy request path: {stats}")
     want = {"binned_conv_grouped_fwd": k1_per_request * N_REQUESTS,
-            "sorted_segment_weighted_sum": 2 * N_REQUESTS}
+            k3_name: 2 * N_REQUESTS}
     for name, n in want.items():
         if launches.get(name, 0) != n:
             raise AssertionError(f"{name}: {launches.get(name, 0)} launches "
@@ -443,6 +850,7 @@ def main() -> int:
     db = device_batch(engine.collate([engine.preprocess(recs[0])]),
                       engine.device)
     breakdown = step_breakdown(engine, db)
+    phase_end("4")
 
     # ---- 5. main path against the plain path (f32, card vs CPU)
     log("== 5. f32 on the card vs the plain path on the CPU")
@@ -492,10 +900,118 @@ def main() -> int:
         log(f"  bf16 vs f32 on the card, {key}: agreement "
             f"{bf16_drift[key]:.6f}")
 
-    # ---- 6. kernels line
-    def entry(name, source, replaces, m, library_ms):
+    del e_gpu, e_cpu, m_gpu, m_cpu, engine
+    torch.cuda.empty_cache()
+    phase_end("5")
+
+    # ---- 6. K2 and K3 E=8 on a real training batch
+    log("== 6. K2 binned_conv_grouped_bwd and K3 at E=8 vs plain, on a "
+        "training batch")
+    from fusiontransformer_tpu_torch.data.build import slot_pool_spec
+    from fusiontransformer_tpu_torch.data.collate import get_collate
+    from fusiontransformer_tpu_torch.modules.SemanticTrainer import (
+        SemanticTrainer)
+    tcfg = train_cfg()
+    t0 = time.time()
+    trainer = SemanticTrainer(tcfg)
+    ds = trainer.train_dataloader.dataset
+    hb = trainer.train_dataloader.collate_fn(
+        [ds[i] for i in range(TRAIN_BATCH)])
+    if hb["gslot_overflow"] != 0 or hb["num_dropped"] != 0:
+        raise AssertionError(f"lossy training batch: slot overflow "
+                             f"{hb['gslot_overflow']}, dropped "
+                             f"{hb['num_dropped']}")
+    caps = trainer.level_caps(hb)
+    thier = hier_from_cfg(tcfg, device_batch(hb, trainer.device), caps)
+    log(f"trainer built in {time.time() - t0:.1f} s; training batch: "
+        f"{int(hb['scan_count'].sum())} voxels in {TRAIN_BATCH} scans, "
+        f"buffer {len(hb['pt_valid'])}, adaptive level caps {caps}, pool "
+        f"sizes {[l.slot_idx[0].shape[1] for l in thier.levels if l.slot_idx]}")
+    k2_rows, k2 = phase_k2(thier, trainer.model, gen)
+    k3e8_rows, k3e8 = phase_k3_e8(thier, gen)
+    convs_per_step = len(grouped_convs(trainer.model, thier))
+    del thier
+    torch.cuda.empty_cache()
+    phase_end("6")
+
+    # ---- 7. train step, card vs CPU
+    log(f"== 7. one f32 train step on the card vs the plain path on the "
+        f"CPU (cut: batch {TRAIN_BATCH} -> {PARITY_SCANS} scans; full "
+        f"width and depth)")
+    collate2 = get_collate(
+        PARITY_SCANS, tcfg.TPU.POINT_CAPACITY,
+        tcfg.DATASET.SyntheticSCN.image_height,
+        tcfg.DATASET.SyntheticSCN.image_width,
+        tuple(tcfg.TPU.CAPACITY_BUCKETS),
+        level_counts=1 + len(tcfg.TPU.LEVEL_CAPACITY_FRACTIONS),
+        slot_pool=slot_pool_spec(tcfg, adaptive=True))
+    hb2 = collate2([ds[i] for i in range(PARITY_SCANS)])
+    state = {k: v.cpu() for k, v in trainer.model.state_dict().items()}
+    # The ks3 convs at L0-L3, which run K1 and K2 (stage4 is at L4, dense).
+    conv_names = {f"lidar_backbone.backbone.{n}.kernel"
+                  for n, m in trainer.model.lidar_backbone.backbone
+                  .named_modules() if type(m).__name__ == "SubMConv3"
+                  and not n.startswith("stage4")}
+    parity = phase_train_parity(tcfg, state, hb2, trainer.level_caps(hb2),
+                                conv_names)
+    del state
+    phase_end("7")
+
+    # ---- 8. the training path
+    log(f"== 8. training path: SemanticTrainer, bf16, batch {TRAIN_BATCH}, "
+        f"{TRAIN_STEPS} steps + validation over {len(ds)} scans")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    tlaunches = dict(LAUNCHES)
+    n_val = len(trainer.val_dataloader)
+    meters = trainer.train_metric_logger.meters
+    if trainer.step != TRAIN_STEPS:
+        raise AssertionError(f"{trainer.step} train steps, expected "
+                             f"{TRAIN_STEPS}")
+    for k in ("total_loss", "seg_loss_2d", "seg_loss_3d", "xm_loss_2d",
+              "xm_loss_3d"):
+        if not np.isfinite(meters[k].global_avg):
+            raise AssertionError(f"non-finite {k}")
+    if meters["voxel_overflow"].sum != 0 or meters["slot_overflow"].sum != 0:
+        raise AssertionError(f"lossy train steps: voxel_overflow "
+                             f"{meters['voxel_overflow'].sum}, slot "
+                             f"{meters['slot_overflow'].sum}")
+    n_fwd = TRAIN_STEPS + n_val
+    want = {"binned_conv_grouped_fwd": convs_per_step * n_fwd,
+            "binned_conv_grouped_bwd": convs_per_step * TRAIN_STEPS,
+            k3_name: 2 * n_fwd, k3e8_name: 2 * TRAIN_STEPS}
+    for name, n in want.items():
+        if tlaunches.get(name, 0) != n:
+            raise AssertionError(f"{name}: {tlaunches.get(name, 0)} launches "
+                                 f"on the training path, expected {n}")
+    val = {k: trainer.val_metric_logger.meters[k].global_avg
+           for k in ("seg_iou_2d", "seg_iou_3d", "seg_loss_2d",
+                     "seg_loss_3d")}
+    if not all(np.isfinite(v) for v in val.values()):
+        raise AssertionError(f"non-finite validation metrics {val}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = {k: meters[k].global_avg for k in
+              ("total_loss", "seg_loss_2d", "seg_loss_3d", "xm_loss_2d",
+               "xm_loss_3d")}
+    log(f"trained {TRAIN_STEPS} steps + validated {n_val} batches in "
+        f"{train_s:.1f} s ({TRAIN_STEPS * TRAIN_BATCH / train_s:.2f} train "
+        f"scans/s over the whole run, first-step set-up and validation "
+        f"included; {card}); launches {tlaunches} = per train step K1 "
+        f"{convs_per_step}, K2 {convs_per_step}, K3 2, K3[E=8] 2, and per "
+        f"eval step K1 {convs_per_step}, K3 2; voxel_overflow 0, slot "
+        f"overflow 0; mean losses {losses}; validation {val}; peak device "
+        f"memory {peak_gb:.1f} GB")
+    tbreak = train_breakdown(trainer)
+    phase_end("8")
+
+    # ---- 9. kernels line
+    def entry(name, source, replaces, m, library_ms, launches_of):
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches.get(name, 0),
+                "replaces": replaces, "launches": launches_of.get(name, 0),
                 "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                 "bound_by": max(m["bound_t"], key=m["bound_t"].get),
@@ -503,20 +1019,37 @@ def main() -> int:
 
     detail = {"card": card, "binned_conv_grouped_fwd": k1_rows,
               "sorted_segment_weighted_sum": k3_rows,
+              "binned_conv_grouped_bwd": k2_rows,
+              "sorted_segment_weighted_sum_e8": k3e8_rows,
               "engine": {"p50_ms": p50 * 1e3,
                          "scans_per_s": 1 / statistics.mean(lat),
                          "latencies_ms": [x * 1e3 for x in lat],
                          "request_split_ms": split_ms,
                          "step_breakdown": breakdown,
                          "f32_card_vs_cpu_max_abs": worst,
-                         "bf16_vs_f32_on_card": bf16_drift}}
-    log("== 6. kernels (ms, plain_ms, bound_ms, library_ms: per request "
-        "at batch 1, summed over the path's calls, bf16)")
+                         "bf16_vs_f32_on_card": bf16_drift},
+              "train": {"batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
+                        "val_batches": n_val, "run_s": train_s,
+                        "launches": tlaunches, "losses": losses,
+                        "validation": val, "peak_memory_gb": peak_gb,
+                        "breakdown": tbreak, "card_vs_cpu": parity},
+              "phase_s": phase_s}
+    log("== 9. kernels (ms, plain_ms, bound_ms, library_ms: K1 and K3 per "
+        "inference request at batch 1, K2 and K3[E=8] per train step at "
+        f"batch {TRAIN_BATCH}; each summed over the path's calls, bf16; "
+        "launches from the path each entry is timed on)")
     log("detail: " + json.dumps(detail))
+    log(f"phase seconds: {phase_s}, total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [
-        entry("binned_conv_grouped_fwd", K1_SOURCE, K1_REPLACES, k1, None),
-        entry("sorted_segment_weighted_sum", K3_SOURCE, K3_REPLACES, k3,
-              k3["library_ms"])]}), flush=True)
+        entry("binned_conv_grouped_fwd", K1_SOURCE, K1_REPLACES, k1, None,
+              launches),
+        entry("binned_conv_grouped_bwd", K1_SOURCE, K2_REPLACES, k2, None,
+              tlaunches),
+        entry(k3_name, K3_SOURCE, K3_REPLACES, k3, k3["library_ms"],
+              launches),
+        entry(k3e8_name, K3_SOURCE, K3_REPLACES, k3e8, k3e8["library_ms"],
+              tlaunches)]}), flush=True)
+    log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

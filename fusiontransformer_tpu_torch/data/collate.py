@@ -13,6 +13,7 @@ exactly like the reference.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict, List
 
 import numpy as np
@@ -24,7 +25,17 @@ from fusiontransformer_tpu_torch.ops.host_slots import (assemble_grouped_slots,
 
 def collate_padded(samples: List[Dict], batch_size: int, point_capacity: int,
                    image_height: int, image_width: int,
-                   capacity_buckets: tuple = (), slot_pool=None):
+                   capacity_buckets: tuple = (), slot_pool=None,
+                   level_counts: int = 0):
+    """Pad ``samples`` into one batch.
+
+    ``level_counts``: when > 0, the batch carries ``level_counts`` (exact
+    unique-voxel counts of the first that many hierarchy levels, summed over
+    scans) and ``level_counts_per_scan``, which size the train step's
+    capacities (``modules.steps.adaptive_level_caps``).  ``slot_pool``: a
+    ``SlotPoolSpec``; the batch then carries group-pooled slot maps at the
+    capacities the step's hierarchy will have.
+    """
     b = batch_size
     cap = point_capacity
     if capacity_buckets:
@@ -76,31 +87,52 @@ def collate_padded(samples: List[Dict], batch_size: int, point_capacity: int,
         h, w = img.shape[:2]
         out["img"][i, :h, :w] = img
         out["img_indices"][lo:lo + k] = s["img_indices"][:k]
-        out["orig_seg_label"].append(s["orig_seg_label"])
-        out["sparse_orig_points_idx"].append(s["sparse_orig_points_idx"])
-        out["inverse_map"].append(s["inverse_map"])
+        out["orig_seg_label"].append(s.get("orig_seg_label"))
+        out["sparse_orig_points_idx"].append(s.get("sparse_orig_points_idx"))
+        out["inverse_map"].append(s.get("inverse_map"))
         out["seq"].append(s.get("seq", ""))
         out["filename"].append(s.get("filename", ""))
 
+    if not (level_counts or slot_pool is not None):
+        return out
+    # Each scan's Morton pyramid (ops/host_slots.py): level l is the unique
+    # set of coords >> l, so its length is the scan's exact voxel count
+    # there.  The hierarchy keys include the scan index, so per-scan counts
+    # sum exactly to the batch's.
+    num_levels = max(level_counts,
+                     slot_pool.num_levels if slot_pool is not None else 0)
+    pyramids, cnts = [], np.zeros((b, num_levels), np.int64)
+    for i, s in enumerate(samples):
+        k = min(len(s["coords"]), cap)
+        levels = scan_levels(np.asarray(s["coords"][:k]), num_levels)
+        pyramids.append(levels)
+        cnts[i] = [len(lv["key"]) for lv in levels]
+    if level_counts:
+        out["level_counts"] = cnts[:, :level_counts].sum(0)
+        out["level_counts_per_scan"] = cnts[:, :level_counts]
     if slot_pool is not None:
-        # Host-built group-pooled conv slot maps (ops/host_slots.py): walk
-        # each scan's Morton pyramid, join its ks3 neighbors and emit
-        # pre-packed [cap/8, S] maps at the capacities the step's hierarchy
-        # will have for this buffer (modules/steps.level_caps_for_n).
-        tris, cnts = [], []
-        for s in samples:
-            k = min(len(s["coords"]), cap)
-            levels = scan_levels(np.asarray(s["coords"][:k]),
-                                 slot_pool.num_levels)
-            tris.append(scan_slot_triples(levels, slot_pool.slot_levels))
-            cnts.append([len(lv["key"]) for lv in levels])
+        # Host-built group-pooled conv slot maps: join each scan's ks3
+        # neighbors and emit pre-packed [cap/8, S] maps at the capacities
+        # the step's hierarchy will have for this buffer.
+        tris = [scan_slot_triples(lv, slot_pool.slot_levels)
+                for lv in pyramids]
         maps, overflow = assemble_grouped_slots(
-            tris, np.asarray(cnts) if cnts else
-            np.zeros((0, slot_pool.num_levels), np.int64),
-            slot_pool.caps(n), slot_pool.slot_levels,
-            quantum=slot_pool.quantum)
+            tris, cnts[:len(samples), :slot_pool.num_levels],
+            slot_pool.caps_for(n, cnts.sum(0)[:slot_pool.num_levels]),
+            slot_pool.slot_levels, quantum=slot_pool.quantum)
         for l, (src, binp) in maps.items():
             out[f"gslot_src_{l}"] = src
             out[f"gslot_bin_{l}"] = binp
         out["gslot_overflow"] = overflow
     return out
+
+
+def get_collate(batch_size: int, point_capacity: int, image_height: int,
+                image_width: int, capacity_buckets: tuple = (),
+                level_counts: int = 0, slot_pool=None):
+    """``collate_padded`` with its batch settings bound."""
+    return partial(collate_padded, batch_size=batch_size,
+                   point_capacity=point_capacity, image_height=image_height,
+                   image_width=image_width,
+                   capacity_buckets=tuple(capacity_buckets),
+                   slot_pool=slot_pool, level_counts=level_counts)

@@ -31,23 +31,29 @@ def _class_palette(n):
 
 class SyntheticSCN:
     """KITTI-shaped synthetic dataset: 20 classes, 5 cm voxels in a 4096^3
-    grid, no augmentation; items carry the eval-time fields (original
-    labels, inverse map) that the JAX package emits with
-    ``output_orig=True``."""
+    grid.  Items carry the eval-time fields (original labels, inverse map)
+    that the JAX package emits with ``output_orig=True``.  ``aug``: the
+    training split's augmentations (``noisy_rot``, ``flip_y``, ``rot_z``,
+    ``transl`` of ``augment_and_scale_3d``), drawn from each item's
+    ``RandomState(seed + index)`` after the scan, as in the JAX package."""
 
     num_classes = 20
     scale = 20
     full_scale = 4096
+    class_names = tuple(f"class_{i}" for i in range(num_classes))
+    class_labels = tuple(range(num_classes))
 
     def __init__(self, split=("train",), num_scans=8, num_points=4096,
-                 image_width=1226, image_height=370):
+                 image_width=1226, image_height=370, seed=0, **aug):
         self.split = split
         self.num_scans = num_scans
         self.num_points = num_points
         self.image_width = image_width
         self.image_height = image_height
-        self.seed = {"train": 0, "val": 10_000, "test": 20_000}.get(split[0],
-                                                                     0)
+        self.aug = {k: v for k, v in aug.items()
+                    if k in ("noisy_rot", "flip_y", "rot_z", "transl")}
+        self.seed = seed + {"train": 0, "val": 10_000,
+                            "test": 20_000}.get(split[0], 0)
         # KITTI-like intrinsics scaled to the synthetic image size.
         self.fx = 707.0 * image_width / 1226.0
         self.fy = 707.0 * image_height / 370.0
@@ -180,7 +186,8 @@ class SyntheticSCN:
                          3).astype(np.float32)
         img = self._render_image(surfaces, noise)
 
-        coords = augment_and_scale_3d(points, self.scale).astype(np.int64)
+        coords = augment_and_scale_3d(points, self.scale, self.full_scale,
+                                      rng=rng, **self.aug).astype(np.int64)
         keep = (coords.min(1) >= 0) & (coords.max(1) < self.full_scale)
         vox_coords = coords[keep]
         vox_feats = feats[keep]

@@ -8,7 +8,9 @@ Port of ``fusiontransformer_tpu/models/fusion.py``.  All three pair a
   added at the UNet bottleneck z1;
 * early  — ViT block features, Linear(96->32)+BN+ReLU, added to z0.
 
-Image features are detached before they enter the lidar stream.
+Image features are detached before they enter the lidar stream, so the
+lidar losses send no gradient into the image stream (the JAX package's
+``stop_gradient``).
 """
 
 from __future__ import annotations
@@ -39,8 +41,9 @@ class Net3DSeg(nn.Module):
             self.linear2 = TorchLinear(width, num_classes,
                                        compute_dtype=compute_dtype)
 
-    def forward(self, pt_feats, hier, fusion_feats=None):
-        feats = self.backbone(pt_feats, hier, fusion_feats=fusion_feats)
+    def forward(self, pt_feats, hier, fusion_feats=None, generator=None):
+        feats = self.backbone(pt_feats, hier, fusion_feats=fusion_feats,
+                              generator=generator)
         preds = {"lidar_feats": feats,
                  "lidar_seg_logit": self.linear(feats)}
         if hasattr(self, "linear2"):
@@ -72,14 +75,17 @@ class FusionTransformerBase(nn.Module):
             num_classes=num_classes, dual_head=dual_head, fusion=fusion,
             cr=cr, compute_dtype=compute_dtype)
 
-    def forward(self, batch, hier):
+    def forward(self, batch, hier, generator=None):
+        """``generator``: the ``torch.Generator`` (on the batch's device)
+        that training-mode dropout draws from."""
         preds_image = self.image_backbone(batch["img"], batch["img_indices"],
                                           batch["pt_batch"])
         fusion_feats = None
         if self.fusion in ("early", "middle"):
             fusion_feats = preds_image["img_middle_feats"].detach()
         preds_lidar = self.lidar_backbone(batch["feats"], hier,
-                                          fusion_feats=fusion_feats)
+                                          fusion_feats=fusion_feats,
+                                          generator=generator)
         out = {"lidar_seg_logit": preds_lidar["lidar_seg_logit"],
                "img_seg_logit": preds_image["img_seg_logit"]}
         if self.dual_head:

@@ -25,6 +25,7 @@ from fusiontransformer_tpu_torch.models.layers import (MaskedBatchNorm,
                                                        MaskedBatchNorm2d,
                                                        TorchLinear)
 from fusiontransformer_tpu_torch.models.vit import VisionTransformer2D
+from fusiontransformer_tpu_torch.ops.sparse_conv import index_rows
 
 
 FEAT_CHANNELS = 96      # width of the lifted per-point image features
@@ -65,7 +66,7 @@ class SampleDown(nn.Module):
         x = self.bn(F.relu(self.conv(img)))
         ri = nearest_resize_idx(h, self.out_size, img.device)
         ci = nearest_resize_idx(w, self.out_size, img.device)
-        return x[:, ri][:, :, ci]
+        return x.index_select(1, ri).index_select(2, ci)
 
 
 class Net2DBilinear(nn.Module):
@@ -109,7 +110,7 @@ class Net2DBilinear(nn.Module):
         r, col = img_indices[:, 0].long(), img_indices[:, 1].long()
         tok = (r * g) // self.image_height * g + (col * g) // self.image_width
         idx = (pt_batch.long().clamp(0, b - 1) * t + tok.clamp(0, t - 1))
-        return tok_feats.reshape(b * t, c)[idx]
+        return index_rows(tok_feats.reshape(b * t, c), idx)
 
     def forward(self, img, img_indices, pt_batch):
         taps = self.backbone(self.sample_down(img))

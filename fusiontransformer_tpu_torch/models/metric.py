@@ -1,0 +1,66 @@
+"""Training metrics (torch).
+
+Port of ``confusion_matrix_from_logits`` and ``SegIoU`` of
+``fusiontransformer_tpu/models/metric.py``: the confusion matrix of one
+step is computed on the device (argmax + bincount, class 0 ignored) and
+accumulated on the host in a numpy matrix.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def confusion_matrix_from_logits(logits, labels, valid, num_classes: int,
+                                 ignore_index: int = 0):
+    """[C, C] int64 confusion matrix (rows = gt, cols = pred) of the valid
+    points whose label is not ``ignore_index``."""
+    pred = torch.argmax(logits, dim=-1)
+    labels = labels.long()
+    mask = valid & (labels != ignore_index)
+    idx = torch.where(mask, labels * num_classes + pred,
+                      num_classes * num_classes)
+    counts = torch.bincount(idx, minlength=num_classes * num_classes + 1)
+    return counts[:-1].reshape(num_classes, num_classes)
+
+
+class SegIoU:
+    """Confusion-matrix mean-IoU meter (class 0 ignored upstream)."""
+
+    def __init__(self, num_classes, name="seg_iou"):
+        self.num_classes = num_classes
+        self.name = name
+        self.mat = None
+
+    def update_matrix(self, cm):
+        if self.mat is None:
+            self.mat = np.zeros((self.num_classes, self.num_classes),
+                                np.int64)
+        self.mat += np.asarray(cm, np.int64)
+
+    def reset(self):
+        self.mat = None
+
+    @property
+    def iou(self):
+        h = self.mat.astype(np.float64)
+        diag = np.diag(h)
+        denom = h.sum(1) + h.sum(0) - diag
+        with np.errstate(divide="ignore", invalid="ignore"):
+            return diag / denom
+
+    @property
+    def global_avg(self):
+        return float(np.nanmean(self.iou)) if self.mat is not None else 0.0
+
+    @property
+    def avg(self):
+        return self.global_avg
+
+    def __str__(self):
+        return "{:.4f}".format(self.global_avg)
+
+    @property
+    def summary_str(self):
+        return str(self)

@@ -4,7 +4,8 @@ Port of ``fusiontransformer_tpu/models/spvcnn.py``: channel plan
 ``cs = [32,32,64,128,256,256,128,96,96] * cr``; a two-conv stem at level 0,
 four (ks2-stride2 + 2 residual blocks) down stages, four (transposed ks2 +
 skip concat + 2 residual blocks) up stages, three point-transform MLPs with
-additive point-stream skips, dropout 0.3 on the decoder inputs in training,
+additive point-stream skips, dropout 0.3 on the decoder inputs in training
+(drawn from the ``torch.Generator`` the train step passes in),
 and the early/middle fusion injection (Linear+BN+ReLU of the lifted image
 features).  The forward consumes a precomputed ``ops.hierarchy.Hierarchy``.
 Submodule names are the flax names.
@@ -57,17 +58,18 @@ class DownConv2(_ConvKernel):
     def __init__(self, cin, cout, compute_dtype=torch.bfloat16):
         super().__init__(8, cin, cout, compute_dtype)
 
-    def forward(self, x, child_idx):
-        return sc.down_conv2(x, self.kernel, child_idx, self.compute_dtype)
+    def forward(self, x, child_idx, parent_idx, child_kidx):
+        return sc.down_conv2(x, self.kernel, child_idx, self.compute_dtype,
+                             parent_idx, child_kidx)
 
 
 class UpConv2(_ConvKernel):
     def __init__(self, cin, cout, compute_dtype=torch.bfloat16):
         super().__init__(8, cin, cout, compute_dtype)
 
-    def forward(self, x, parent_idx, child_kidx):
+    def forward(self, x, parent_idx, child_kidx, child_idx):
         return sc.up_conv2(x, self.kernel, parent_idx, child_kidx,
-                           self.compute_dtype)
+                           self.compute_dtype, child_idx)
 
 
 class Conv1x1(_ConvKernel):
@@ -173,14 +175,25 @@ class SPVCNN(nn.Module):
         h = self.fusion_linear(fusion_feats)
         return F.relu(self.fusion_bn(h, pt_valid))
 
-    def _drop(self, x):
-        return F.dropout(x, DROPOUT, training=self.training)
+    def _drop(self, x, generator):
+        """Dropout of the decoder inputs in training: keep each value with
+        probability 1 - DROPOUT (drawn from ``generator``, which lies on
+        ``x``'s device) and scale the kept ones by 1 / (1 - DROPOUT)."""
+        if not self.training or DROPOUT == 0:
+            return x
+        if generator is None:
+            raise ValueError("training-mode dropout needs the step's "
+                             "torch.Generator")
+        keep = torch.rand(x.shape, generator=generator,
+                          device=x.device) >= DROPOUT
+        return x * keep.to(x.dtype) / (1.0 - DROPOUT)
 
     def _up(self, k, y, fine, skip, hier):
         """Up stage k (1..4): level ``fine + 1`` -> level ``fine``."""
         L = hier.levels
         y = getattr(self, f"up{k}_deconv")(y, L[fine].parent_idx,
-                                           L[fine].child_kidx)
+                                           L[fine].child_kidx,
+                                           L[fine + 1].child_idx)
         y = F.relu(getattr(self, f"up{k}_deconv_bn")(y, L[fine].valid))
         y = torch.cat([y, skip], dim=-1)
         for name in ("res1", "res2"):
@@ -189,7 +202,7 @@ class SPVCNN(nn.Module):
                                                L[fine].slot_idx)
         return y
 
-    def forward(self, pt_feats, hier, fusion_feats=None):
+    def forward(self, pt_feats, hier, fusion_feats=None, generator=None):
         L = hier.levels
         masks = [l.valid for l in L]
 
@@ -209,7 +222,9 @@ class SPVCNN(nn.Module):
         skips = [x0]
         for i in range(4):
             lvl = L[i + 1]
-            h = getattr(self, f"stage{i+1}_down")(feats_in, lvl.child_idx)
+            h = getattr(self, f"stage{i+1}_down")(feats_in, lvl.child_idx,
+                                                  L[i].parent_idx,
+                                                  L[i].child_kidx)
             h = F.relu(getattr(self, f"stage{i+1}_down_bn")(h, masks[i + 1]))
             h = getattr(self, f"stage{i+1}_res1")(h, lvl.nbr_idx,
                                                   masks[i + 1], lvl.slot_idx)
@@ -219,30 +234,33 @@ class SPVCNN(nn.Module):
             feats_in = h
 
         # z1 = v2p(x4) + PT0(z0) (+ middle fusion injection)
+        cdt = self.stem0.compute_dtype
+        plan4, plan2 = sc.devox_plan(hier, 4), sc.devox_plan(hier, 2)
         z1 = sc.devoxelize_trilinear(feats_in, hier.pt_corner_idx[4],
-                                     hier.pt_corner_w[4])
+                                     hier.pt_corner_w[4], plan=plan4,
+                                     compute_dtype=cdt)
         z1 = z1 + self.point_transform0(z0, hier.pt_valid)
         if self.fusion == "middle":
             z1 = z1 + self._fusion_transform(fusion_feats, hier.pt_valid)
 
         # Decoder stages 1+2 (L4 -> L3 -> L2).
-        cdt = self.stem0.compute_dtype
         y = sc.voxelize_mean(z1, hier.pt_voxel_idx[4], hier.pt_valid,
-                             L[4].valid.shape[0],
-                             plan=sc.devox_plan(hier, 4), compute_dtype=cdt)
-        y = self._up(1, self._drop(y), 3, skips[3], hier)
+                             L[4].valid.shape[0], plan=plan4,
+                             compute_dtype=cdt)
+        y = self._up(1, self._drop(y, generator), 3, skips[3], hier)
         y = self._up(2, y, 2, skips[2], hier)
 
         # z2 = v2p(y2) + PT1(z1)
         z2 = sc.devoxelize_trilinear(y, hier.pt_corner_idx[2],
-                                     hier.pt_corner_w[2])
+                                     hier.pt_corner_w[2], plan=plan2,
+                                     compute_dtype=cdt)
         z2 = z2 + self.point_transform1(z1, hier.pt_valid)
 
         # Decoder stages 3+4 (L2 -> L1 -> L0).
         y = sc.voxelize_mean(z2, hier.pt_voxel_idx[2], hier.pt_valid,
-                             L[2].valid.shape[0],
-                             plan=sc.devox_plan(hier, 2), compute_dtype=cdt)
-        y = self._up(3, self._drop(y), 1, skips[1], hier)
+                             L[2].valid.shape[0], plan=plan2,
+                             compute_dtype=cdt)
+        y = self._up(3, self._drop(y, generator), 1, skips[1], hier)
         y = self._up(4, y, 0, skips[0], hier)
 
         # z3 = v2p(y4) + PT2(z2) — identity gather at stride 1.

@@ -1,20 +1,43 @@
-"""Capacity rules and hierarchy construction shared by the port's steps.
+"""Train and eval steps, capacity rules and hierarchy construction (torch).
 
-The inference part of ``fusiontransformer_tpu/modules/steps.py``:
-``level_caps_for_n`` sizes the voxel levels from the batch's point buffer
-exactly as the JAX step does, ``hier_from_cfg`` builds the hierarchy (with
-the batch's group-pooled slot maps attached when it carries them), and
-``device_batch`` moves the array part of a collated batch to the device.
+Port of ``fusiontransformer_tpu/modules/steps.py``:
+
+* ``level_caps_for_n`` sizes the voxel levels from the batch's point buffer,
+  ``adaptive_level_caps`` from the batch's exact per-level voxel counts up
+  the capacity ladder (``TPU.ADAPTIVE_LEVEL_CAPS``); the host slot maps use
+  the same rules (``ops/host_slots.py``);
+* ``hier_from_cfg`` builds the hierarchy (with the batch's group-pooled slot
+  maps attached when it carries them), ``device_batch`` moves the array part
+  of a collated batch to the device;
+* ``make_train_step``: forward in train mode, CE + lambda * KL per stream,
+  the two streams summed, one backward, the frozen-pattern mask, the
+  optimizer step; returns the losses, ``voxel_overflow`` and the confusion
+  matrices.  Image features are detached before fusion and the KL teachers
+  are detached, so the gradient of the summed loss equals the reference's
+  two accumulated backward passes (as in the JAX step);
+* ``make_eval_step``: per-point predictions of each stream and of the sum
+  of the 2D and 3D softmaxes, with the per-stream CE.
+
+PyTorch runs eagerly, so the JAX package's cache of compiled steps
+(``StepCache``) has no counterpart here (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 
+from fusiontransformer_tpu_torch.models.losses import (kl_divergence,
+                                                       weighted_cross_entropy)
+from fusiontransformer_tpu_torch.models.metric import \
+    confusion_matrix_from_logits
 from fusiontransformer_tpu_torch.ops.hierarchy import (attach_grouped_slots,
                                                        build_hierarchy)
-from fusiontransformer_tpu_torch.ops.host_slots import caps_from_fractions
+from fusiontransformer_tpu_torch.ops.host_slots import (adaptive_caps,
+                                                        caps_from_fractions)
+from fusiontransformer_tpu_torch.utils.convert_jax import jax_leaf_path
 
 
 def level_caps_for_n(cfg, n_total: int):
@@ -25,11 +48,28 @@ def level_caps_for_n(cfg, n_total: int):
                                cfg.TPU.LEVEL_CAPACITY_FRACTIONS)
 
 
-def hier_from_cfg(cfg, batch):
-    """Hierarchy sized from the batch's point buffer, with the batch's
-    group-pooled slot maps (``gslot_src_{l}`` / ``gslot_bin_{l}``) attached;
-    levels without maps run the dense ks3 path."""
-    caps = level_caps_for_n(cfg, batch["coords"].shape[0])
+def adaptive_level_caps(cfg, n_total: int, level_counts):
+    """The batch's exact per-level voxel counts rounded up the ladder, with
+    ``level_caps_for_n`` as the ceiling (the rule ``SlotPoolSpec`` applies
+    with ``adaptive``)."""
+    return adaptive_caps(level_caps_for_n(cfg, n_total), level_counts)
+
+
+def batch_level_caps(cfg, host_batch):
+    """The capacities a step builds its hierarchy with for ``host_batch``:
+    adaptive when the batch carries ``level_counts``, else from its buffer."""
+    n = len(host_batch["pt_valid"])
+    if "level_counts" in host_batch:
+        return adaptive_level_caps(cfg, n, host_batch["level_counts"])
+    return level_caps_for_n(cfg, n)
+
+
+def hier_from_cfg(cfg, batch, level_caps=None):
+    """Hierarchy at ``level_caps`` (by default sized from the batch's point
+    buffer), with the batch's group-pooled slot maps (``gslot_src_{l}`` /
+    ``gslot_bin_{l}``) attached; levels without maps run the dense ks3
+    path."""
+    caps = level_caps or level_caps_for_n(cfg, batch["coords"].shape[0])
     hier = build_hierarchy(batch["coords"], batch["pt_batch"],
                            batch["pt_valid"], caps)
     return attach_grouped_slots(hier, batch)
@@ -48,3 +88,126 @@ def device_batch(batch, device):
             out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(
                 device, non_blocking=True)
     return out
+
+
+def frozen_params(model, patterns):
+    """Parameters whose JAX leaf path matches any of ``patterns``
+    (TRAIN.FROZEN_PATTERNS, regexes searched in the path)."""
+    regexes = [re.compile(p) for p in patterns]
+    return [p for n, p in model.named_parameters()
+            if any(r.search("/".join(jax_leaf_path(n))) for r in regexes)]
+
+
+def class_weights_of(cfg, device):
+    if not cfg.TRAIN.CLASS_WEIGHTS:
+        return None
+    return torch.tensor(cfg.TRAIN.CLASS_WEIGHTS, dtype=torch.float32,
+                        device=device)
+
+
+def losses(cfg, out, batch, class_weights):
+    """``(total, parts)``: CE + lambda * KL per stream, summed over the two
+    streams (the fusion models' loss of the JAX ``_losses``)."""
+    valid, label = batch["pt_valid"], batch["seg_label"]
+    lam = cfg.TRAIN.FusionTransformer.lambda_xm
+    loss_3d = weighted_cross_entropy(out["lidar_seg_logit"], label, valid,
+                                     class_weights)
+    loss_2d = weighted_cross_entropy(out["img_seg_logit"], label, valid,
+                                     class_weights)
+    parts = {"seg_loss_3d": loss_3d, "seg_loss_2d": loss_2d}
+    if lam > 0:
+        dual = cfg.MODEL.DUAL_HEAD
+        logit_2d = out["img_seg_logit2" if dual else "img_seg_logit"]
+        logit_3d = out["lidar_seg_logit2" if dual else "lidar_seg_logit"]
+        xm_2d = kl_divergence(logit_2d, out["lidar_seg_logit"], valid)
+        xm_3d = kl_divergence(logit_3d, out["img_seg_logit"], valid)
+        parts["xm_loss_2d"] = xm_2d
+        parts["xm_loss_3d"] = xm_3d
+        loss_2d = loss_2d + lam * xm_2d
+        loss_3d = loss_3d + lam * xm_3d
+    return loss_2d + loss_3d, parts
+
+
+def confusions(cfg, out, batch):
+    n = cfg.MODEL.NUM_CLASSES
+    valid, label = batch["pt_valid"], batch["seg_label"]
+    return {"cm_3d": confusion_matrix_from_logits(out["lidar_seg_logit"],
+                                                  label, valid, n),
+            "cm_2d": confusion_matrix_from_logits(out["img_seg_logit"],
+                                                  label, valid, n)}
+
+
+def _check_fusion(cfg):
+    if not cfg.MODEL.USE_FUSION:
+        raise NotImplementedError("only the fusion models' steps are ported")
+
+
+def make_train_step(cfg, model, optimizer):
+    """``step(batch, generator, level_caps=None) -> metrics``.
+
+    ``batch``: a ``device_batch``; ``generator``: the ``torch.Generator``
+    (on the batch's device) that dropout draws from.  The metrics are
+    device tensors: the losses, ``total_loss``, ``voxel_overflow`` and the
+    confusion matrices ``cm_2d`` / ``cm_3d``.  The parameters' ``.grad``
+    hold the step's gradients after it.
+    """
+    _check_fusion(cfg)
+    frozen = frozen_params(model, cfg.TRAIN.FROZEN_PATTERNS)
+    params = list(model.parameters())
+    class_weights = class_weights_of(cfg, params[0].device)
+
+    def step(batch, generator, level_caps=None):
+        model.train()
+        hier = hier_from_cfg(cfg, batch, level_caps)
+        out = model(batch, hier, generator=generator)
+        total, parts = losses(cfg, out, batch, class_weights)
+        optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        # A parameter the loss does not reach (the middle-fusion image
+        # taps feed only the detached fusion input) gets a zero gradient,
+        # as jax.grad gives it, so the optimizer still applies its weight
+        # decay and moment updates.
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        for p in frozen:
+            p.grad.zero_()
+        optimizer.step()
+        with torch.no_grad():
+            metrics = {k: v.detach() for k, v in parts.items()}
+            metrics["total_loss"] = total.detach()
+            metrics["voxel_overflow"] = sum(
+                (l.nvalid_raw - l.valid.shape[0]).clamp(min=0)
+                for l in hier.levels)
+            metrics.update(confusions(cfg, out, batch))
+        return metrics
+
+    return step
+
+
+def make_eval_step(cfg, model):
+    """``step(batch, level_caps=None) -> results``: ``pred_3d``,
+    ``pred_2d``, ``pred_ensemble`` (argmax of the sum of the 2D and 3D
+    softmaxes) and the per-stream CE, as device tensors."""
+    _check_fusion(cfg)
+    class_weights = class_weights_of(cfg, next(model.parameters()).device)
+
+    def step(batch, level_caps=None):
+        model.eval()
+        with torch.inference_mode():
+            hier = hier_from_cfg(cfg, batch, level_caps)
+            out = model(batch, hier)
+            lidar, img = out["lidar_seg_logit"], out["img_seg_logit"]
+            valid, label = batch["pt_valid"], batch["seg_label"]
+            probs = torch.softmax(img, -1) + torch.softmax(lidar, -1)
+            return {
+                "pred_3d": torch.argmax(lidar, -1),
+                "pred_2d": torch.argmax(img, -1),
+                "pred_ensemble": torch.argmax(probs, -1),
+                "seg_loss_3d": weighted_cross_entropy(lidar, label, valid,
+                                                      class_weights),
+                "seg_loss_2d": weighted_cross_entropy(img, label, valid,
+                                                      class_weights),
+            }
+
+    return step

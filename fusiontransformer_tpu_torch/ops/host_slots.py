@@ -222,23 +222,45 @@ def caps_from_fractions(n_total, l0_fraction, level_fractions):
     return tuple(caps)
 
 
+def ladder_cap(count: int) -> int:
+    """Smallest ladder capacity >= count: 128-multiples on a ~1.25x
+    geometric grid, so capacity tracks occupancy within ~25% while the
+    distinct shapes stay few."""
+    n = max(1, -(-int(count) // 128))
+    lad = 1
+    while lad < n:
+        lad = max(lad + 1, int(lad * 1.25))
+    return lad * 128
+
+
+def adaptive_caps(static_caps, level_counts):
+    """Occupancy-compacted capacities: each level's exact voxel count
+    rounded up the ladder, with the static capacity as a ceiling."""
+    return tuple(min(s, ladder_cap(c))
+                 for s, c in zip(static_caps, list(level_counts)))
+
+
 class SlotPoolSpec:
     """What ``collate_padded`` needs to build a batch's grouped slot maps:
-    the levels that carry them, the capacity fractions
-    (``caps_from_fractions``, so the maps' shapes match the hierarchy the step builds) and the pool
-    quantum."""
+    the levels that carry them, the capacity rule (``caps_from_fractions``,
+    and with ``adaptive`` the batch's level counts up the ladder, as the
+    train step sizes its hierarchy) and the pool quantum.  The maps' shapes
+    then match the hierarchy the step builds."""
 
     def __init__(self, slot_levels, l0_fraction, level_fractions,
-                 quantum=16):
+                 quantum=16, adaptive=False):
         self.slot_levels = tuple(slot_levels)
         self.l0_fraction = float(l0_fraction)
         self.level_fractions = tuple(level_fractions)
         self.quantum = int(quantum)
+        self.adaptive = bool(adaptive)
         self.num_levels = 1 + len(self.level_fractions)
 
-    def caps(self, n_total):
-        return caps_from_fractions(n_total, self.l0_fraction,
-                                   self.level_fractions)
+    def caps_for(self, n_total, level_counts=None):
+        static = caps_from_fractions(n_total, self.l0_fraction,
+                                     self.level_fractions)
+        return adaptive_caps(static, level_counts) if self.adaptive \
+            else static
 
 
 def build_batch_slot_maps(scan_coords_list, level_caps, slot_levels,

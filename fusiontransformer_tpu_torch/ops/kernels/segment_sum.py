@@ -79,5 +79,12 @@ def sorted_segment_weighted_sum(g, w, ids, num_out: int, precise=False):
             n, c, e, num_out, int(bool(precise)), stream)
     if rc != 0:
         raise RuntimeError(f"{NAME} launch failed: CUDA error {rc}")
-    LAUNCHES[NAME] += 1
+    LAUNCHES[launch_name(e)] += 1
     return out
+
+
+def launch_name(e: int) -> str:
+    """The ``LAUNCHES`` key of a launch with E weight columns: the E=1 use
+    (``voxelize_mean``) and the E=8 use (the devoxelize adjoint) are counted
+    apart."""
+    return NAME if e == 1 else f"{NAME}[E={e}]"

@@ -1,29 +1,39 @@
-"""Sparse convolution and point<->voxel ops, forward (torch).
+"""Sparse convolution and point<->voxel ops, forward and backward (torch).
 
 Port of ``fusiontransformer_tpu/ops/sparse_conv.py``.  Every op reads
 through a zero pad row at index ``V``, so sentinel indices contribute zeros.
 
 * ``subm_conv3`` — ks=3 stride=1.  At a level that carries group-pooled slot
-  maps it runs the hand-written kernel ``binned_conv_grouped_fwd`` (K1);
-  otherwise the dense 27-tap gather + one GEMM.
+  maps it runs the hand-written kernels ``binned_conv_grouped_fwd`` (K1) and,
+  for its gradient, ``binned_conv_grouped_bwd`` (K2); otherwise the dense
+  27-tap gather + one GEMM.
 * ``down_conv2`` / ``up_conv2`` / ``conv1x1`` — gather + GEMM.
 * ``voxelize_mean`` — with a ``DevoxPlan`` the sums and counts come from the
   hand-written kernel ``sorted_segment_weighted_sum`` (K3); without one, an
   ``index_add``.
-* ``devoxelize_trilinear`` — 8-corner gather + weighted sum.
+* ``devoxelize_trilinear`` — 8-corner gather + weighted sum; with a
+  ``DevoxPlan`` its gradient runs K3 with E=8 over the sorted point stream.
+
+Gradients follow the JAX package's custom VJPs: each is a
+``torch.autograd.Function`` whose backward is a gather (through the mirror
+ks3 map, the adjoint ks2 map, or the sorted point stream), never autograd's
+``index_put_(accumulate=True)`` scatter, whose float atomics are neither
+deterministic nor fast.
 
 Routing differs from the JAX package on purpose.  There a grouped-map conv
 takes the Pallas kernel only for ``16 <= Cin`` and ``max(Cin, Cout) <= 128``
 (``_PALLAS_MIN_CIN`` / ``_PALLAS_MAX_CH``, TPU VMEM limits) and the dense path
 otherwise.  Here every ks=3 conv at a level with grouped maps (L0-L3 of the
-flagship) runs K1, whatever its widths, and L4, which has no maps, runs the
-dense path.  Both paths compute the same function (the maps are lossless);
-only the arithmetic that runs differs.
+flagship) runs K1 and K2, whatever its widths, and L4, which has no maps,
+runs the dense path.  Both paths compute the same function (the maps are
+lossless); only the arithmetic that runs differs.
 
 Precision: ``compute_dtype`` float32 means true f32 (TF32 stays off).  With
 bfloat16 the operands are rounded to bf16 and every product is accumulated
 and returned in f32, as the JAX package's ``preferred_element_type`` does:
-no GEMM output is rounded to bf16.  The kernels' outputs are f32.
+no GEMM output is rounded to bf16.  The kernels' outputs are f32.  As in the
+JAX VJPs, each backward rounds the incoming gradient to the compute dtype,
+returns the input's gradient in the input's dtype and the weight's in f32.
 """
 
 from __future__ import annotations
@@ -33,7 +43,7 @@ from typing import NamedTuple
 import torch
 
 from fusiontransformer_tpu_torch.ops.kernels.binned_conv import (
-    binned_conv_grouped_fwd)
+    binned_conv_grouped_bwd, binned_conv_grouped_fwd)
 from fusiontransformer_tpu_torch.ops.kernels.segment_sum import (
     sorted_segment_weighted_sum)
 
@@ -48,6 +58,11 @@ def cdt_matmul(a, b, cdt):
     a, b = a.to(cdt), b.to(cdt)
     if cdt == torch.float32 or a.device.type != "cuda":
         return torch.matmul(a.float(), b.float())
+    return _MatmulF32Out.apply(a, b)
+
+
+def _mm_f32(a, b):
+    """a @ b of low-precision operands with an f32 output (tensor cores)."""
     f32 = torch.float32
     if b.dim() == 2:
         out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=f32)
@@ -57,18 +72,93 @@ def cdt_matmul(a, b, cdt):
     return out.reshape(*a.shape[:-1], b.shape[-1])
 
 
+class _MatmulF32Out(torch.autograd.Function):
+    """The card's bf16 GEMM with an f32 output, which autograd cannot
+    differentiate (``out_dtype``).  The gradient of each operand is the
+    GEMM of the incoming gradient, rounded to the operands' dtype, with the
+    other operand, returned in the operand's dtype: the rounding a TPU's
+    default-precision dot applies."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        ga = _mm_f32(g, b.transpose(-1, -2)).to(a.dtype)
+        if b.dim() == 2:
+            gb = _mm_f32(a.reshape(-1, a.shape[-1]).t(),
+                         g.reshape(-1, g.shape[-1]))
+        else:
+            gb = _mm_f32(a.transpose(-1, -2), g).reshape(b.shape)
+        return ga, gb.to(b.dtype)
+
+
 def pad_row(feats):
     """Append one zero row so sentinel index V gathers zeros."""
     return torch.cat([feats, feats.new_zeros((1,) + tuple(feats.shape[1:]))])
 
 
-def _subm3_dense(feats, w, nbr_idx, cdt):
-    # Column 13 of nbr_idx is the voxel itself where it is valid and the
-    # sentinel at padded rows, so the center tap's term is masked by the
-    # same gather (the JAX package's ``_self_mask``).
-    v, cin = feats.shape
-    g = pad_row(feats.to(cdt))[nbr_idx.long()]                  # [V, 27, Cin]
-    return cdt_matmul(g.reshape(v, 27 * cin), w.reshape(27 * cin, -1), cdt)
+def _tap_weight_grad(x, g, cdt):
+    """dW[k] = x^T @ g[:, k] for x [V, Cin], g [V, K, Cout] -> [K, Cin, Cout]
+    f32 (one GEMM over the flattened tap axis)."""
+    v, k, cout = g.shape
+    return cdt_matmul(x.t(), g.reshape(v, k * cout), cdt).reshape(
+        x.shape[1], k, cout).transpose(0, 1)
+
+
+class _Subm3Dense(torch.autograd.Function):
+    """Dense ks3: out[u] = sum_t x[nbr(u, t)] @ W[t].
+
+    Column 13 of nbr_idx is the voxel itself where it is valid and the
+    sentinel at padded rows, so the center tap's term is masked by the same
+    gather (the JAX package splits it off with ``_self_mask``; same
+    function).  Backward (``_subm3_bwd``): by mirror symmetry the one gather
+    gd[u, t] = dout[nbr(u, t)] serves dX[u] = sum_t gd[u, t] @ W[26-t]^T and
+    dW[26-t] = x^T @ gd[:, t]."""
+
+    @staticmethod
+    def forward(ctx, feats, w, nbr_idx, cdt):
+        v, cin = feats.shape
+        g = pad_row(feats.to(cdt))[nbr_idx.long()]              # [V, 27, Cin]
+        ctx.save_for_backward(feats, w, nbr_idx)
+        ctx.cdt = cdt
+        return cdt_matmul(g.reshape(v, 27 * cin), w.reshape(27 * cin, -1),
+                          cdt)
+
+    @staticmethod
+    def backward(ctx, dout):
+        feats, w, nbr_idx = ctx.saved_tensors
+        cdt = ctx.cdt
+        v, cin = feats.shape
+        cout = w.shape[2]
+        gd = pad_row(dout.to(cdt))[nbr_idx.long()]              # [V, 27, Cout]
+        wrev = w.flip(0).transpose(1, 2).reshape(27 * cout, cin)
+        dx = cdt_matmul(gd.reshape(v, 27 * cout), wrev, cdt)
+        dw = _tap_weight_grad(feats.to(cdt), gd, cdt).flip(0)
+        return dx.to(feats.dtype), dw.to(w.dtype), None, None
+
+
+class _Subm3Grouped(torch.autograd.Function):
+    """Grouped-map ks3: K1 forward, K2 backward (``_subm3gp``)."""
+
+    @staticmethod
+    def forward(ctx, feats, w, src, binp, cdt):
+        fc = feats.to(cdt).contiguous()
+        wc = w.to(cdt).contiguous()
+        ctx.save_for_backward(fc, wc, src, binp)
+        ctx.dtypes = (feats.dtype, w.dtype)
+        return binned_conv_grouped_fwd(fc, src, binp, wc)
+
+    @staticmethod
+    def backward(ctx, dout):
+        fc, wc, src, binp = ctx.saved_tensors
+        dx, dw = binned_conv_grouped_bwd(dout.to(fc.dtype).contiguous(), fc,
+                                         src, binp, wc)
+        return dx.to(ctx.dtypes[0]), dw.to(ctx.dtypes[1]), None, None, None
 
 
 def subm_conv3(feats, w, nbr_idx, compute_dtype=torch.bfloat16,
@@ -80,44 +170,113 @@ def subm_conv3(feats, w, nbr_idx, compute_dtype=torch.bfloat16,
       w: [27, Cin, Cout] kernel (x-slowest tap order).
       nbr_idx: [V, 27] int32 ks3 map (sentinel V).
       slot_idx: optional group-pooled maps (src_pack [V/8, S],
-        bin_pack [V/8, S]); when given, the conv runs K1.
+        bin_pack [V/8, S]); when given, the conv runs K1 and its gradient K2.
     Returns:
       [V, Cout] float32.
     """
     if slot_idx is None:
-        return _subm3_dense(feats, w, nbr_idx, compute_dtype)
+        return _Subm3Dense.apply(feats, w, nbr_idx, compute_dtype)
     src, binp = slot_idx
     if src.shape[0] == feats.shape[0]:
         raise NotImplementedError(
             "per-voxel K-slot maps are not ported; use group-pooled maps "
             "(TPU.CONV_SLOT_POOL) or none")
-    return binned_conv_grouped_fwd(feats.to(compute_dtype).contiguous(), src,
-                                   binp, w.to(compute_dtype).contiguous())
+    return _Subm3Grouped.apply(feats, w, src, binp, compute_dtype)
 
 
-def down_conv2(feats_fine, w, child_idx, compute_dtype=torch.bfloat16):
-    """ks=2 stride=2 conv: [Vf, Cin] at level l -> [Vc, Cout] at level l+1
-    through ``child_idx`` [Vc, 8] (sentinel Vf)."""
+def _down2(feats_fine, w, child_idx, cdt):
     vc = child_idx.shape[0]
     cin = feats_fine.shape[1]
-    g = pad_row(feats_fine.to(compute_dtype))[child_idx.long()]  # [Vc, 8, Cin]
-    return cdt_matmul(g.reshape(vc, 8 * cin), w.reshape(8 * cin, -1),
-                      compute_dtype)
+    g = pad_row(feats_fine.to(cdt))[child_idx.long()]           # [Vc, 8, Cin]
+    return cdt_matmul(g.reshape(vc, 8 * cin), w.reshape(8 * cin, -1), cdt)
+
+
+def _up2(feats_coarse, w, parent_idx, child_kidx, cdt):
+    # All 8 offset products at the coarse level (one GEMM); each fine voxel
+    # picks its (parent, offset) row; sentinel parents read the zero pad row.
+    cin, cout = w.shape[1], w.shape[2]
+    wcat = w.permute(1, 0, 2).reshape(cin, 8 * cout)
+    y = cdt_matmul(pad_row(feats_coarse), wcat, cdt).reshape(-1, 8, cout)
+    return y[parent_idx.long(), child_kidx.long()]
+
+
+class _Down2(torch.autograd.Function):
+    """ks2 stride-2 down conv; its adjoint is the up conv's gather pattern
+    (``_down2_bwd``): dX[u] = dout[parent(u)] @ W[kidx(u)]^T,
+    dW[k] = sum_{u: kidx(u) = k} x[u] (x) dout[parent(u)]."""
+
+    @staticmethod
+    def forward(ctx, feats_fine, w, child_idx, parent_idx, child_kidx, cdt):
+        ctx.save_for_backward(feats_fine, w, parent_idx, child_kidx)
+        ctx.cdt = cdt
+        return _down2(feats_fine, w, child_idx, cdt)
+
+    @staticmethod
+    def backward(ctx, dout):
+        feats_fine, w, parent_idx, child_kidx = ctx.saved_tensors
+        cdt = ctx.cdt
+        vf, cin = feats_fine.shape
+        cout = w.shape[2]
+        p = pad_row(dout.to(cdt))[parent_idx.long()]             # [Vf, Cout]
+        kidx = child_kidx.long()
+        # All 8 offsets' products, then each fine voxel picks its own.
+        y = cdt_matmul(p, w.permute(2, 0, 1).reshape(cout, 8 * cin), cdt)
+        dx = y.reshape(vf, 8, cin)[torch.arange(vf, device=y.device), kidx]
+        p8 = p.new_zeros((vf, 8, cout))
+        p8[torch.arange(vf, device=p.device), kidx] = p
+        dw = _tap_weight_grad(feats_fine.to(cdt), p8, cdt)
+        return (dx.to(feats_fine.dtype), dw.to(w.dtype), None, None, None,
+                None)
+
+
+class _Up2(torch.autograd.Function):
+    """ks2 stride-2 transposed conv, out[v] = x[parent(v)] @ W[kidx(v)];
+    its adjoint is the down conv's gather pattern (``_up2_bwd``):
+    dX[p] = sum_k dout[child(p, k)] @ W[k]^T, dW[k] = x^T @ dout[child(:, k)].
+    """
+
+    @staticmethod
+    def forward(ctx, feats_coarse, w, parent_idx, child_kidx, child_idx,
+                cdt):
+        ctx.save_for_backward(feats_coarse, w, child_idx)
+        ctx.cdt = cdt
+        return _up2(feats_coarse, w, parent_idx, child_kidx, cdt)
+
+    @staticmethod
+    def backward(ctx, dout):
+        feats_coarse, w, child_idx = ctx.saved_tensors
+        cdt = ctx.cdt
+        vc, cin = feats_coarse.shape
+        cout = w.shape[2]
+        gd = pad_row(dout.to(cdt))[child_idx.long()]            # [Vc, 8, Cout]
+        dx = cdt_matmul(gd.reshape(vc, 8 * cout),
+                        w.transpose(1, 2).reshape(8 * cout, cin), cdt)
+        dw = _tap_weight_grad(feats_coarse.to(cdt), gd, cdt)
+        return (dx.to(feats_coarse.dtype), dw.to(w.dtype), None, None, None,
+                None)
+
+
+def down_conv2(feats_fine, w, child_idx, compute_dtype=torch.bfloat16,
+               parent_idx=None, child_kidx=None):
+    """ks=2 stride=2 conv: [Vf, Cin] at level l -> [Vc, Cout] at level l+1
+    through ``child_idx`` [Vc, 8] (sentinel Vf).  With level l's
+    ``parent_idx`` / ``child_kidx`` the gradient is the scatter-free
+    adjoint gather; without them (inference) autograd's."""
+    if parent_idx is None or child_kidx is None:
+        return _down2(feats_fine, w, child_idx, compute_dtype)
+    return _Down2.apply(feats_fine, w, child_idx, parent_idx, child_kidx,
+                        compute_dtype)
 
 
 def up_conv2(feats_coarse, w, parent_idx, child_kidx,
-             compute_dtype=torch.bfloat16):
+             compute_dtype=torch.bfloat16, child_idx=None):
     """ks=2 stride=2 transposed conv: out[v] = fc[parent(v)] @ w[kidx(v)].
-
-    All 8 offset products are taken at the coarse level (one GEMM) and each
-    fine voxel picks its (parent, offset) row; sentinel parents read the
-    zero pad row.
-    """
-    cin, cout = w.shape[1], w.shape[2]
-    wcat = w.permute(1, 0, 2).reshape(cin, 8 * cout)
-    y = cdt_matmul(pad_row(feats_coarse), wcat, compute_dtype)
-    y = y.reshape(-1, 8, cout)
-    return y[parent_idx.long(), child_kidx.long()]
+    With level l+1's ``child_idx`` [Vc, 8] the gradient is the scatter-free
+    adjoint gather; without it (inference) autograd's."""
+    if child_idx is None:
+        return _up2(feats_coarse, w, parent_idx, child_kidx, compute_dtype)
+    return _Up2.apply(feats_coarse, w, parent_idx, child_kidx, child_idx,
+                      compute_dtype)
 
 
 def conv1x1(feats, w, compute_dtype=torch.bfloat16):
@@ -149,6 +308,30 @@ def devox_plan(hier, level):
                      lvl.nbr_idx[:, _NEG_CORNER_TAPS])
 
 
+class _VoxMeanSum(torch.autograd.Function):
+    """[V, C+1]: K3's sums of the valid points' features per voxel plus a
+    trailing count column (``_voxmean_sum``).  The gradient of a masked
+    segment sum is a gather in original point order:
+    d pt_feats[n] = valid[n] * dout[vox(n)]; the count column is constant."""
+
+    @staticmethod
+    def forward(ctx, pt_feats, pt_valid, ids_orig, plan, num_voxels,
+                precise):
+        ctx.save_for_backward(pt_valid, ids_orig)
+        ctx.num_voxels = num_voxels
+        ctx.feats_dtype = pt_feats.dtype
+        return sorted_segment_weighted_sum(
+            *voxmean_stream(pt_feats, pt_valid, plan), num_voxels,
+            precise=precise)
+
+    @staticmethod
+    def backward(ctx, dout):
+        pt_valid, ids_orig = ctx.saved_tensors
+        ids = ids_orig.long().clamp(max=ctx.num_voxels)
+        dpt = pad_row(dout[:, :-1])[ids] * pt_valid[:, None].to(dout.dtype)
+        return dpt.to(ctx.feats_dtype), None, None, None, None, None
+
+
 def voxelize_mean(pt_feats, pt_voxel_idx, pt_valid, num_voxels, plan=None,
                   compute_dtype=torch.bfloat16):
     """Average-pool point features into their containing voxels.
@@ -156,7 +339,7 @@ def voxelize_mean(pt_feats, pt_voxel_idx, pt_valid, num_voxels, plan=None,
     With a DevoxPlan the sums, and the point counts as a trailing ones
     column, come from one K3 launch over the sorted point stream;
     ``compute_dtype`` float32 keeps its per-point products un-rounded.
-    Voxels no point reaches come back 0.
+    Voxels no point reaches come back 0.  The counts carry no gradient.
     """
     if plan is None:
         valid_f = pt_valid.float()
@@ -167,10 +350,10 @@ def voxelize_mean(pt_feats, pt_voxel_idx, pt_valid, num_voxels, plan=None,
         sums = sums.index_add_(0, ids, pt_feats * valid_f[:, None].to(
             pt_feats.dtype))[:num_voxels]
         return sums * (1.0 / counts.clamp(min=1.0))[:, None]
-    out = sorted_segment_weighted_sum(*voxmean_stream(pt_feats, pt_valid, plan),
-                                      num_voxels,
-                                      precise=compute_dtype == torch.float32)
-    sums, counts = out[:, :-1], out[:, -1]
+    ids_orig = torch.where(pt_valid, pt_voxel_idx, num_voxels)
+    out = _VoxMeanSum.apply(pt_feats, pt_valid, ids_orig, plan, num_voxels,
+                            compute_dtype == torch.float32)
+    sums, counts = out[:, :-1], out[:, -1].detach()
     return sums * (1.0 / counts.clamp(min=1.0))[:, None]
 
 
@@ -185,17 +368,78 @@ def voxmean_stream(pt_feats, pt_valid, plan):
     return g_s, w_s, plan.ids_sorted.contiguous()
 
 
-def devoxelize_trilinear(vox_feats, corner_idx, corner_w):
-    """Trilinear voxel->point interpolation: [V, C] -> [N, C] float32.
-
-    ``corner_w`` takes the dtype of ``vox_feats`` (as in the JAX package);
-    products and the 8-corner sum are f32.
-    """
+def _devox(vox_feats, corner_idx, corner_w):
     g = pad_row(vox_feats)[corner_idx.long()]                   # [N, 8, C]
     wk = corner_w.to(vox_feats.dtype).float().unsqueeze(1)      # [N, 1, 8]
     return torch.bmm(wk, g.float()).squeeze(1)
 
 
+def devox_adjoint_stream(dout, corner_w, plan):
+    """K3's inputs for the devoxelize adjoint: dout [N, C] and the corner
+    weights [N, 8] in Morton-sorted point order, and the sorted ids."""
+    perm = plan.sort_perm.long()
+    g_s = pad_row(dout.float())[perm].contiguous()
+    w_s = pad_row(corner_w.float())[perm].contiguous()
+    return g_s, w_s, plan.ids_sorted.contiguous()
+
+
+class _Devox3(torch.autograd.Function):
+    """Trilinear devoxelize whose gradient is scatter-free (``_devox3``):
+    the adjoint scatter dvox[corner(n, e)] += w[n, e] * dout[n] becomes K3
+    with E=8 over the sorted point stream, T[u, e] = sum_{n in u} w[n, e] *
+    dout[n], then 8 mirror gathers dvox[u] = sum_e T[nbr(u, -e), e] (the
+    voxel whose corner e is u is u's neighbor at offset -e).  The corner
+    weights come from integer coords: their gradient is dead (None)."""
+
+    @staticmethod
+    def forward(ctx, vox_feats, corner_idx, corner_w, plan, precise):
+        ctx.save_for_backward(corner_w, plan.sort_perm, plan.ids_sorted,
+                              plan.nbr_neg)
+        ctx.precise = precise
+        ctx.vox_shape = tuple(vox_feats.shape)
+        ctx.vox_dtype = vox_feats.dtype
+        return _devox(vox_feats, corner_idx, corner_w)
+
+    @staticmethod
+    def backward(ctx, dout):
+        corner_w, sort_perm, ids_sorted, nbr_neg = ctx.saved_tensors
+        v, c = ctx.vox_shape
+        plan = DevoxPlan(sort_perm, ids_sorted, nbr_neg)
+        t = sorted_segment_weighted_sum(
+            *devox_adjoint_stream(dout, corner_w, plan), v,
+            precise=ctx.precise)                                  # [V, 8C]
+        # Sentinel neighbours read the zero pad row.
+        flat = torch.where(
+            nbr_neg < v, nbr_neg.long() * 8 + torch.arange(8, device=t.device),
+            v * 8)
+        g8 = pad_row(t.reshape(v * 8, c))[flat]                  # [V, 8, C]
+        return g8.sum(1).to(ctx.vox_dtype), None, None, None, None
+
+
+def devoxelize_trilinear(vox_feats, corner_idx, corner_w, plan=None,
+                         compute_dtype=torch.bfloat16):
+    """Trilinear voxel->point interpolation: [V, C] -> [N, C] float32.
+
+    ``corner_w`` takes the dtype of ``vox_feats`` (as in the JAX package);
+    products and the 8-corner sum are f32.  With a DevoxPlan the gradient
+    runs K3 with E=8 (``compute_dtype`` float32 keeps its products
+    un-rounded); without one, autograd's.
+    """
+    if plan is None:
+        return _devox(vox_feats, corner_idx, corner_w)
+    return _Devox3.apply(vox_feats, corner_idx, corner_w, plan,
+                         compute_dtype == torch.float32)
+
+
 def gather_rows(feats, idx):
-    """Gather with a zero pad row (sentinel index = len(feats))."""
-    return pad_row(feats)[idx.long()]
+    """Gather with a zero pad row (sentinel index = len(feats)).  Through
+    ``index_select``, whose gradient (``index_add_``) sums in index order on
+    the CPU: bitwise repeatable, where indexing's ``index_put_`` is not."""
+    return index_rows(pad_row(feats), idx)
+
+
+def index_rows(table, idx):
+    """``table[idx]`` for an integer ``idx`` of any shape, as
+    ``index_select`` (see ``gather_rows``)."""
+    out = table.index_select(0, idx.reshape(-1).long())
+    return out.reshape(*idx.shape, *table.shape[1:])

@@ -28,6 +28,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from fusiontransformer_tpu_torch.data.build import slot_pool_spec
 from fusiontransformer_tpu_torch.data.collate import collate_padded
 from fusiontransformer_tpu_torch.data.quantize import sparse_quantize
 from fusiontransformer_tpu_torch.data.utils.augmentation_3d import (
@@ -36,7 +37,6 @@ from fusiontransformer_tpu_torch.data.utils.validate import map_sparse_to_org
 from fusiontransformer_tpu_torch.models.build import build_model
 from fusiontransformer_tpu_torch.modules.steps import (device_batch,
                                                        hier_from_cfg)
-from fusiontransformer_tpu_torch.ops.host_slots import SlotPoolSpec
 from fusiontransformer_tpu_torch.utils.device import resolve_device
 
 PRED_KEYS = ("pred", "pred_2d", "pred_3d", "voxel_overflow")
@@ -93,14 +93,8 @@ class InferenceEngine:
         self._step, self._pred_keys = make_predict_step(cfg, self.model)
 
         # Host-built group-pooled slot maps at the levels CONV_TAP_SLOTS
-        # names.
-        self._slot_pool = None
-        if cfg.TPU.CONV_SLOT_POOL and any(cfg.TPU.CONV_TAP_SLOTS):
-            self._slot_pool = SlotPoolSpec(
-                [l for l, k in enumerate(cfg.TPU.CONV_TAP_SLOTS) if k],
-                cfg.TPU.L0_CAPACITY_FRACTION,
-                cfg.TPU.LEVEL_CAPACITY_FRACTIONS,
-                quantum=int(cfg.TPU.SLOT_POOL_QUANTUM))
+        # names, at the static capacities of the bucket.
+        self._slot_pool = slot_pool_spec(cfg, adaptive=False)
         self._device_lock = threading.Lock()
         self._stats_lock = threading.Lock()
         self.counters = {

@@ -7,6 +7,11 @@ buffers after the flax names and keeps the JAX layouts (x-slowest ks3 tap
 order, ``[in, out]`` linear kernels), so each flax path joined with dots is
 a ``state_dict`` key and every array copies across unpermuted.  A missing or
 extra key, or a shape that differs, raises.
+
+``jax_leaf_paths(module)`` is the map the other way: each parameter and
+buffer name of the port to its collection (``params`` / ``batch_stats``) and
+its flax leaf path, so gradients and updated values can be compared leaf by
+leaf.
 """
 
 from __future__ import annotations
@@ -50,3 +55,19 @@ def load_jax_variables(module: torch.nn.Module, params, batch_stats=None):
         new_state[k] = torch.from_numpy(np.array(a, dtype=np.float32))
     module.load_state_dict(new_state)
     return module
+
+
+def jax_leaf_path(name: str) -> tuple:
+    """The flax leaf path of a port parameter or buffer name
+    (``"a.b.kernel"`` -> ``("a", "b", "kernel")``)."""
+    return tuple(name.split("."))
+
+
+def jax_leaf_paths(module: torch.nn.Module) -> dict:
+    """``{port name: (collection, flax leaf path)}`` for every parameter
+    (``params``) and buffer (``batch_stats``) of ``module``."""
+    out = {n: ("params", jax_leaf_path(n))
+           for n, _ in module.named_parameters()}
+    out.update({n: ("batch_stats", jax_leaf_path(n))
+                for n, _ in module.named_buffers()})
+    return out

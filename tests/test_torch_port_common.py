@@ -84,3 +84,29 @@ def record(i, n_points=N_POINTS):
         "img": rng.rand(H, W, 3).astype(np.float32),
         "points_img": gen._project(points),
     }
+
+
+CLASS_WEIGHTS = [0., 1.58003993, 3.69774469, 3.2460013, 2.65342029,
+                 2.61079801, 3.27744058, 3.48282471, 3.45874555, 1.,
+                 2.07298878, 1.26831551, 2.65889542, 1.37436805, 1.4891881,
+                 1.03083152, 2.25629999, 1.51838281, 2.51986332, 3.08564901]
+# Gradient bounds of the train-step comparisons; the reasons are in
+# tests/test_torch_port_train.py.
+LEAF_RTOL, LEAF_ATOL, MEDIAN_RTOL = 2e-2, 1e-7, 1e-4
+
+
+def train_cfg(get_cfg, opt="Adam"):
+    """tiny_cfg with the flagship's training settings (middlefusion.yaml:
+    Adam, wd 5e-4, lambda_xm 0.1, its class weights), batch 2."""
+    cfg = tiny_cfg(get_cfg)
+    cfg.defrost()
+    cfg.OPTIMIZER.TYPE = opt
+    cfg.OPTIMIZER.BASE_LR = 1e-2
+    cfg.OPTIMIZER.WEIGHT_DECAY = 5e-4
+    cfg.TRAIN.CLASS_WEIGHTS = list(CLASS_WEIGHTS)
+    cfg.TRAIN.FusionTransformer.lambda_xm = 0.1
+    cfg.TRAIN.BATCH_SIZE = 2
+    cfg.DATASET.TRAIN = ("train",)
+    cfg.DATASET.VAL = ("val",)
+    cfg.freeze()
+    return cfg

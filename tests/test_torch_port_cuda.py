@@ -108,3 +108,146 @@ def test_bf16_matmul_returns_f32_products(cuda, shape_a, shape_b):
     terms = torch.matmul(a.bfloat16().float().abs(),
                          b.bfloat16().float().abs())
     assert ((got.cpu() - want).abs() <= 2e-5 * terms).all()
+
+
+def _grouped_maps(cuda, cap=6144, level=1):
+    from fusiontransformer_tpu_torch.data.synthetic import SyntheticSCN
+    ds = SyntheticSCN(num_scans=2, num_points=3000, image_height=37,
+                      image_width=61)
+    coords = [np.asarray(ds[i]["coords"]) for i in range(2)]
+    maps, overflow = build_batch_slot_maps(coords, (cap,) * 5, [level])
+    assert overflow == 0
+    return [torch.as_tensor(m, device=cuda) for m in maps[level]]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("cin,cout", [(4, 32), (32, 64), (128, 96),
+                                      (384, 256)])
+def test_binned_conv_bwd_kernel_matches_plain(cuda, dtype, cin, cout):
+    """K2 (dX and dW) against its plain version on the card, at the widths
+    of the flagship's grouped levels; both sum the same f32 products in
+    another order (2e-5 of the sum of |terms|).  dW is bitwise repeatable."""
+    from fusiontransformer_tpu_torch.ops.kernels.binned_conv import (
+        BWD_NAME, binned_conv_grouped_bwd, binned_conv_grouped_bwd_ref)
+    src, binp = _grouped_maps(cuda)
+    cap = src.shape[0] * 8
+    gen = torch.Generator().manual_seed(cin + cout)
+    x = torch.randn(cap, cin, generator=gen).to(cuda, dtype)
+    w = torch.randn(27, cin, cout, generator=gen).to(cuda, dtype)
+    dout = torch.randn(cap, cout, generator=gen).to(cuda, dtype)
+    before = LAUNCHES[BWD_NAME]
+    dx, dw = binned_conv_grouped_bwd(dout, x, src, binp, w)
+    assert LAUNCHES[BWD_NAME] == before + 1
+    rdx, rdw = binned_conv_grouped_bwd_ref(dout, x, src, binp, w)
+    sdx, sdw = binned_conv_grouped_bwd_ref(dout.abs(), x.abs(), src, binp,
+                                           w.abs())
+    torch.cuda.synchronize()
+    assert (dx - rdx).abs().max().item() <= 2e-5 * sdx.max().item()
+    assert (dw - rdw).abs().max().item() <= 2e-5 * sdw.max().item()
+    _, dw2 = binned_conv_grouped_bwd(dout, x, src, binp, w)
+    assert torch.equal(dw, dw2)
+
+
+def test_devoxelize_adjoint_runs_k3_e8_on_the_card(cuda):
+    """The devoxelize gradient with a plan (K3 at E=8) on the card against
+    the same op on the CPU (plain version)."""
+    from fusiontransformer_tpu_torch.data.collate import collate_padded
+    from fusiontransformer_tpu_torch.data.synthetic import SyntheticSCN
+    from fusiontransformer_tpu_torch.ops import sparse_conv as sc
+    from fusiontransformer_tpu_torch.ops.hierarchy import build_hierarchy
+    from fusiontransformer_tpu_torch.ops.kernels.segment_sum import (
+        launch_name)
+    ds = SyntheticSCN(num_scans=2, num_points=3000, image_height=37,
+                      image_width=61)
+    b = collate_padded([ds[0], ds[1]], 2, 3072, 37, 61)
+    caps = (6144, 6144, 4096, 3072, 2048)
+    grads = {}
+    for dev in ("cpu", cuda):
+        args = [torch.as_tensor(b[k], device=dev)
+                for k in ("coords", "pt_batch", "pt_valid")]
+        hier = build_hierarchy(*args, caps)
+        gen = torch.Generator().manual_seed(0)
+        vox = torch.randn(caps[2], 128, generator=gen).to(dev)
+        vox.requires_grad_(True)
+        dout = torch.randn(len(b["pt_valid"]), 128, generator=gen).to(dev)
+        before = LAUNCHES[launch_name(8)]
+        sc.devoxelize_trilinear(vox, hier.pt_corner_idx[2],
+                                hier.pt_corner_w[2],
+                                plan=sc.devox_plan(hier, 2),
+                                compute_dtype=torch.float32).backward(dout)
+        grads[str(dev)] = vox.grad.cpu()
+        if dev == cuda:
+            assert LAUNCHES[launch_name(8)] == before + 1
+    scale = grads["cpu"].abs().max().item()
+    assert (grads["cuda"] - grads["cpu"]).abs().max().item() <= 1e-5 * scale
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """One tiny f32 train step (dropout off) from the same weights: losses,
+    the confusion matrices, and every gradient, with the leaf and median
+    bounds of ``test_torch_port_train`` (the same conditioning applies)."""
+    from fusiontransformer_tpu_torch.config.defaults import get_default_cfg
+    from fusiontransformer_tpu_torch.data.build import build_dataloader
+    from fusiontransformer_tpu_torch.models import spvcnn
+    from fusiontransformer_tpu_torch.models.build import build_model
+    from fusiontransformer_tpu_torch.modules import steps
+    from fusiontransformer_tpu_torch.solver.build import build_optimizer
+    from test_torch_port_common import (LEAF_ATOL, LEAF_RTOL, MEDIAN_RTOL,
+                                        train_cfg)
+
+    monkeypatch.setattr(spvcnn, "DROPOUT", 0.0)
+    cfg = train_cfg(get_default_cfg)
+    batch = next(iter(build_dataloader(cfg, "train")))
+    caps = steps.batch_level_caps(cfg, batch)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, dev, seed=2)
+        opt, _ = build_optimizer(cfg, model.parameters())
+        grads = {}
+        opt.register_step_pre_hook(lambda o, a, k, m=model, g=grads: g.update(
+            {n: p.grad.cpu().clone() for n, p in m.named_parameters()}))
+        metrics = steps.make_train_step(cfg, model, opt)(
+            steps.device_batch(batch, dev), torch.Generator(dev), caps)
+        res[dev] = ({k: v.cpu() for k, v in metrics.items()}, grads)
+    (mc, gc), (mg, gg) = res["cpu"], res["cuda"]
+    for k in ("total_loss", "seg_loss_2d", "seg_loss_3d"):
+        torch.testing.assert_close(mg[k], mc[k], rtol=1e-5, atol=0)
+    for k in ("cm_2d", "cm_3d"):
+        assert torch.equal(mg[k], mc[k])
+    shares = []
+    for n, g in gc.items():
+        err = (gg[n] - g).abs().max().item()
+        scale = g.abs().max().item()
+        assert err <= LEAF_RTOL * scale + LEAF_ATOL, (n, err, scale)
+        if scale > 0:
+            shares.append(err / scale)
+    assert np.median(shares) <= MEDIAN_RTOL
+
+
+@pytest.mark.parametrize("shape_a,shape_b", [((3, 70, 96), (96, 40)),
+                                             ((2, 4, 50, 64), (2, 4, 64, 50))])
+def test_bf16_matmul_gradients(cuda, shape_a, shape_b):
+    """The card's bf16 GEMM is differentiable: each operand's gradient is
+    the GEMM of the bf16-rounded incoming gradient with the other operand,
+    in the operand's dtype; against the CPU formulation (f32 incoming
+    gradient) within 1e-2 of the sum of |terms| (one bf16 rounding of the
+    gradient, then of the result)."""
+    from fusiontransformer_tpu_torch.ops.sparse_conv import cdt_matmul
+    gen = torch.Generator().manual_seed(len(shape_b))
+    a = torch.randn(*shape_a, generator=gen)
+    b = torch.randn(*shape_b, generator=gen)
+    g = torch.randn(*shape_a[:-1], shape_b[-1], generator=gen)
+    grads = {}
+    for dev in ("cpu", cuda):
+        ta = a.detach().to(dev).requires_grad_(True)
+        tb = b.detach().to(dev).requires_grad_(True)
+        cdt_matmul(ta, tb, torch.bfloat16).backward(g.to(dev))
+        grads[str(dev)] = (ta.grad.cpu(), tb.grad.cpu())
+    terms_a = torch.matmul(g.abs(), b.abs().transpose(-1, -2))
+    terms_b = torch.matmul(a.abs().transpose(-1, -2), g.abs())
+    if b.dim() == 2:
+        terms_b = terms_b.reshape(-1, *terms_b.shape[-2:]).sum(0)
+    for got, want, terms in zip(grads["cuda"], grads["cpu"],
+                                (terms_a, terms_b)):
+        assert got.shape == want.shape
+        assert ((got - want).abs() <= 1e-2 * terms + 1e-6).all()
