@@ -25,18 +25,23 @@ the card, in phases; any failure raises and the exit code is non-zero:
 6. K2 ``binned_conv_grouped_bwd`` against its plain version at every
    grouped (level, Cin, Cout) of the flagship's train step, on a real
    training batch (10 scans, adaptive capacities), bf16 and f32, with dW
-   bitwise equal across two launches; and K3 at E=8 (the devoxelize
-   adjoint) at L4 and L2 of the same batch;
-7. one train step, card against CPU: f32, TF32 off, shared weights,
-   dropout off, 2 scans (the batch is cut from 10 to keep the CPU's time
-   short); losses, every gradient, BN running statistics, confusion
-   matrices;
+   bitwise equal across two launches; K3 at E=8 (the devoxelize adjoint)
+   at L4 and L2 of the same batch; the card's bf16 GEMM gradient against
+   the CPU's at the ViT's shapes;
+7. one train step: f32, TF32 off, shared weights, dropout off, 2 scans (the
+   batch is cut from 10 to keep the CPU's time short), on the CPU and on
+   the card with the kernels, with the plain versions in their place, and
+   with two deliberately wrong K2s; losses, every gradient, BN running
+   statistics, confusion matrices, and each kernel call of the step
+   against its plain version on the same inputs;
 8. the training path — ``SemanticTrainer`` at the flagship's widths in
    bf16, batch 10 as ``middlefusion.yaml`` sets it, 3 steps and one
    validation over 30 SyntheticSCN scans, with the kernels' launch counts
-   read around it; then the per-step breakdown (host collate + slot maps,
-   copy, step; forward / backward / optimizer inside the step; device busy
-   share; scans/s);
+   read around it; then the shipped step's breakdown (host collate + slot
+   maps, copy, step on CUDA events; forward / backward / optimizer /
+   metrics from the step's own ``record_function`` ranges; device busy
+   share) and a steady window of ``train_for_one_epoch`` over 6 more
+   batches (train scans/s);
 9. a ``{"kernels": [...]}`` line: launches, errors and times of each kernel.
 
 The last line of standard output is
@@ -48,7 +53,9 @@ bf16, 67 TFLOP/s f32) of an H100 SXM.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -66,9 +73,11 @@ K3_REPLACES = "fusiontransformer_tpu/ops/pallas/segment_sum.py:129"
 K2_REPLACES = "fusiontransformer_tpu/ops/pallas/binned_conv.py:198"
 # The training path: the flagship's model and training settings
 # (middlefusion.yaml) on SyntheticSCN scans, 3 steps of batch 10 and one
-# validation over the same number of scans.
+# validation over the same number of scans; then a steady window of
+# WINDOW_STEPS more steps.
 TRAIN_STEPS = 3
 TRAIN_BATCH = 10
+WINDOW_STEPS = 6
 PARITY_SCANS = 2
 # Kernel vs plain version: both sum the same f32 products in another order,
 # so the difference is held against the sum of |products| (the plain
@@ -79,18 +88,26 @@ SUM_ORDER_RTOL = 2e-5
 # |logit|; H100 runs measured ~1e-6 of it (PERF.md), so 1e-4 leaves 100x.
 F32_LOGIT_RTOL = 1e-4
 LABEL_AGREEMENT = 0.999
-# Train step in f32, card vs CPU (phase 7): losses to 1e-5 relative;
-# gradients, as shares of each leaf's largest |g|: the median over all
-# leaves within MEDIAN_RTOL, the median over the K1/K2 conv kernels within
-# CONV_MEDIAN_RTOL (a kernel fault moves every conv leaf by O(1)), each leaf
-# within LEAF_RTOL plus LEAF_ATOL.  A conv kernel's gradient sums 10^5-10^6
-# products per element that mostly cancel, and gradients cross ~40
-# train-mode BatchNorms (variance as E[x^2] - E[x]^2) and ReLU ties, all of
-# which amplify f32 summation-order differences: the H100 runs measured a
-# median of 8.7e-6 over all leaves, 1.3e-3 over the conv kernels and a
-# worst leaf of 2.5% (an L3 conv) while the losses agreed to 1e-7.  BN
-# running statistics to 1e-4 of each buffer's largest value.
-LEAF_RTOL, LEAF_ATOL, MEDIAN_RTOL, CONV_MEDIAN_RTOL = 0.1, 1e-7, 1e-4, 1e-2
+# bf16 GEMM gradient, card vs CPU: one extra bf16 rounding (2^-8 relative)
+# of the incoming gradient and one of the result, against the sum of |terms|.
+GEMM_GRAD_RTOL = 1e-2
+# One f32 train step, compared leaf by leaf (phase 7): losses relative;
+# gradients as shares of each leaf's largest |g| (each leaf within "leaf"
+# plus LEAF_ATOL, the median over all leaves, the median over the 30 K1/K2
+# conv kernels); BN running statistics as shares of each buffer's largest
+# value.  Train-mode BatchNorm amplifies f32 summation-order differences
+# into the conv kernels' gradients.  Readings on an H100 (PERF.md):
+# card with the kernels vs CPU: worst leaf 0.0249 (an L3 conv), conv median
+# 1.31e-3, all-leaf median 7.9e-6, BN 1.3e-6, losses 2e-7; the card with the
+# plain versions in place of the kernels reads the same against the CPU
+# (0.025, 1.35e-3), so the gap is not the kernels'; card with kernels vs
+# card with plain versions: worst leaf 2.4e-3, conv median 1.75e-4; a K2
+# whose dW misses 1/16 of the groups or whose dX skips the tap reversal:
+# conv median 0.37 / 0.85, worst leaf 0.97 / 2.0.  Each limit sits between.
+LEAF_ATOL = 1e-7
+CPU_GATES = {"loss": 1e-5, "leaf": 0.1, "median": 1e-4, "conv_median": 1e-2,
+             "bn": 1e-4}
+CARD_GATES = {**CPU_GATES, "leaf": 2e-2, "conv_median": 2e-3}
 
 
 def log(msg=""):
@@ -512,139 +529,325 @@ def phase_k3_e8(hier, gen):
     return rows, main
 
 
-def phase_train_parity(cfg, state, host_batch, caps, conv_names):
-    """One f32 train step (TF32 off, dropout off) on the card and on the
-    CPU from the same weights and batch."""
-    import numpy as np
+def phase_gemm_grads(cfg):
+    """The card's bf16 GEMM gradient (``sparse_conv._MatmulF32Out``, which
+    rounds the incoming gradient to bf16) against the CPU's bf16
+    formulation (the incoming gradient kept in f32) at the ViT's shapes in a
+    batch-``TRAIN_BATCH`` train step: every element of both operands'
+    gradients within GEMM_GRAD_RTOL of the sum of |terms| (one bf16
+    rounding of the incoming gradient, then one of the result)."""
     import torch
-    from fusiontransformer_tpu_torch.models import spvcnn
+    from fusiontransformer_tpu_torch.ops.sparse_conv import cdt_matmul
+    b, d, h = TRAIN_BATCH, cfg.MODEL.VIT_EMBED_DIM, cfg.MODEL.VIT_HEADS
+    n = (cfg.MODEL.VIT_IMG_SIZE // 16) ** 2 + 2
+    cases = {"qkv": ((b, n, d), (d, 3 * d)), "proj": ((b, n, d), (d, d)),
+             "fc1": ((b, n, d), (d, 4 * d)), "fc2": ((b, n, 4 * d), (4 * d, d)),
+             "q @ k^T": ((b, h, n, d // h), (b, h, d // h, n)),
+             "attn @ v": ((b, h, n, n), (b, h, n, d // h))}
+    gen = torch.Generator().manual_seed(7)
+    worst = {}
+    for name, (sa, sb) in cases.items():
+        a, bm = torch.randn(*sa, generator=gen), torch.randn(*sb,
+                                                            generator=gen)
+        g = torch.randn(*sa[:-1], sb[-1], generator=gen)
+        grads = {}
+        for dev in ("cpu", "cuda"):
+            ta = a.detach().to(dev).requires_grad_(True)
+            tb = bm.detach().to(dev).requires_grad_(True)
+            cdt_matmul(ta, tb, torch.bfloat16).backward(g.to(dev))
+            grads[dev] = (ta.grad.cuda(), tb.grad.cuda())
+        ac, bc, gc = a.cuda().abs(), bm.cuda().abs(), g.cuda().abs()
+        terms_a = torch.matmul(gc, bc.transpose(-1, -2))
+        terms_b = torch.matmul(ac.transpose(-1, -2), gc)
+        if bm.dim() == 2:
+            terms_b = terms_b.reshape(-1, *terms_b.shape[-2:]).sum(0)
+        share = 0.0
+        for got, want, terms in zip(grads["cuda"], grads["cpu"],
+                                    (terms_a, terms_b)):
+            share = max(share, ((got - want).abs() / terms.clamp(min=1e-30))
+                        .max().item())
+        worst[name] = share
+        if not share <= GEMM_GRAD_RTOL:
+            raise AssertionError(f"bf16 GEMM gradient {name} {sa} x {sb}: "
+                                 f"card vs CPU {share} of the sum of |terms| "
+                                 f"> {GEMM_GRAD_RTOL}")
+    log("  bf16 GEMM gradients, card vs CPU at the ViT's shapes (worst "
+        "share of the sum of |terms|, bound "
+        f"{GEMM_GRAD_RTOL}): " + ", ".join(f"{k} {v:.3g}"
+                                           for k, v in worst.items()))
+    return worst
+
+
+LOSS_KEYS = ("total_loss", "seg_loss_2d", "seg_loss_3d", "xm_loss_2d",
+             "xm_loss_3d")
+
+
+@contextlib.contextmanager
+def replaced(**fns):
+    """Swap functions that ``ops.sparse_conv`` calls by name (the kernel
+    wrappers) for the duration of the block."""
+    from fusiontransformer_tpu_torch.ops import sparse_conv as sc
+    old = {k: getattr(sc, k) for k in fns}
+    for k, f in fns.items():
+        setattr(sc, k, f)
+    try:
+        yield
+    finally:
+        for k, f in old.items():
+            setattr(sc, k, f)
+
+
+def recording(fn, calls):
+    """``fn`` that also keeps a copy of each call's arguments and result
+    (the step may later write into either)."""
+    import torch
+
+    def copy(x):
+        if isinstance(x, tuple):
+            return tuple(copy(t) for t in x)
+        return x.clone() if torch.is_tensor(x) else x
+
+    def wrapped(*args, **kw):
+        kept = copy(args)
+        out = fn(*args, **kw)
+        calls.append((kept, kw, copy(out)))
+        return out
+    return wrapped
+
+
+def one_train_step(cfg32, state, host_batch, caps, dev):
+    """One f32 train step of ``make_train_step`` from ``state``: (metrics,
+    gradients, buffers after the step, seconds), all on the CPU."""
+    import torch
     from fusiontransformer_tpu_torch.models.build import build_model
     from fusiontransformer_tpu_torch.modules.steps import (device_batch,
                                                            make_train_step)
     from fusiontransformer_tpu_torch.solver.build import build_optimizer
+    model = build_model(cfg32, dev)
+    model.load_state_dict(state)
+    opt, _ = build_optimizer(cfg32, model.parameters())
+    grads = {}
+    opt.register_step_pre_hook(lambda o, a, k: grads.update(
+        {n: p.grad.detach().cpu() for n, p in model.named_parameters()}))
+    t0 = time.time()
+    metrics = make_train_step(cfg32, model, opt)(
+        device_batch(host_batch, dev), torch.Generator(dev), caps)
+    metrics = {k: v.cpu() for k, v in metrics.items()}
+    return (metrics, grads, {n: b.cpu() for n, b in model.named_buffers()},
+            time.time() - t0)
+
+
+def grad_readings(ref, got, conv_names, gates):
+    """How far one train step ``got`` is from ``ref``, and which of
+    ``gates`` (CPU_GATES or CARD_GATES) it fails."""
+    import numpy as np
+    import torch
+    (mr, gr, br, _), (mg, gg, bg, _) = ref, got
+    loss = max(abs(mg[k].item() - mr[k].item()) / abs(mr[k].item())
+               for k in LOSS_KEYS)
+    cms = all(torch.equal(mg[k], mr[k]) for k in ("cm_2d", "cm_3d"))
+    shares, beyond = {}, []
+    for n, g in gr.items():
+        scale = g.abs().max().item()
+        err = (gg[n] - g).abs().max().item()
+        if not err <= gates["leaf"] * scale + LEAF_ATOL:
+            beyond.append(n)
+        if scale > 0 and err > LEAF_ATOL:
+            shares[n] = err / scale
+    conv = [shares.get(n, 0.0) for n in conv_names]
+    bn = max((bg[n] - b).abs().max().item() / (b.abs().max().item() + 1e-12)
+             for n, b in br.items())
+    r = {"loss_rel": loss, "cms_equal": cms,
+         "median": float(np.median([shares.get(n, 0.0) for n in gr])),
+         "conv_median": float(np.median(conv)), "conv_worst": max(conv),
+         "worst": max(shares.values(), default=0.0),
+         "worst_leaf": max(shares, key=shares.get, default=None),
+         "beyond_leaf_bound": beyond, "bn_worst": bn}
+    r["fails"] = [k for k, bad in (
+        ("losses", not loss <= gates["loss"]), ("confusion", not cms),
+        ("leaf", bool(beyond)), ("median", not r["median"] <= gates["median"]),
+        ("conv_median", not r["conv_median"] <= gates["conv_median"]),
+        ("bn", not bn <= gates["bn"])) if bad]
+    return r
+
+
+def check_recorded_calls(calls, ref_fn):
+    """Each recorded kernel call against its plain version on the same
+    inputs, within SUM_ORDER_RTOL of the sum of |terms|; the worst share."""
+    import torch
+    worst = 0.0
+    for args, kw, out in calls:
+        ref = ref_fn(*args, **kw)
+        terms = ref_fn(*(a.abs() if torch.is_tensor(a)
+                         and a.is_floating_point() else a for a in args),
+                       **{**kw, **({"precise": True} if "precise" in kw
+                                   else {})})
+        outs = out if isinstance(out, tuple) else (out,)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        sums = terms if isinstance(terms, tuple) else (terms,)
+        for o, r, t in zip(outs, refs, sums):
+            share = (o - r).abs().max().item() / max(t.max().item(), 1e-30)
+            worst = max(worst, share)
+            if not share <= SUM_ORDER_RTOL:
+                raise AssertionError(f"{ref_fn.__name__} in the train step: "
+                                     f"error {share} of the sum of |terms| > "
+                                     f"{SUM_ORDER_RTOL}")
+    return worst
+
+
+def phase_train_parity(cfg, state, host_batch, caps, conv_names):
+    """One f32 train step (TF32 off, dropout off) from the same weights and
+    batch on the CPU (plain versions) and on the card four ways: with the
+    kernels (the path; each K1, K2 and K3 call also held against its plain
+    version on the same inputs), with the plain versions in place of the
+    kernels, and with two deliberately wrong K2s (dW missing the first
+    sixteenth of the voxel groups; dX without the tap reversal), to show
+    what the gates read for a kernel fault.  Each card step is held against
+    the CPU's (CPU_GATES) and, but for the plain one, against the card's
+    plain step (CARD_GATES): the kernel and plain steps must pass, each
+    wrong K2 must fail."""
+    from fusiontransformer_tpu_torch.models import spvcnn
+    from fusiontransformer_tpu_torch.ops.kernels.binned_conv import (
+        binned_conv_grouped_bwd, binned_conv_grouped_bwd_ref,
+        binned_conv_grouped_fwd, binned_conv_grouped_ref)
+    from fusiontransformer_tpu_torch.ops.kernels.segment_sum import (
+        sorted_segment_weighted_sum, sorted_segment_weighted_sum_ref)
     cfg32 = cfg.clone()
     cfg32.TPU.COMPUTE_DTYPE = "float32"
     cfg32.freeze()
-    res = {}
+
+    def dw_missing_groups(d, x, src, binp, w):
+        cut = binp.clone()
+        cut[:max(1, len(cut) // 16)] = 216
+        return (binned_conv_grouped_bwd(d, x, src, binp, w)[0],
+                binned_conv_grouped_bwd(d, x, src, cut, w)[1])
+
+    def dx_taps_unreversed(d, x, src, binp, w):
+        return (binned_conv_grouped_bwd(d, x, src, binp,
+                                        w.flip(0).contiguous())[0],
+                binned_conv_grouped_bwd(d, x, src, binp, w)[1])
+
+    calls = {"K1": [], "K2": [], "K3": []}
+    variants = {
+        "kernels": dict(
+            binned_conv_grouped_fwd=recording(binned_conv_grouped_fwd,
+                                              calls["K1"]),
+            binned_conv_grouped_bwd=recording(binned_conv_grouped_bwd,
+                                              calls["K2"]),
+            sorted_segment_weighted_sum=recording(
+                sorted_segment_weighted_sum, calls["K3"])),
+        "plain on the card": dict(
+            binned_conv_grouped_fwd=binned_conv_grouped_ref,
+            binned_conv_grouped_bwd=binned_conv_grouped_bwd_ref,
+            sorted_segment_weighted_sum=sorted_segment_weighted_sum_ref),
+        "wrong K2: dW misses 1/16 of the groups": dict(
+            binned_conv_grouped_bwd=dw_missing_groups),
+        "wrong K2: dX taps not reversed": dict(
+            binned_conv_grouped_bwd=dx_taps_unreversed),
+    }
     dropout, spvcnn.DROPOUT = spvcnn.DROPOUT, 0.0
     try:
-        for dev in ("cuda", "cpu"):
-            model = build_model(cfg32, dev)
-            model.load_state_dict(state)
-            opt, _ = build_optimizer(cfg32, model.parameters())
-            grads = {}
-            opt.register_step_pre_hook(
-                lambda o, a, k, m=model, g=grads: g.update(
-                    {n: p.grad.detach().cpu() for n, p in
-                     m.named_parameters()}))
-            t0 = time.time()
-            metrics = make_train_step(cfg32, model, opt)(
-                device_batch(host_batch, dev), torch.Generator(dev), caps)
-            metrics = {k: v.cpu() for k, v in metrics.items()}
-            res[dev] = (metrics, grads,
-                        {n: b.cpu() for n, b in model.named_buffers()},
-                        time.time() - t0)
-            del model, opt
+        cpu = one_train_step(cfg32, state, host_batch, caps, "cpu")
+        runs = {}
+        for name, fns in variants.items():
+            with replaced(**fns):
+                runs[name] = one_train_step(cfg32, state, host_batch, caps,
+                                            "cuda")
     finally:
         spvcnn.DROPOUT = dropout
-    (mg, gg, bg, tg), (mc, gc, bc, tc) = res["cuda"], res["cpu"]
-    log(f"  step on the card {tg:.1f} s (first call), on the CPU {tc:.1f} s")
-    for k in ("total_loss", "seg_loss_2d", "seg_loss_3d", "xm_loss_2d",
-              "xm_loss_3d"):
-        d = abs(mg[k].item() - mc[k].item())
-        log(f"  {k}: card {mg[k].item():.7f} CPU {mc[k].item():.7f} "
-            f"(diff {d:.3g})")
-        if not d <= 1e-5 * abs(mc[k].item()):
-            raise AssertionError(f"{k}: card {mg[k].item()} vs CPU "
-                                 f"{mc[k].item()}")
-    for k in ("cm_2d", "cm_3d"):
-        if not torch.equal(mg[k], mc[k]):
-            raise AssertionError(f"{k} differs between card and CPU")
-    log("  confusion matrices: equal")
-    shares, conv_shares, bad = {}, [], []
-    for n, g in gc.items():
-        scale = g.abs().max().item()
-        err = (gg[n] - g).abs().max().item()
-        if not err <= LEAF_RTOL * scale + LEAF_ATOL:
-            bad.append((n, err, scale))
-        if scale > 0:
-            shares[n] = err / scale
-            if n in conv_names:
-                conv_shares.append(err / scale)
-    median = float(np.median(list(shares.values())))
-    conv_median = float(np.median(conv_shares))
-    for n, sh in sorted(shares.items(), key=lambda kv: -kv[1])[:8]:
-        log(f"  gradient share {sh:.3g}: {n}")
-    if bad:
-        raise AssertionError(f"gradients beyond {LEAF_RTOL} x max|g| + "
-                             f"{LEAF_ATOL}: {bad}")
-    if not (median <= MEDIAN_RTOL and conv_median <= CONV_MEDIAN_RTOL):
-        raise AssertionError(f"median gradient share {median} (bound "
-                             f"{MEDIAN_RTOL}), conv kernels {conv_median} "
-                             f"(bound {CONV_MEDIAN_RTOL})")
-    stat_worst = 0.0
-    for n, b in bc.items():
-        err = (bg[n] - b).abs().max().item()
-        tol = 1e-4 * b.abs().max().item() + 1e-6
-        stat_worst = max(stat_worst, err / (b.abs().max().item() + 1e-12))
-        if not err <= tol:
-            raise AssertionError(f"BN statistic {n}: card vs CPU {err} > "
-                                 f"{tol}")
-    log(f"  gradients of {len(gc)} leaves: median share of the leaf's max "
-        f"|g| {median:.3g}, worst {max(shares.values()):.3g}; the "
-        f"{len(conv_shares)} K1/K2 conv kernels: median {conv_median:.3g}, "
-        f"worst {max(conv_shares):.3g} (bounds: medians {MEDIAN_RTOL} and "
-        f"{CONV_MEDIAN_RTOL}, each "
-        f"{LEAF_RTOL} + {LEAF_ATOL} abs); BN running statistics of "
-        f"{len(bc)} buffers: worst {stat_worst:.3g} of their max (bound "
-        f"1e-4)")
-    return {"cpu_s": tc, "card_s": tg, "median_grad_share": median,
-            "worst_grad_share": max(shares.values()),
-            "conv_median_share": conv_median,
-            "conv_worst_share": max(conv_shares),
-            "bn_worst_share": stat_worst,
-            "losses": {k: [mg[k].item(), mc[k].item()]
+    log(f"  step on the CPU {cpu[3]:.1f} s, on the card with the kernels "
+        f"{runs['kernels'][3]:.1f} s (first call)")
+    in_step = {k: check_recorded_calls(calls[k], ref) for k, ref in (
+        ("K1", binned_conv_grouped_ref), ("K2", binned_conv_grouped_bwd_ref),
+        ("K3", sorted_segment_weighted_sum_ref))}
+    log(f"  kernel calls of the step against their plain versions on the "
+        f"same inputs (worst share of the sum of |terms|, bound "
+        f"{SUM_ORDER_RTOL}): " + ", ".join(
+            f"{k} x{len(calls[k])} {v:.3g}" for k, v in in_step.items()))
+    readings = {}
+    for ref_name, gates, names in (
+            ("CPU", CPU_GATES, list(runs)),
+            ("card (plain)", CARD_GATES,
+             [n for n in runs if n != "plain on the card"])):
+        ref = cpu if ref_name == "CPU" else runs["plain on the card"]
+        for name in names:
+            r = readings[f"{name} vs {ref_name}"] = grad_readings(
+                ref, runs[name], conv_names, gates)
+            log(f"  card ({name}) vs {ref_name}: losses {r['loss_rel']:.3g} "
+                f"relative, confusion matrices "
+                f"{'equal' if r['cms_equal'] else 'DIFFER'}, gradient shares "
+                f"of the leaf's max |g|: median {r['median']:.3g}, conv "
+                f"kernels median {r['conv_median']:.3g} worst "
+                f"{r['conv_worst']:.3g}, worst leaf {r['worst']:.3g} "
+                f"({r['worst_leaf']}); BN statistics {r['bn_worst']:.3g}; "
+                f"fails {r['fails'] or 'none'}")
+    log(f"  gates against the CPU {CPU_GATES}, against the card's plain "
+        f"versions {CARD_GATES} (leaf: share of the leaf's max |g| + "
+        f"{LEAF_ATOL}; the K1/K2 conv kernels: {len(conv_names)})")
+    for key, r in readings.items():
+        wrong = key.startswith("wrong")
+        if wrong and not r["fails"]:
+            raise AssertionError(f"the gates do not catch '{key}'")
+        if not wrong and r["fails"]:
+            raise AssertionError(f"train step '{key}' fails {r['fails']}: "
+                                 f"{r}")
+    return {"cpu_s": cpu[3], "card_s": runs["kernels"][3],
+            "in_step_kernel_share": in_step, "readings": readings,
+            "losses": {k: [runs["kernels"][0][k].item(), cpu[0][k].item()]
                        for k in ("total_loss", "seg_loss_2d",
                                  "seg_loss_3d")}}
 
 
-def train_step_split(trainer, db, caps):
-    """One train step with CUDA events between its parts (the body of
-    ``modules.steps.make_train_step``): hierarchy + forward + losses,
-    backward, optimizer, metrics.  Returns the parts in ms."""
-    import torch
-    from fusiontransformer_tpu_torch.modules.steps import (class_weights_of,
-                                                           confusions,
-                                                           hier_from_cfg,
-                                                           losses)
-    cfg, model, opt = trainer.cfg, trainer.model, trainer.optimizer
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-    ev[0].record()
-    model.train()
-    hier = hier_from_cfg(cfg, db, caps)
-    out = model(db, hier, generator=trainer.generator)
-    total, _ = losses(cfg, out, db, class_weights_of(cfg, db["feats"].device))
-    ev[1].record()
-    opt.zero_grad(set_to_none=True)
-    total.backward()
-    ev[2].record()
-    for p in model.parameters():
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    opt.step()
-    ev[3].record()
-    with torch.no_grad():
-        confusions(cfg, out, db)
-    ev[4].record()
-    ev[4].synchronize()
-    return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+def step_parts(prof):
+    """Device spans of the train step's parts from a profiler trace of one
+    ``make_train_step`` call, whose ``record_function`` ranges mark them.
+    Kernels of one stream run in order, so the parts are cut at range
+    boundaries on the device: the forward runs from the step's first kernel
+    to the end of the ``train_step.forward`` range's device span, the
+    backward from there to the start of the optimizer's (autograd launches
+    the backward from its own thread, outside the range), the optimizer
+    from there to the start of ``train_step.metrics``'s, the metrics to the
+    step's last kernel.  Returns each part's span and the kernel time inside
+    it in ms, or None when the trace holds no device span of the ranges."""
+    from torch.autograd import DeviceType
+    kernels, spans = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if getattr(e, "is_user_annotation", False) or e.name.startswith(
+                "train_step."):
+            spans.setdefault(e.name, []).append(e.time_range)
+        else:
+            kernels.append(e.time_range)
+
+    def first_start(*prefixes):
+        return min((r.start for n, rs in spans.items()
+                    if n.startswith(prefixes) for r in rs), default=None)
+
+    fwd_end = max((r.end for r in spans.get("train_step.forward", [])),
+                  default=None)
+    opt_start = first_start("train_step.optimizer", "Optimizer.step")
+    met_start = first_start("train_step.metrics")
+    if not kernels or None in (fwd_end, opt_start, met_start):
+        return None
+    t0 = min(k.start for k in kernels)
+    t_end = max(k.end for k in kernels)
+    bounds = {"forward": (t0, fwd_end), "backward": (fwd_end, opt_start),
+              "optimizer": (opt_start, met_start),
+              "metrics": (met_start, t_end)}
+    out = {}
+    for part, (a, b) in bounds.items():
+        busy = sum(min(k.end, b) - max(k.start, a) for k in kernels
+                   if k.end > a and k.start < b)
+        out[part] = {"ms": (b - a) / 1e3, "kernel_ms": busy / 1e3}
+    return out
 
 
 def train_breakdown(trainer, top=12):
-    """Where a train step's time goes, on batches of the trainer's own
-    loader: host collate + slot maps (host clock), copy and step (CUDA
-    events), the step's parts, the device busy share (profiler kernel time
-    over the step's CUDA-event time), steady scans/s."""
+    """Where a train step's time goes, on a batch of the trainer's own
+    loader: dataset items and collate + slot maps (host clock), the copy and
+    the shipped step ``trainer.train_step`` (CUDA events, medians of 3), the
+    step's parts and the kernel time inside them (profiler, one step)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -658,19 +861,19 @@ def train_breakdown(trainer, top=12):
     for _ in range(3):
         t0 = time.perf_counter()
         hb = collate(items)
-        t1 = time.perf_counter()
+        collate_ms = (time.perf_counter() - t0) * 1e3
         caps = trainer.level_caps(hb)
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
         db = device_batch(hb, trainer.device)
-        e1.record()
-        parts = train_step_split(trainer, db, caps)
-        wall = (time.perf_counter() - t1) * 1e3
-        rows.append([(t1 - t0) * 1e3, e0.elapsed_time(e1)] + parts + [wall])
-    med = [statistics.median(r[i] for r in rows) for i in range(len(rows[0]))]
-    collate_ms, copy_ms, fwd_ms, bwd_ms, opt_ms, met_ms, wall_ms = med
-    step_ms = fwd_ms + bwd_ms + opt_ms + met_ms
+        ev[1].record()
+        trainer.train_step(db, trainer.generator, caps)
+        ev[2].record()
+        ev[2].synchronize()
+        rows.append((collate_ms, ev[0].elapsed_time(ev[1]),
+                     ev[1].elapsed_time(ev[2])))
+    collate_ms, copy_ms, step_ms = (statistics.median(r[i] for r in rows)
+                                    for i in range(3))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         trainer.train_step(db, trainer.generator, caps)
@@ -678,39 +881,74 @@ def train_breakdown(trainer, top=12):
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA and not getattr(
-                e, "is_user_annotation", False):
+                e, "is_user_annotation", False) and not e.name.startswith(
+                    "train_step."):
             n, ms = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
     kernel_ms = sum(ms for _, ms in by_name.values())
     n_kernels = sum(n for n, _ in by_name.values())
     busy = kernel_ms / step_ms if n_kernels else None
+    parts = step_parts(prof)
     log(f"train step (batch {TRAIN_BATCH}, medians of 3): dataset item "
         f"{item_ms:.1f} ms/scan, collate + slot maps {collate_ms:.1f} ms "
         f"(host clock), copy {copy_ms:.2f} ms, step {step_ms:.2f} ms (CUDA "
-        f"events) = hierarchy + forward + losses {fwd_ms:.2f} + backward "
-        f"{bwd_ms:.2f} + optimizer {opt_ms:.2f} + metrics {met_ms:.2f}; "
-        f"copy + step {wall_ms:.1f} ms on the host clock -> "
-        f"{TRAIN_BATCH / max(wall_ms, collate_ms) * 1e3:.2f} scans/s with "
-        f"the next batch's collate overlapped (the loader's prefetch "
-        f"thread), {TRAIN_BATCH / (wall_ms + collate_ms) * 1e3:.2f} scans/s "
-        f"without")
+        f"events around trainer.train_step)")
+    if parts is None:
+        log("step parts: not measured (the trace holds no device span of "
+            "the step's record_function ranges)")
+    else:
+        log("step parts (device spans in one profiled step, kernel time "
+            "inside): " + ", ".join(
+                f"{k} {v['ms']:.2f} ms ({v['kernel_ms']:.2f})"
+                for k, v in parts.items()))
     log(f"profiler: {n_kernels} device activities, {kernel_ms:.2f} ms, busy "
-        f"share {busy if busy is None else round(busy, 3)}")
+        f"share {busy if busy is None else round(busy, 3)} of the step")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
     for name, (n, ms) in ranked:
         log(f"  {ms:8.3f} ms  x{n:<5d} {name[:100]}")
     return {"item_ms_per_scan": item_ms, "collate_ms": collate_ms,
-            "copy_ms": copy_ms, "step_ms": step_ms,
-            "forward_ms": fwd_ms, "backward_ms": bwd_ms,
-            "optimizer_ms": opt_ms, "metrics_ms": met_ms,
-            "copy_and_step_wall_ms": wall_ms,
-            "scans_per_s_collate_overlapped":
-                TRAIN_BATCH / max(wall_ms, collate_ms) * 1e3,
-            "scans_per_s_serial": TRAIN_BATCH / (wall_ms + collate_ms) * 1e3,
+            "copy_ms": copy_ms, "step_ms": step_ms, "parts": parts,
             "device_activities": n_kernels, "kernel_ms": kernel_ms,
             "busy_share": busy,
             "top": [{"name": k, "count": n, "ms": ms}
                     for k, (n, ms) in ranked]}
+
+
+def train_window(trainer, cfg, step_ms):
+    """Steady training rate: one more epoch of ``train_for_one_epoch`` (the
+    prefetching loader, metrics read one step late) over WINDOW_STEPS
+    batches, after the trainer's first epoch warmed it up; all its scans
+    over all its time, host clock, end synchronised."""
+    import torch
+    from fusiontransformer_tpu_torch.data.build import build_dataloader
+    wcfg = cfg.clone()
+    wcfg.DATASET.SyntheticSCN.num_scans = WINDOW_STEPS * TRAIN_BATCH
+    wcfg.freeze()
+    trainer.train_dataloader = build_dataloader(wcfg, mode="train")
+    step0 = trainer.step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train_for_one_epoch(1)
+    torch.cuda.synchronize()
+    window_s = time.perf_counter() - t0
+    steps = trainer.step - step0
+    meters = trainer.train_metric_logger.meters
+    if steps != WINDOW_STEPS:
+        raise AssertionError(f"{steps} steps in the window, expected "
+                             f"{WINDOW_STEPS}")
+    if meters["voxel_overflow"].sum != 0 or meters["slot_overflow"].sum != 0:
+        raise AssertionError("lossy steps in the window")
+    if not math.isfinite(meters["total_loss"].global_avg):
+        raise AssertionError("non-finite loss in the window")
+    rate = steps * TRAIN_BATCH / window_s
+    log(f"steady window: train_for_one_epoch over {steps} batches of "
+        f"{TRAIN_BATCH} in {window_s:.2f} s = {rate:.3f} train scans/s, "
+        f"{window_s / steps * 1e3:.1f} ms per step on the host clock; the "
+        f"card's share of the window {steps * step_ms / 1e3 / window_s:.3f} "
+        f"(steps x the step's CUDA-event time / window)")
+    return {"steps": steps, "seconds": window_s, "scans_per_s": rate,
+            "ms_per_step": window_s / steps * 1e3,
+            "card_share": steps * step_ms / 1e3 / window_s}
 
 
 # --------------------------------------------------------------------------- #
@@ -929,6 +1167,7 @@ def main() -> int:
         f"sizes {[l.slot_idx[0].shape[1] for l in thier.levels if l.slot_idx]}")
     k2_rows, k2 = phase_k2(thier, trainer.model, gen)
     k3e8_rows, k3e8 = phase_k3_e8(thier, gen)
+    gemm_grads = phase_gemm_grads(tcfg)
     convs_per_step = len(grouped_convs(trainer.model, thier))
     del thier
     torch.cuda.empty_cache()
@@ -1006,6 +1245,7 @@ def main() -> int:
         f"overflow 0; mean losses {losses}; validation {val}; peak device "
         f"memory {peak_gb:.1f} GB")
     tbreak = train_breakdown(trainer)
+    window = train_window(trainer, tcfg, tbreak["step_ms"])
     phase_end("8")
 
     # ---- 9. kernels line
@@ -1032,7 +1272,9 @@ def main() -> int:
                         "val_batches": n_val, "run_s": train_s,
                         "launches": tlaunches, "losses": losses,
                         "validation": val, "peak_memory_gb": peak_gb,
-                        "breakdown": tbreak, "card_vs_cpu": parity},
+                        "breakdown": tbreak, "window": window,
+                        "card_vs_cpu": parity,
+                        "bf16_gemm_grad_share": gemm_grads},
               "phase_s": phase_s}
     log("== 9. kernels (ms, plain_ms, bound_ms, library_ms: K1 and K3 per "
         "inference request at batch 1, K2 and K3[E=8] per train step at "

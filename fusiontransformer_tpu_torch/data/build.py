@@ -5,7 +5,7 @@ Builds the dataset of ``DATASET.TYPE`` for the mode's split (the
 augmentation subtree applies to the training split only), the padded
 collate with capacity buckets, per-level voxel counts when
 ``TPU.ADAPTIVE_LEVEL_CAPS`` is on, and host-built group-pooled slot maps when
-``TPU.CONV_SLOT_POOL`` is on, and wraps them in the synchronous loader with
+``TPU.CONV_SLOT_POOL`` is on, and wraps them in the loader with
 one prefetch thread.  Only ``SyntheticSCN`` is ported: the real datasets'
 loaders (``SemanticKITTISCN``, ``NuScenesSCN``) need data that is not in the
 repository (ROADMAP.md, Queue 1), as does the worker pool
@@ -73,4 +73,4 @@ def build_dataloader(cfg, mode="train", seed=0, batch_size=None):
                           level_counts=n_levels if adaptive else 0,
                           slot_pool=slot_pool_spec(cfg, adaptive))
     return DataLoader(dataset, batch_size, collate, shuffle=is_train,
-                      seed=seed + cfg.RNG_SEED, prefetch=1)
+                      seed=seed + cfg.RNG_SEED)

@@ -1,14 +1,15 @@
-"""Synchronous batching loader (the ``NUM_WORKERS: 0`` path of
-``fusiontransformer_tpu/data/loader.py``).
+"""Batching loader with one prefetch thread (the ``NUM_WORKERS: 0`` path
+of ``fusiontransformer_tpu/data/loader.py``).
 
 Batch order: the scan indices, shuffled per epoch with
 ``RandomState(seed + epoch)`` when ``shuffle``.  Each batch's augmentation
 draws are seeded from (loader seed, epoch, batch ordinal) exactly as the JAX
 package's workers seed them, so a run is reproducible whatever produces the
 batches: numpy's global generator is seeded before each batch is made (the
-synthetic dataset draws from its own per-item generator instead).  With
-``prefetch`` a thread keeps that many collated batches ready while the
-device step runs, as the JAX loader's one prefetch thread does.  The worker
+synthetic dataset draws from its own per-item generator instead).  A
+thread keeps the next collated batch ready while the device step runs, as
+the JAX loader's one prefetch thread does; an error there is re-raised in
+the consumer.  The worker
 pool (``NUM_WORKERS > 0``) is not ported (ROADMAP.md, Queue 1).
 """
 
@@ -26,13 +27,12 @@ def batch_seed(seed: int, epoch: int, ordinal: int) -> int:
 
 class DataLoader:
     def __init__(self, dataset, batch_size, collate_fn, shuffle=False,
-                 seed=0, prefetch=0):
+                 seed=0):
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate_fn = collate_fn
         self.shuffle = shuffle
         self.seed = seed
-        self.prefetch = prefetch
         self.epoch = 0
 
     def __len__(self):
@@ -54,11 +54,7 @@ class DataLoader:
 
     def __iter__(self):
         batches = list(enumerate(self._index_batches()))
-        if self.prefetch <= 0:
-            for ordinal, idx in batches:
-                yield self._produce(ordinal, idx)
-            return
-        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        q: "queue.Queue" = queue.Queue(maxsize=1)
         stop = object()
         failure = []
 

@@ -59,8 +59,8 @@ class DownConv2(_ConvKernel):
         super().__init__(8, cin, cout, compute_dtype)
 
     def forward(self, x, child_idx, parent_idx, child_kidx):
-        return sc.down_conv2(x, self.kernel, child_idx, self.compute_dtype,
-                             parent_idx, child_kidx)
+        return sc.down_conv2(x, self.kernel, child_idx, parent_idx,
+                             child_kidx, self.compute_dtype)
 
 
 class UpConv2(_ConvKernel):
@@ -68,8 +68,8 @@ class UpConv2(_ConvKernel):
         super().__init__(8, cin, cout, compute_dtype)
 
     def forward(self, x, parent_idx, child_kidx, child_idx):
-        return sc.up_conv2(x, self.kernel, parent_idx, child_kidx,
-                           self.compute_dtype, child_idx)
+        return sc.up_conv2(x, self.kernel, parent_idx, child_kidx, child_idx,
+                           self.compute_dtype)
 
 
 class Conv1x1(_ConvKernel):

@@ -14,7 +14,9 @@ Port of ``fusiontransformer_tpu/modules/steps.py``:
   optimizer step; returns the losses, ``voxel_overflow`` and the confusion
   matrices.  Image features are detached before fusion and the KL teachers
   are detached, so the gradient of the summed loss equals the reference's
-  two accumulated backward passes (as in the JAX step);
+  two accumulated backward passes (as in the JAX step).  Its parts run in
+  ``record_function`` ranges (``train_step.forward`` / ``.backward`` /
+  ``.optimizer`` / ``.metrics``), which a ``torch.profiler`` trace shows;
 * ``make_eval_step``: per-point predictions of each stream and of the sum
   of the 2D and 3D softmaxes, with the per-stream CE.
 
@@ -28,6 +30,7 @@ import re
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from fusiontransformer_tpu_torch.models.losses import (kl_divergence,
                                                        weighted_cross_entropy)
@@ -158,22 +161,25 @@ def make_train_step(cfg, model, optimizer):
 
     def step(batch, generator, level_caps=None):
         model.train()
-        hier = hier_from_cfg(cfg, batch, level_caps)
-        out = model(batch, hier, generator=generator)
-        total, parts = losses(cfg, out, batch, class_weights)
-        optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        # A parameter the loss does not reach (the middle-fusion image
-        # taps feed only the detached fusion input) gets a zero gradient,
-        # as jax.grad gives it, so the optimizer still applies its weight
-        # decay and moment updates.
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        for p in frozen:
-            p.grad.zero_()
-        optimizer.step()
-        with torch.no_grad():
+        with record_function("train_step.forward"):
+            hier = hier_from_cfg(cfg, batch, level_caps)
+            out = model(batch, hier, generator=generator)
+            total, parts = losses(cfg, out, batch, class_weights)
+        with record_function("train_step.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            total.backward()
+        with record_function("train_step.optimizer"):
+            # A parameter the loss does not reach (the middle-fusion image
+            # taps feed only the detached fusion input) gets a zero
+            # gradient, as jax.grad gives it, so the optimizer still
+            # applies its weight decay and moment updates.
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            for p in frozen:
+                p.grad.zero_()
+            optimizer.step()
+        with record_function("train_step.metrics"), torch.no_grad():
             metrics = {k: v.detach() for k, v in parts.items()}
             metrics["total_loss"] = total.detach()
             metrics["voxel_overflow"] = sum(

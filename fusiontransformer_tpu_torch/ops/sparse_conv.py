@@ -8,11 +8,10 @@ through a zero pad row at index ``V``, so sentinel indices contribute zeros.
   for its gradient, ``binned_conv_grouped_bwd`` (K2); otherwise the dense
   27-tap gather + one GEMM.
 * ``down_conv2`` / ``up_conv2`` / ``conv1x1`` — gather + GEMM.
-* ``voxelize_mean`` — with a ``DevoxPlan`` the sums and counts come from the
-  hand-written kernel ``sorted_segment_weighted_sum`` (K3); without one, an
-  ``index_add``.
-* ``devoxelize_trilinear`` — 8-corner gather + weighted sum; with a
-  ``DevoxPlan`` its gradient runs K3 with E=8 over the sorted point stream.
+* ``voxelize_mean`` — the sums and counts come from the hand-written kernel
+  ``sorted_segment_weighted_sum`` (K3) over the level's ``DevoxPlan``.
+* ``devoxelize_trilinear`` — 8-corner gather + weighted sum; its gradient
+  runs K3 with E=8 over the plan's sorted point stream.
 
 Gradients follow the JAX package's custom VJPs: each is a
 ``torch.autograd.Function`` whose backward is a gather (through the mirror
@@ -184,22 +183,6 @@ def subm_conv3(feats, w, nbr_idx, compute_dtype=torch.bfloat16,
     return _Subm3Grouped.apply(feats, w, src, binp, compute_dtype)
 
 
-def _down2(feats_fine, w, child_idx, cdt):
-    vc = child_idx.shape[0]
-    cin = feats_fine.shape[1]
-    g = pad_row(feats_fine.to(cdt))[child_idx.long()]           # [Vc, 8, Cin]
-    return cdt_matmul(g.reshape(vc, 8 * cin), w.reshape(8 * cin, -1), cdt)
-
-
-def _up2(feats_coarse, w, parent_idx, child_kidx, cdt):
-    # All 8 offset products at the coarse level (one GEMM); each fine voxel
-    # picks its (parent, offset) row; sentinel parents read the zero pad row.
-    cin, cout = w.shape[1], w.shape[2]
-    wcat = w.permute(1, 0, 2).reshape(cin, 8 * cout)
-    y = cdt_matmul(pad_row(feats_coarse), wcat, cdt).reshape(-1, 8, cout)
-    return y[parent_idx.long(), child_kidx.long()]
-
-
 class _Down2(torch.autograd.Function):
     """ks2 stride-2 down conv; its adjoint is the up conv's gather pattern
     (``_down2_bwd``): dX[u] = dout[parent(u)] @ W[kidx(u)]^T,
@@ -209,7 +192,10 @@ class _Down2(torch.autograd.Function):
     def forward(ctx, feats_fine, w, child_idx, parent_idx, child_kidx, cdt):
         ctx.save_for_backward(feats_fine, w, parent_idx, child_kidx)
         ctx.cdt = cdt
-        return _down2(feats_fine, w, child_idx, cdt)
+        vc, cin = child_idx.shape[0], feats_fine.shape[1]
+        g = pad_row(feats_fine.to(cdt))[child_idx.long()]       # [Vc, 8, Cin]
+        return cdt_matmul(g.reshape(vc, 8 * cin), w.reshape(8 * cin, -1),
+                          cdt)
 
     @staticmethod
     def backward(ctx, dout):
@@ -240,7 +226,13 @@ class _Up2(torch.autograd.Function):
                 cdt):
         ctx.save_for_backward(feats_coarse, w, child_idx)
         ctx.cdt = cdt
-        return _up2(feats_coarse, w, parent_idx, child_kidx, cdt)
+        # All 8 offset products at the coarse level (one GEMM); each fine
+        # voxel picks its (parent, offset) row; sentinel parents read the
+        # zero pad row.
+        cin, cout = w.shape[1], w.shape[2]
+        wcat = w.permute(1, 0, 2).reshape(cin, 8 * cout)
+        y = cdt_matmul(pad_row(feats_coarse), wcat, cdt).reshape(-1, 8, cout)
+        return y[parent_idx.long(), child_kidx.long()]
 
     @staticmethod
     def backward(ctx, dout):
@@ -256,25 +248,20 @@ class _Up2(torch.autograd.Function):
                 None)
 
 
-def down_conv2(feats_fine, w, child_idx, compute_dtype=torch.bfloat16,
-               parent_idx=None, child_kidx=None):
+def down_conv2(feats_fine, w, child_idx, parent_idx, child_kidx,
+               compute_dtype=torch.bfloat16):
     """ks=2 stride=2 conv: [Vf, Cin] at level l -> [Vc, Cout] at level l+1
-    through ``child_idx`` [Vc, 8] (sentinel Vf).  With level l's
-    ``parent_idx`` / ``child_kidx`` the gradient is the scatter-free
-    adjoint gather; without them (inference) autograd's."""
-    if parent_idx is None or child_kidx is None:
-        return _down2(feats_fine, w, child_idx, compute_dtype)
+    through ``child_idx`` [Vc, 8] (sentinel Vf); level l's ``parent_idx`` /
+    ``child_kidx`` give the scatter-free adjoint gather of its gradient."""
     return _Down2.apply(feats_fine, w, child_idx, parent_idx, child_kidx,
                         compute_dtype)
 
 
-def up_conv2(feats_coarse, w, parent_idx, child_kidx,
-             compute_dtype=torch.bfloat16, child_idx=None):
-    """ks=2 stride=2 transposed conv: out[v] = fc[parent(v)] @ w[kidx(v)].
-    With level l+1's ``child_idx`` [Vc, 8] the gradient is the scatter-free
-    adjoint gather; without it (inference) autograd's."""
-    if child_idx is None:
-        return _up2(feats_coarse, w, parent_idx, child_kidx, compute_dtype)
+def up_conv2(feats_coarse, w, parent_idx, child_kidx, child_idx,
+             compute_dtype=torch.bfloat16):
+    """ks=2 stride=2 transposed conv: out[v] = fc[parent(v)] @ w[kidx(v)];
+    level l+1's ``child_idx`` [Vc, 8] gives the scatter-free adjoint gather
+    of its gradient."""
     return _Up2.apply(feats_coarse, w, parent_idx, child_kidx, child_idx,
                       compute_dtype)
 
@@ -332,24 +319,15 @@ class _VoxMeanSum(torch.autograd.Function):
         return dpt.to(ctx.feats_dtype), None, None, None, None, None
 
 
-def voxelize_mean(pt_feats, pt_voxel_idx, pt_valid, num_voxels, plan=None,
+def voxelize_mean(pt_feats, pt_voxel_idx, pt_valid, num_voxels, plan,
                   compute_dtype=torch.bfloat16):
     """Average-pool point features into their containing voxels.
 
-    With a DevoxPlan the sums, and the point counts as a trailing ones
-    column, come from one K3 launch over the sorted point stream;
+    The sums, and the point counts as a trailing ones column, come from one
+    K3 launch over the ``DevoxPlan``'s sorted point stream;
     ``compute_dtype`` float32 keeps its per-point products un-rounded.
     Voxels no point reaches come back 0.  The counts carry no gradient.
     """
-    if plan is None:
-        valid_f = pt_valid.float()
-        ids = torch.where(pt_valid, pt_voxel_idx, num_voxels).long()
-        counts = valid_f.new_zeros(num_voxels + 1).index_add_(
-            0, ids, valid_f)[:num_voxels]
-        sums = pt_feats.new_zeros((num_voxels + 1, pt_feats.shape[1]))
-        sums = sums.index_add_(0, ids, pt_feats * valid_f[:, None].to(
-            pt_feats.dtype))[:num_voxels]
-        return sums * (1.0 / counts.clamp(min=1.0))[:, None]
     ids_orig = torch.where(pt_valid, pt_voxel_idx, num_voxels)
     out = _VoxMeanSum.apply(pt_feats, pt_valid, ids_orig, plan, num_voxels,
                             compute_dtype == torch.float32)
@@ -366,12 +344,6 @@ def voxmean_stream(pt_feats, pt_valid, plan):
     g_s = pad_row(torch.cat([pt_feats.float(), ones], 1))[perm].contiguous()
     w_s = pad_row(valid_f[:, None])[perm].contiguous()
     return g_s, w_s, plan.ids_sorted.contiguous()
-
-
-def _devox(vox_feats, corner_idx, corner_w):
-    g = pad_row(vox_feats)[corner_idx.long()]                   # [N, 8, C]
-    wk = corner_w.to(vox_feats.dtype).float().unsqueeze(1)      # [N, 1, 8]
-    return torch.bmm(wk, g.float()).squeeze(1)
 
 
 def devox_adjoint_stream(dout, corner_w, plan):
@@ -398,7 +370,9 @@ class _Devox3(torch.autograd.Function):
         ctx.precise = precise
         ctx.vox_shape = tuple(vox_feats.shape)
         ctx.vox_dtype = vox_feats.dtype
-        return _devox(vox_feats, corner_idx, corner_w)
+        g = pad_row(vox_feats)[corner_idx.long()]               # [N, 8, C]
+        wk = corner_w.to(vox_feats.dtype).float().unsqueeze(1)  # [N, 1, 8]
+        return torch.bmm(wk, g.float()).squeeze(1)
 
     @staticmethod
     def backward(ctx, dout):
@@ -416,17 +390,15 @@ class _Devox3(torch.autograd.Function):
         return g8.sum(1).to(ctx.vox_dtype), None, None, None, None
 
 
-def devoxelize_trilinear(vox_feats, corner_idx, corner_w, plan=None,
+def devoxelize_trilinear(vox_feats, corner_idx, corner_w, plan,
                          compute_dtype=torch.bfloat16):
     """Trilinear voxel->point interpolation: [V, C] -> [N, C] float32.
 
     ``corner_w`` takes the dtype of ``vox_feats`` (as in the JAX package);
-    products and the 8-corner sum are f32.  With a DevoxPlan the gradient
-    runs K3 with E=8 (``compute_dtype`` float32 keeps its products
-    un-rounded); without one, autograd's.
+    products and the 8-corner sum are f32.  The gradient runs K3 with E=8
+    over the ``DevoxPlan``'s sorted stream (``compute_dtype`` float32 keeps
+    its products un-rounded).
     """
-    if plan is None:
-        return _devox(vox_feats, corner_idx, corner_w)
     return _Devox3.apply(vox_feats, corner_idx, corner_w, plan,
                          compute_dtype == torch.float32)
 

@@ -118,16 +118,16 @@ def test_down_and_up_conv2_grads_match_jax(hiers, level):
     jl, tl = jh.levels, th.levels
     _check(*_grads(
         lambda f, k: tsc.down_conv2(f, k, tl[level + 1].child_idx,
-                                    torch.float32, tl[level].parent_idx,
-                                    tl[level].child_kidx),
+                                    tl[level].parent_idx,
+                                    tl[level].child_kidx, torch.float32),
         lambda f, k: jsc.down_conv2(f, k, jl[level + 1].child_idx,
                                     jl[level].parent_idx,
                                     jl[level].child_kidx, jnp.float32),
         (xf, w), rs.randn(coarse, 24).astype(np.float32)))
     _check(*_grads(
         lambda f, k: tsc.up_conv2(f, k, tl[level].parent_idx,
-                                  tl[level].child_kidx, torch.float32,
-                                  tl[level + 1].child_idx),
+                                  tl[level].child_kidx,
+                                  tl[level + 1].child_idx, torch.float32),
         lambda f, k: jsc.up_conv2(f, k, jl[level].parent_idx,
                                   jl[level].child_kidx,
                                   jl[level + 1].child_idx, jnp.float32),

@@ -84,28 +84,30 @@ def test_down_and_up_conv2_match_jax(hiers, level):
     jl, tl = jh.levels, th.levels
     _close(jsc.down_conv2(jf, jw, jl[level + 1].child_idx,
                           compute_dtype=jnp.float32),
-           tsc.down_conv2(tf, tw, tl[level + 1].child_idx, torch.float32))
+           tsc.down_conv2(tf, tw, tl[level + 1].child_idx,
+                          tl[level].parent_idx, tl[level].child_kidx,
+                          torch.float32))
     _close(jsc.up_conv2(jc, jw, jl[level].parent_idx, jl[level].child_kidx,
                         compute_dtype=jnp.float32),
            tsc.up_conv2(tc, tw, tl[level].parent_idx, tl[level].child_kidx,
-                        torch.float32))
+                        tl[level + 1].child_idx, torch.float32))
 
 
 @pytest.mark.parametrize("level", [2, 4])
 def test_voxelize_mean_matches_jax(hiers, level):
-    """The plain (index_add) path and the plan path (K3's plain version on
-    the CPU; the JAX side runs its Pallas kernel in interpret mode)."""
+    """The plan path (K3's plain version on the CPU) against both JAX paths:
+    the plain segment sum and the plan path (its Pallas kernel in interpret
+    mode)."""
     jh, th, _ = hiers
     rs = np.random.RandomState(20 + level)
     n = len(th.pt_valid)
     jp, tp = _pair(rs.randn(n, 12).astype(np.float32))
     v = CAPS[level]
-    plain = tsc.voxelize_mean(tp, th.pt_voxel_idx[level], th.pt_valid, v)
-    _close(jsc.voxelize_mean(jp, jh.pt_voxel_idx[level], jh.pt_valid, v),
-           plain)
     planned = tsc.voxelize_mean(tp, th.pt_voxel_idx[level], th.pt_valid, v,
                                 plan=tsc.devox_plan(th, level),
                                 compute_dtype=torch.float32)
+    _close(jsc.voxelize_mean(jp, jh.pt_voxel_idx[level], jh.pt_valid, v),
+           planned)
     _close(jsc.voxelize_mean(jp, jh.pt_voxel_idx[level], jh.pt_valid, v,
                              plan=jsc.devox_plan(jh, level),
                              compute_dtype=jnp.float32), planned)
@@ -122,7 +124,8 @@ def test_devoxelize_trilinear_matches_jax(hiers, level):
                                     jh.pt_corner_w[level],
                                     compute_dtype=jnp.float32),
            tsc.devoxelize_trilinear(tv, th.pt_corner_idx[level],
-                                    th.pt_corner_w[level]))
+                                    th.pt_corner_w[level],
+                                    tsc.devox_plan(th, level)))
 
 
 def test_conv1x1_and_gather_rows_match_jax(hiers):

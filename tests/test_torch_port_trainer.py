@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from fusiontransformer_tpu_torch.config.defaults import get_default_cfg
+from fusiontransformer_tpu_torch.data.loader import DataLoader, batch_seed
 from fusiontransformer_tpu_torch.models import spvcnn
 from fusiontransformer_tpu_torch.modules.SemanticTrainer import (
     SemanticTrainer)
@@ -111,6 +112,37 @@ def test_dropout_draws_from_the_step_generator():
     with pytest.raises(ValueError, match="Generator"):
         net._drop(x, None)
     assert torch.equal(net.eval()._drop(x, None), x)
+
+
+class _Draws:
+    """Scan i is (i, a draw from numpy's global generator)."""
+
+    def __len__(self):
+        return 7
+
+    def __getitem__(self, i):
+        return i, int(np.random.randint(1 << 30))
+
+
+def test_loader_prefetch_thread_keeps_order_and_seeds():
+    """The loader's prefetch thread yields the epoch's batches in order, each
+    made after seeding numpy from (seed, epoch, ordinal); an error while a
+    batch is made reaches the consumer."""
+    load = DataLoader(_Draws(), 3, list, shuffle=True, seed=5)
+    load.set_epoch(2)
+    got = list(load)
+    assert [[i for i, _ in b] for b in got] == \
+        [list(b) for b in load._index_batches()]
+    assert [len(b) for b in got] == [3, 3, 1]
+    for ordinal, b in enumerate(got):
+        rs = np.random.RandomState(batch_seed(5, 2, ordinal))
+        assert [d for _, d in b] == [int(rs.randint(1 << 30)) for _ in b]
+
+    def broken(items):
+        raise ValueError("bad scan")
+
+    with pytest.raises(ValueError, match="bad scan"):
+        list(DataLoader(_Draws(), 3, broken))
 
 
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
