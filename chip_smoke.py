@@ -42,7 +42,23 @@ the card, in phases; any failure raises and the exit code is non-zero:
    metrics from the step's own ``record_function`` ranges; device busy
    share) and a steady window of ``train_for_one_epoch`` over 6 more
    batches (train scans/s);
-9. a ``{"kernels": [...]}`` line: launches, errors and times of each kernel.
+
+then the same configuration with ``TPU.CONV_SLOT_POOL False`` (no host slot
+maps; the hierarchy builds per-voxel K-slot maps on the card):
+
+9. K1' ``binned_conv_slots_fwd`` on the batch-1 serving scan's per-voxel
+   maps and K2' ``binned_conv_slots_bwd`` on the batch-10 training batch's,
+   at every L0-L3 (Cin, Cout), against their plain versions, bf16 and f32,
+   dW bitwise equal across two launches; what the maps cost inside the
+   hierarchy build;
+10. ``InferenceEngine`` on the per-voxel path, 8 requests at batch 1 as in
+    phase 4; its f32 logits on the card against the CPU's and against the
+    group-pooled path's on the card; its predict step side by side with
+    the group-pooled one;
+11. one f32 train step on the per-voxel path as in phase 7 (with a K2'
+    whose dW misses 1/16 of the groups), then ``SemanticTrainer`` as in
+    phase 8; its train step side by side with the group-pooled one;
+12. a ``{"kernels": [...]}`` line: launches, errors and times of each kernel.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -238,9 +254,10 @@ def phase_k3(hier, gen):
     return rows, main
 
 
-def grouped_convs(model, hier):
+def slot_convs(model, hier):
     """(level, Cin, Cout, kernel) of every ks3 conv of the model that runs
-    at a level carrying group-pooled maps, in the model's order."""
+    at a level carrying slot maps (group-pooled or per-voxel), in the
+    model's order."""
     from fusiontransformer_tpu_torch.models.spvcnn import SubMConv3
     level_of = {"stem0": 0, "stem1": 0, "stage1": 1, "stage2": 2,
                 "stage3": 3, "stage4": 4, "up1": 3, "up2": 2, "up3": 1,
@@ -255,13 +272,34 @@ def grouped_convs(model, hier):
     return out
 
 
-def phase_k1(hier, model, gen):
-    """K1 vs plain at every grouped (level, Cin, Cout), bf16 and f32."""
+def binned_kernels(kind):
+    """The kernel pair of one kind of slot map, with their plain versions:
+    "grouped" (K1, K2 on group-pooled maps) or "slots" (K1', K2' on
+    per-voxel K-slot maps); ``live`` counts the slots that feed a bin."""
+    from fusiontransformer_tpu_torch.ops.kernels import binned_conv as bc
+    if kind == "grouped":
+        return dict(ids=("K1", "K2"), width="S",
+                    fwd=bc.binned_conv_grouped_fwd,
+                    ref=bc.binned_conv_grouped_ref,
+                    bwd=bc.binned_conv_grouped_bwd,
+                    bwd_ref=bc.binned_conv_grouped_bwd_ref,
+                    live=lambda src, codes, v: int(
+                        ((codes < 216) & (src < v)).sum()))
+    return dict(ids=("K1'", "K2'"), width="K", fwd=bc.binned_conv_slots_fwd,
+                ref=bc.binned_conv_slots_ref, bwd=bc.binned_conv_slots_bwd,
+                bwd_ref=bc.binned_conv_slots_bwd_ref,
+                live=lambda src, codes, v: int(((codes < 27) & (src < v))
+                                               .sum()))
+
+
+def phase_k1(hier, model, gen, kind="grouped"):
+    """K1 (or K1') vs plain at every slot-map (level, Cin, Cout), bf16 and
+    f32."""
     import torch
-    from fusiontransformer_tpu_torch.ops.kernels.binned_conv import (
-        binned_conv_grouped_fwd, binned_conv_grouped_ref)
+    kk = binned_kernels(kind)
+    fwd, fwd_ref, kid = kk["fwd"], kk["ref"], kk["ids"][0]
     dev = hier.pt_valid.device
-    convs = grouped_convs(model, hier)
+    convs = slot_convs(model, hier)
     shapes = {}
     for level, cin, cout, w in convs:
         shapes.setdefault((level, cin, cout), [0, w])[0] += 1
@@ -270,37 +308,38 @@ def phase_k1(hier, model, gen):
     for (level, cin, cout), (count, w) in sorted(shapes.items()):
         src, binp = hier.levels[level].slot_idx
         v = hier.levels[level].valid.shape[0]
-        live = int(((binp < 216) & (src < v)).sum())
+        live = kk["live"](src, binp, v)
         x32 = torch.randn(v, cin, generator=gen).to(dev)
         for dtype in (torch.bfloat16, torch.float32):
             x, wd = x32.to(dtype), w.to(dtype).contiguous()
-            out = binned_conv_grouped_fwd(x, src, binp, wd)
-            ref = binned_conv_grouped_ref(x, src, binp, wd)
-            scale = binned_conv_grouped_ref(x.abs(), src, binp,
-                                            wd.abs()).max().item()
+            out = fwd(x, src, binp, wd)
+            ref = fwd_ref(x, src, binp, wd)
+            scale = fwd_ref(x.abs(), src, binp, wd.abs()).max().item()
             torch.cuda.synchronize()
             err = (out - ref).abs().max().item()
             if not err <= SUM_ORDER_RTOL * scale:
                 raise AssertionError(
-                    f"K1 L{level} {cin}->{cout} {dtype}: max abs err {err} "
-                    f"> {SUM_ORDER_RTOL} x {scale}")
-            ms = cuda_ms(lambda: binned_conv_grouped_fwd(x, src, binp, wd))
-            plain_ms = cuda_ms(lambda: binned_conv_grouped_ref(
-                x, src, binp, wd), iters=3, reps=3)
+                    f"{kid} L{level} {cin}->{cout} {dtype}: max abs err "
+                    f"{err} > {SUM_ORDER_RTOL} x {scale}")
+            ms = cuda_ms(lambda: fwd(x, src, binp, wd))
+            plain_ms = cuda_ms(lambda: fwd_ref(x, src, binp, wd), iters=3,
+                               reps=3)
             tname = str(dtype).replace("torch.", "")
             nbytes = (x.numel() * x.element_size() + 8 * src.numel()
                       + wd.numel() * wd.element_size() + 4 * v * cout)
             b_ms, b_by = bound(nbytes, 2 * live * cin * cout, tname)
             rows.append(dict(level=level, cin=cin, cout=cout, dtype=tname,
-                             per_request=count, V=v, S=src.shape[1],
+                             per_request=count, V=v,
+                             **{kk["width"]: src.shape[1]},
                              live_slots=live, max_abs_err=err,
                              tol=SUM_ORDER_RTOL * scale, ms=ms,
                              plain_ms=plain_ms, bound_ms=b_ms,
                              bound_by=b_by))
-            log(f"  K1 L{level} {cin:3d}->{cout:3d} {tname:8s} x{count} "
-                f"V={v} S={src.shape[1]} live={live}: err {err:.3g} "
-                f"(tol {SUM_ORDER_RTOL * scale:.3g})  kernel {ms:.4f} ms  "
-                f"plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+            log(f"  {kid} L{level} {cin:3d}->{cout:3d} {tname:8s} x{count} "
+                f"V={v} {kk['width']}={src.shape[1]} live={live}: err "
+                f"{err:.3g} (tol {SUM_ORDER_RTOL * scale:.3g})  kernel "
+                f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms "
+                f"({b_by})")
             if dtype == torch.bfloat16:
                 main["ms"] += count * ms
                 main["plain_ms"] += count * plain_ms
@@ -371,6 +410,76 @@ def step_breakdown(engine, db, top=12):
                     for k, (n, ms) in ranked]}
 
 
+def drive_engine(engine, recs, card, want):
+    """The inference main path: warmup, then one ``predict`` per record at
+    batch 1 with every launch count set to 0 just before and read just
+    after (``want``: the exact launches of each kernel of the path); labels
+    checked, zero overflow and dropped points; then where a request's time
+    goes (``step_breakdown``)."""
+    import torch
+    from fusiontransformer_tpu_torch.modules.steps import device_batch
+    from fusiontransformer_tpu_torch.ops.kernels import (LAUNCHES,
+                                                         reset_launches)
+    warm = engine.warmup()
+    log(f"warmup (s per bucket): {warm}")
+    reset_launches()
+    lat, outs = [], []
+    for rec in recs:
+        t0 = time.perf_counter()
+        outs.append(engine.predict(rec))
+        lat.append(time.perf_counter() - t0)
+    launches = dict(LAUNCHES)
+    stats = engine.stats()
+    for rec, out in zip(recs, outs):
+        n = len(rec["points"])
+        for key in ("labels", "labels_2d", "labels_3d"):
+            lab = out[key]
+            if lab.shape != (n,) or lab.min() < 0 or lab.max() >= 20:
+                raise AssertionError(f"{key}: shape {lab.shape}, range "
+                                     f"[{lab.min()}, {lab.max()}]")
+    if stats["voxel_overflow"] != 0 or stats["collate_dropped_points"] != 0:
+        raise AssertionError(f"lossy request path: {stats}")
+    for name, n in want.items():
+        if launches.get(name, 0) != n:
+            raise AssertionError(f"{name}: {launches.get(name, 0)} launches "
+                                 f"on the main path, expected {n}")
+    _, logits = engine.forward([engine.preprocess(recs[0])])
+    for k, v in logits.items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"non-finite {k}")
+    p50 = statistics.median(lat)
+    log(f"requests {len(recs)}: points {[len(r['points']) for r in recs]}, "
+        f"p50 latency {p50 * 1e3:.1f} ms, {1 / statistics.mean(lat):.2f} "
+        f"scans/s ({card}); launches {launches}; stats {stats}")
+    # Where a request's time goes: its parts one after another, per record
+    # (host clock; the device part ends in a synchronize).
+    split = {"preprocess": [], "collate": [], "step": [], "complete": []}
+    for rec in recs:
+        t = [time.perf_counter()]
+        sample = engine.preprocess(rec)
+        t.append(time.perf_counter())
+        host_batch = engine.collate([sample])
+        t.append(time.perf_counter())
+        packed = engine._step(device_batch(host_batch, engine.device))
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        engine.complete(([sample], host_batch, packed), count_stats=False)
+        t.append(time.perf_counter())
+        for i, key in enumerate(split):
+            split[key].append((t[i + 1] - t[i]) * 1e3)
+    split_ms = {k: statistics.median(v) for k, v in split.items()}
+    log(f"request split (host clock, medians of {len(recs)}): preprocess "
+        f"{split_ms['preprocess']:.1f} ms, collate (+ host slot maps) "
+        f"{split_ms['collate']:.1f} ms, copy + predict step "
+        f"{split_ms['step']:.1f} ms, complete {split_ms['complete']:.1f} ms")
+    db = device_batch(engine.collate([engine.preprocess(recs[0])]),
+                      engine.device)
+    return {"p50_ms": p50 * 1e3, "scans_per_s": 1 / statistics.mean(lat),
+            "latencies_ms": [x * 1e3 for x in lat], "launches": launches,
+            "request_split_ms": split_ms,
+            "step_breakdown": step_breakdown(engine, db)}
+
+
 # --------------------------------------------------------------------------- #
 def train_cfg():
     """The flagship's model and training settings (``middlefusion.yaml``:
@@ -392,35 +501,34 @@ def train_cfg():
     return cfg
 
 
-def phase_k2(hier, model, gen):
-    """K2 vs plain at every grouped (level, Cin, Cout) of the train step,
-    bf16 and f32; dW bitwise equal across two launches."""
+def phase_k2(hier, model, gen, kind="grouped"):
+    """K2 (or K2') vs plain at every slot-map (level, Cin, Cout) of the
+    train step, bf16 and f32; dW bitwise equal across two launches."""
     import torch
-    from fusiontransformer_tpu_torch.ops.kernels.binned_conv import (
-        binned_conv_grouped_bwd, binned_conv_grouped_bwd_ref)
+    kk = binned_kernels(kind)
+    bwd, bwd_ref, kid = kk["bwd"], kk["bwd_ref"], kk["ids"][1]
     dev = hier.pt_valid.device
     shapes = {}
-    for level, cin, cout, w in grouped_convs(model, hier):
+    for level, cin, cout, w in slot_convs(model, hier):
         shapes.setdefault((level, cin, cout), [0, w])[0] += 1
     rows, main = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                       "max_abs_err": 0.0, "bound_t": {}}
     for (level, cin, cout), (count, w) in sorted(shapes.items()):
         src, binp = hier.levels[level].slot_idx
         v = hier.levels[level].valid.shape[0]
-        live = int(((binp < 216) & (src < v)).sum())
+        live = kk["live"](src, binp, v)
         x32 = torch.randn(v, cin, generator=gen).to(dev)
         d32 = torch.randn(v, cout, generator=gen).to(dev)
         for dtype in (torch.bfloat16, torch.float32):
             x, d, wd = x32.to(dtype), d32.to(dtype), w.to(dtype).contiguous()
-            dx, dw = binned_conv_grouped_bwd(d, x, src, binp, wd)
-            _, dw2 = binned_conv_grouped_bwd(d, x, src, binp, wd)
-            rdx, rdw = binned_conv_grouped_bwd_ref(d, x, src, binp, wd)
-            sdx, sdw = binned_conv_grouped_bwd_ref(d.abs(), x.abs(), src,
-                                                   binp, wd.abs())
+            dx, dw = bwd(d, x, src, binp, wd)
+            _, dw2 = bwd(d, x, src, binp, wd)
+            rdx, rdw = bwd_ref(d, x, src, binp, wd)
+            sdx, sdw = bwd_ref(d.abs(), x.abs(), src, binp, wd.abs())
             torch.cuda.synchronize()
             if not torch.equal(dw, dw2):
-                raise AssertionError(f"K2 L{level} {cin}->{cout} {dtype}: dW "
-                                     f"differs between two launches")
+                raise AssertionError(f"{kid} L{level} {cin}->{cout} {dtype}: "
+                                     f"dW differs between two launches")
             tname = str(dtype).replace("torch.", "")
             errs = {}
             for key, got, ref, terms in (("dX", dx, rdx, sdx),
@@ -428,21 +536,22 @@ def phase_k2(hier, model, gen):
                 err = (got - ref).abs().max().item()
                 tol = SUM_ORDER_RTOL * terms.max().item()
                 if not err <= tol:
-                    raise AssertionError(f"K2 L{level} {cin}->{cout} {tname} "
-                                         f"{key}: max abs err {err} > {tol}")
+                    raise AssertionError(f"{kid} L{level} {cin}->{cout} "
+                                         f"{tname} {key}: max abs err {err} "
+                                         f"> {tol}")
                 errs[key] = (err, tol)
             del rdx, rdw, sdx, sdw
-            ms = cuda_ms(lambda: binned_conv_grouped_bwd(d, x, src, binp, wd),
-                         iters=3, reps=3)
-            plain_ms = (cuda_ms(lambda: binned_conv_grouped_bwd_ref(
-                d, x, src, binp, wd), iters=1, reps=3)
-                if dtype == torch.bfloat16 else None)
+            ms = cuda_ms(lambda: bwd(d, x, src, binp, wd), iters=3, reps=3)
+            plain_ms = (cuda_ms(lambda: bwd_ref(d, x, src, binp, wd),
+                                iters=1, reps=3)
+                        if dtype == torch.bfloat16 else None)
             es = x.element_size()
             nbytes = (es * (d.numel() + x.numel() + wd.numel())
                       + 8 * src.numel() + 4 * (v * cin + wd.numel()))
             b_ms, b_by = bound(nbytes, 4 * live * cin * cout, tname)
             rows.append(dict(level=level, cin=cin, cout=cout, dtype=tname,
-                             per_step=count, V=v, S=src.shape[1],
+                             per_step=count, V=v,
+                             **{kk["width"]: src.shape[1]},
                              live_slots=live,
                              max_abs_err_dx=errs["dX"][0],
                              tol_dx=errs["dX"][1],
@@ -450,8 +559,8 @@ def phase_k2(hier, model, gen):
                              tol_dw=errs["dW"][1], dw_bitwise_repeat=True,
                              ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                              bound_by=b_by))
-            log(f"  K2 L{level} {cin:3d}->{cout:3d} {tname:8s} x{count} "
-                f"V={v} S={src.shape[1]} live={live}: err dX "
+            log(f"  {kid} L{level} {cin:3d}->{cout:3d} {tname:8s} x{count} "
+                f"V={v} {kk['width']}={src.shape[1]} live={live}: err dX "
                 f"{errs['dX'][0]:.3g} (tol {errs['dX'][1]:.3g}) dW "
                 f"{errs['dW'][0]:.3g} (tol {errs['dW'][1]:.3g}), dW bitwise "
                 f"repeatable  kernel {ms:.4f} ms  plain "
@@ -695,56 +804,60 @@ def check_recorded_calls(calls, ref_fn):
     return worst
 
 
-def phase_train_parity(cfg, state, host_batch, caps, conv_names):
+def phase_train_parity(cfg, state, host_batch, caps, conv_names,
+                       kind="grouped"):
     """One f32 train step (TF32 off, dropout off) from the same weights and
-    batch on the CPU (plain versions) and on the card four ways: with the
-    kernels (the path; each K1, K2 and K3 call also held against its plain
-    version on the same inputs), with the plain versions in place of the
-    kernels, and with two deliberately wrong K2s (dW missing the first
-    sixteenth of the voxel groups; dX without the tap reversal), to show
-    what the gates read for a kernel fault.  Each card step is held against
-    the CPU's (CPU_GATES) and, but for the plain one, against the card's
-    plain step (CARD_GATES): the kernel and plain steps must pass, each
-    wrong K2 must fail."""
+    batch on the CPU (plain versions) and on the card several ways: with the
+    kernels (the path; each binned-conv and K3 call also held against its
+    plain version on the same inputs), with the plain versions in place of
+    the kernels, and with deliberately wrong backward kernels (dW missing
+    the first sixteenth of the voxel groups; for K2 also dX without the tap
+    reversal), to show what the gates read for a kernel fault.  Each card
+    step is held against the CPU's (CPU_GATES) and, but for the plain one,
+    against the card's plain step (CARD_GATES): the kernel and plain steps
+    must pass, each wrong kernel must fail.  ``kind`` "grouped" runs K1/K2
+    on the batch's group-pooled maps, "slots" K1'/K2' on per-voxel maps
+    (the batch carries no host maps, ``cfg`` has CONV_SLOT_POOL off)."""
     from fusiontransformer_tpu_torch.models import spvcnn
-    from fusiontransformer_tpu_torch.ops.kernels.binned_conv import (
-        binned_conv_grouped_bwd, binned_conv_grouped_bwd_ref,
-        binned_conv_grouped_fwd, binned_conv_grouped_ref)
     from fusiontransformer_tpu_torch.ops.kernels.segment_sum import (
         sorted_segment_weighted_sum, sorted_segment_weighted_sum_ref)
+    kk = binned_kernels(kind)
+    k1, k2 = kk["ids"]
+    fname, bname = kk["fwd"].__name__, kk["bwd"].__name__
+    bwd = kk["bwd"]
+    sentinel = 216 if kind == "grouped" else 27
     cfg32 = cfg.clone()
     cfg32.TPU.COMPUTE_DTYPE = "float32"
     cfg32.freeze()
 
-    def dw_missing_groups(d, x, src, binp, w):
-        cut = binp.clone()
-        cut[:max(1, len(cut) // 16)] = 216
-        return (binned_conv_grouped_bwd(d, x, src, binp, w)[0],
-                binned_conv_grouped_bwd(d, x, src, cut, w)[1])
+    def dw_missing_groups(d, x, src, codes, w):
+        cut = codes.clone()
+        # The first 1/16 of the groups: map rows are groups (grouped maps)
+        # or voxels, 8 to a group (per-voxel maps).
+        rows = len(cut) // 16 if kind == "grouped" else len(cut) // 128 * 8
+        cut[:max(1, rows)] = sentinel
+        return bwd(d, x, src, codes, w)[0], bwd(d, x, src, cut, w)[1]
 
-    def dx_taps_unreversed(d, x, src, binp, w):
-        return (binned_conv_grouped_bwd(d, x, src, binp,
-                                        w.flip(0).contiguous())[0],
-                binned_conv_grouped_bwd(d, x, src, binp, w)[1])
+    def dx_taps_unreversed(d, x, src, codes, w):
+        return (bwd(d, x, src, codes, w.flip(0).contiguous())[0],
+                bwd(d, x, src, codes, w)[1])
 
-    calls = {"K1": [], "K2": [], "K3": []}
+    calls = {k1: [], k2: [], "K3": []}
     variants = {
-        "kernels": dict(
-            binned_conv_grouped_fwd=recording(binned_conv_grouped_fwd,
-                                              calls["K1"]),
-            binned_conv_grouped_bwd=recording(binned_conv_grouped_bwd,
-                                              calls["K2"]),
-            sorted_segment_weighted_sum=recording(
-                sorted_segment_weighted_sum, calls["K3"])),
-        "plain on the card": dict(
-            binned_conv_grouped_fwd=binned_conv_grouped_ref,
-            binned_conv_grouped_bwd=binned_conv_grouped_bwd_ref,
-            sorted_segment_weighted_sum=sorted_segment_weighted_sum_ref),
-        "wrong K2: dW misses 1/16 of the groups": dict(
-            binned_conv_grouped_bwd=dw_missing_groups),
-        "wrong K2: dX taps not reversed": dict(
-            binned_conv_grouped_bwd=dx_taps_unreversed),
+        "kernels": {
+            fname: recording(kk["fwd"], calls[k1]),
+            bname: recording(bwd, calls[k2]),
+            "sorted_segment_weighted_sum": recording(
+                sorted_segment_weighted_sum, calls["K3"])},
+        "plain on the card": {
+            fname: kk["ref"], bname: kk["bwd_ref"],
+            "sorted_segment_weighted_sum": sorted_segment_weighted_sum_ref},
+        f"wrong {k2}: dW misses 1/16 of the groups": {
+            bname: dw_missing_groups},
     }
+    if kind == "grouped":
+        variants[f"wrong {k2}: dX taps not reversed"] = {
+            bname: dx_taps_unreversed}
     dropout, spvcnn.DROPOUT = spvcnn.DROPOUT, 0.0
     try:
         cpu = one_train_step(cfg32, state, host_batch, caps, "cpu")
@@ -757,9 +870,16 @@ def phase_train_parity(cfg, state, host_batch, caps, conv_names):
         spvcnn.DROPOUT = dropout
     log(f"  step on the CPU {cpu[3]:.1f} s, on the card with the kernels "
         f"{runs['kernels'][3]:.1f} s (first call)")
+    for metrics, *_ in (cpu, runs["kernels"]):
+        if int(metrics["voxel_overflow"]) or int(
+                metrics.get("tap_overflow", 0)):
+            raise AssertionError(f"lossy parity step: {metrics}")
     in_step = {k: check_recorded_calls(calls[k], ref) for k, ref in (
-        ("K1", binned_conv_grouped_ref), ("K2", binned_conv_grouped_bwd_ref),
+        (k1, kk["ref"]), (k2, kk["bwd_ref"]),
         ("K3", sorted_segment_weighted_sum_ref))}
+    if not all(calls.values()):
+        raise AssertionError(f"a kernel was not called in the step: "
+                             f"{ {k: len(v) for k, v in calls.items()} }")
     log(f"  kernel calls of the step against their plain versions on the "
         f"same inputs (worst share of the sum of |terms|, bound "
         f"{SUM_ORDER_RTOL}): " + ", ".join(
@@ -783,7 +903,7 @@ def phase_train_parity(cfg, state, host_batch, caps, conv_names):
                 f"fails {r['fails'] or 'none'}")
     log(f"  gates against the CPU {CPU_GATES}, against the card's plain "
         f"versions {CARD_GATES} (leaf: share of the leaf's max |g| + "
-        f"{LEAF_ATOL}; the K1/K2 conv kernels: {len(conv_names)})")
+        f"{LEAF_ATOL}; the {k1}/{k2} conv kernels: {len(conv_names)})")
     for key, r in readings.items():
         wrong = key.startswith("wrong")
         if wrong and not r["fails"]:
@@ -936,7 +1056,8 @@ def train_window(trainer, cfg, step_ms):
     if steps != WINDOW_STEPS:
         raise AssertionError(f"{steps} steps in the window, expected "
                              f"{WINDOW_STEPS}")
-    if meters["voxel_overflow"].sum != 0 or meters["slot_overflow"].sum != 0:
+    if any(meters[k].sum != 0 for k in ("voxel_overflow", "slot_overflow",
+                                        "tap_overflow") if k in meters):
         raise AssertionError("lossy steps in the window")
     if not math.isfinite(meters["total_loss"].global_avg):
         raise AssertionError("non-finite loss in the window")
@@ -949,6 +1070,183 @@ def train_window(trainer, cfg, step_ms):
     return {"steps": steps, "seconds": window_s, "scans_per_s": rate,
             "ms_per_step": window_s / steps * 1e3,
             "card_share": steps * step_ms / 1e3 / window_s}
+
+
+def drive_trainer(trainer, cfg, card, kind, convs_per_step, k3_name,
+                  k3e8_name):
+    """The training main path: ``trainer.train()`` (TRAIN_STEPS steps and a
+    validation) with every launch count set to 0 just before and read just
+    after: finite losses and validation, zero overflow, the exact launches
+    of ``kind``'s binned-conv pair and of K3 / K3[E=8], none of the other
+    pair's; then the step's breakdown and the steady window."""
+    import numpy as np
+    import torch
+    from fusiontransformer_tpu_torch.ops.kernels import (LAUNCHES,
+                                                         reset_launches)
+    kk = binned_kernels(kind)
+    other = binned_kernels("slots" if kind == "grouped" else "grouped")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    n_val = len(trainer.val_dataloader)
+    meters = trainer.train_metric_logger.meters
+    if trainer.step != TRAIN_STEPS:
+        raise AssertionError(f"{trainer.step} train steps, expected "
+                             f"{TRAIN_STEPS}")
+    losses = {k: meters[k].global_avg for k in LOSS_KEYS}
+    if not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"non-finite losses {losses}")
+    overflow = {k: meters[k].sum for k in ("voxel_overflow", "slot_overflow",
+                                           "tap_overflow") if k in meters}
+    if any(overflow.values()) or (kind == "slots"
+                                  and "tap_overflow" not in overflow):
+        raise AssertionError(f"lossy train steps: {overflow}")
+    n_fwd = TRAIN_STEPS + n_val
+    want = {kk["fwd"].__name__: convs_per_step * n_fwd,
+            kk["bwd"].__name__: convs_per_step * TRAIN_STEPS,
+            other["fwd"].__name__: 0, other["bwd"].__name__: 0,
+            k3_name: 2 * n_fwd, k3e8_name: 2 * TRAIN_STEPS}
+    for name, n in want.items():
+        if launches.get(name, 0) != n:
+            raise AssertionError(f"{name}: {launches.get(name, 0)} launches "
+                                 f"on the training path, expected {n}")
+    val = {k: trainer.val_metric_logger.meters[k].global_avg
+           for k in ("seg_iou_2d", "seg_iou_3d", "seg_loss_2d",
+                     "seg_loss_3d")}
+    if not all(np.isfinite(v) for v in val.values()):
+        raise AssertionError(f"non-finite validation metrics {val}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    k1, k2 = kk["ids"]
+    log(f"trained {TRAIN_STEPS} steps + validated {n_val} batches in "
+        f"{train_s:.1f} s ({TRAIN_STEPS * TRAIN_BATCH / train_s:.2f} train "
+        f"scans/s over the whole run, first-step set-up and validation "
+        f"included; {card}); launches {launches} = per train step {k1} "
+        f"{convs_per_step}, {k2} {convs_per_step}, K3 2, K3[E=8] 2, and per "
+        f"eval step {k1} {convs_per_step}, K3 2; overflow {overflow}; mean "
+        f"losses {losses}; validation {val}; peak device memory "
+        f"{peak_gb:.1f} GB")
+    tbreak = train_breakdown(trainer)
+    window = train_window(trainer, cfg, tbreak["step_ms"])
+    return {"val_batches": n_val, "run_s": train_s, "launches": launches,
+            "losses": losses, "overflow": overflow, "validation": val,
+            "peak_memory_gb": peak_gb, "breakdown": tbreak, "window": window}
+
+
+def per_voxel(cfg):
+    """``cfg`` with TPU.CONV_SLOT_POOL off: per-voxel K-slot maps built on
+    the device, K1' / K2'."""
+    out = cfg.clone()
+    out.TPU.CONV_SLOT_POOL = False
+    out.freeze()
+    return out
+
+
+def without_host_maps(host_batch):
+    return {k: v for k, v in host_batch.items() if not k.startswith("gslot_")}
+
+
+def side_by_side(label, fns, rounds=5):
+    """Each of ``fns`` ({name: zero-argument callable}) timed on CUDA events
+    one call at a time, in the order A B B A per round after one warm call
+    each, as medians in ms.  The host's launch rate drifts through a run
+    (on the H100 machines, the launch-bound predict step read up to 1.6x
+    slower in phase 10 than in phase 4), so two paths are compared only
+    side by side."""
+    import torch
+    names = list(fns)
+    for n in names:
+        fns[n]()
+    times = {n: [] for n in names}
+    for _ in range(rounds):
+        for n in names + names[::-1]:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            fns[n]()
+            ev[1].record()
+            ev[1].synchronize()
+            times[n].append(ev[0].elapsed_time(ev[1]))
+    med = {n: statistics.median(t) for n, t in times.items()}
+    log(f"  {label}, side by side (A B B A x {rounds}, CUDA events, "
+        f"medians): " + ", ".join(f"{n} {m:.2f} ms" for n, m in med.items()))
+    return med
+
+
+def hier_cost(cfg, db, caps):
+    """What the per-voxel maps cost inside the hierarchy: the build with
+    and without them, side by side, and their compaction alone
+    (``tap_slot_maps`` at each level), CUDA events; their tap overflow (must
+    be 0) and the most live taps of a voxel per level."""
+    from fusiontransformer_tpu_torch.modules.steps import (level_caps_for_n,
+                                                           norm_tap_slots,
+                                                           tap_overflow)
+    from fusiontransformer_tpu_torch.ops.hierarchy import (build_hierarchy,
+                                                           tap_slot_maps)
+    caps = caps or level_caps_for_n(cfg, db["coords"].shape[0])
+    ts = norm_tap_slots(cfg, len(caps))
+    args = (db["coords"], db["pt_batch"], db["pt_valid"], caps)
+    build = side_by_side(f"hierarchy build at caps {caps}", {
+        "with the maps": lambda: build_hierarchy(*args, tap_slots=ts),
+        "without": lambda: build_hierarchy(*args)})
+    hier = build_hierarchy(*args, tap_slots=ts)
+    levels = [(l.nbr_idx, c, k) for l, c, k in zip(hier.levels, caps, ts)
+              if k]
+    maps_ms = cuda_ms(lambda: [tap_slot_maps(*a) for a in levels], iters=5)
+    over = int(tap_overflow(hier, ts))
+    max_live = [int((l.nbr_idx < c).sum(1).max())
+                for l, c in zip(hier.levels, caps)]
+    log(f"  K {ts}: the compaction alone {maps_ms:.3f} ms; tap_overflow "
+        f"{over}; most live taps of a voxel per level {max_live}")
+    if over:
+        raise AssertionError(f"tap_overflow {over} on the flagship's scans")
+    return {"caps": list(caps), "tap_slots": list(ts),
+            "with_maps_ms": build["with the maps"],
+            "without_maps_ms": build["without"], "compaction_ms": maps_ms,
+            "tap_overflow": over, "max_live_taps": max_live}
+
+
+def per_voxel_f32(cfg32, state, sample, grouped_f32):
+    """One scan's f32 logits (TF32 off) on the per-voxel path: the card's
+    against the CPU's (the same path, plain versions) and against the
+    group-pooled path's on the card (``grouped_f32``, the same function with
+    lossless maps), each output within F32_LOGIT_RTOL of its largest
+    |logit|."""
+    from fusiontransformer_tpu_torch.models.build import build_model
+    from fusiontransformer_tpu_torch.modules.steps import (device_batch,
+                                                           hier_from_cfg,
+                                                           norm_tap_slots,
+                                                           tap_overflow)
+    from fusiontransformer_tpu_torch.serving.engine import InferenceEngine
+    pcfg = per_voxel(cfg32)
+    engines = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(pcfg, dev)
+        model.load_state_dict(state)
+        engines[dev] = InferenceEngine(pcfg, model=model, device=dev)
+    t0 = time.time()
+    batch, out_gpu = engines["cuda"].forward([sample])
+    _, out_cpu = engines["cpu"].forward([sample])
+    log(f"  f32 forward on card and CPU in {time.time() - t0:.1f} s")
+    hier = hier_from_cfg(pcfg, device_batch(batch, "cuda"))
+    over = int(tap_overflow(hier, norm_tap_slots(pcfg, len(hier.levels))))
+    if over:
+        raise AssertionError(f"tap_overflow {over}")
+    res = {"tap_overflow": over, "vs_cpu": {}, "vs_grouped": {}}
+    for k in out_cpu:
+        got = out_gpu[k].cpu()
+        for key, want in (("vs_cpu", out_cpu[k]), ("vs_grouped",
+                                                   grouped_f32[k])):
+            d = (got - want).abs().max().item()
+            tol = F32_LOGIT_RTOL * want.abs().max().item()
+            res[key][k] = d
+            log(f"  {k}: per-voxel on the card {key.replace('_', ' ')} "
+                f"(f32): max abs diff {d:.3g} (tol {tol:.3g})")
+            if not d <= tol:
+                raise AssertionError(f"f32 {k} {key} differs by {d} > {tol}")
+    return res
 
 
 # --------------------------------------------------------------------------- #
@@ -1031,63 +1329,9 @@ def main() -> int:
 
     # ---- 4. main path
     log("== 4. inference path: InferenceEngine, bf16, batch 1")
-    warm = engine.warmup()
-    log(f"warmup (s per bucket): {warm}")
-    reset_launches()
-    lat, outs = [], []
-    for rec in recs:
-        t0 = time.perf_counter()
-        outs.append(engine.predict(rec))
-        lat.append(time.perf_counter() - t0)
-    launches = dict(LAUNCHES)
-    stats = engine.stats()
-    for rec, out in zip(recs, outs):
-        n = len(rec["points"])
-        for key in ("labels", "labels_2d", "labels_3d"):
-            lab = out[key]
-            if lab.shape != (n,) or lab.min() < 0 or lab.max() >= 20:
-                raise AssertionError(f"{key}: shape {lab.shape}, range "
-                                     f"[{lab.min()}, {lab.max()}]")
-    if stats["voxel_overflow"] != 0 or stats["collate_dropped_points"] != 0:
-        raise AssertionError(f"lossy request path: {stats}")
-    want = {"binned_conv_grouped_fwd": k1_per_request * N_REQUESTS,
-            k3_name: 2 * N_REQUESTS}
-    for name, n in want.items():
-        if launches.get(name, 0) != n:
-            raise AssertionError(f"{name}: {launches.get(name, 0)} launches "
-                                 f"on the main path, expected {n}")
-    _, logits = engine.forward([engine.preprocess(recs[0])])
-    for k, v in logits.items():
-        if not bool(torch.isfinite(v).all()):
-            raise AssertionError(f"non-finite {k}")
-    p50 = statistics.median(lat)
-    log(f"requests {N_REQUESTS}: points {[len(r['points']) for r in recs]}, "
-        f"p50 latency {p50 * 1e3:.1f} ms, {1 / statistics.mean(lat):.2f} "
-        f"scans/s ({card}); launches {launches}; stats {stats}")
-    # Where a request's time goes: its parts one after another, per record
-    # (host clock; the device part ends in a synchronize).
-    split = {"preprocess": [], "collate": [], "step": [], "complete": []}
-    for rec in recs:
-        t = [time.perf_counter()]
-        sample = engine.preprocess(rec)
-        t.append(time.perf_counter())
-        host_batch = engine.collate([sample])
-        t.append(time.perf_counter())
-        packed = engine._step(device_batch(host_batch, engine.device))
-        torch.cuda.synchronize()
-        t.append(time.perf_counter())
-        engine.complete(([sample], host_batch, packed), count_stats=False)
-        t.append(time.perf_counter())
-        for i, key in enumerate(split):
-            split[key].append((t[i + 1] - t[i]) * 1e3)
-    split_ms = {k: statistics.median(v) for k, v in split.items()}
-    log(f"request split (host clock, medians of {len(recs)}): preprocess "
-        f"{split_ms['preprocess']:.1f} ms, collate + slot maps "
-        f"{split_ms['collate']:.1f} ms, copy + predict step "
-        f"{split_ms['step']:.1f} ms, complete {split_ms['complete']:.1f} ms")
-    db = device_batch(engine.collate([engine.preprocess(recs[0])]),
-                      engine.device)
-    breakdown = step_breakdown(engine, db)
+    serve = drive_engine(engine, recs, card, {
+        "binned_conv_grouped_fwd": k1_per_request * N_REQUESTS,
+        k3_name: 2 * N_REQUESTS})
     phase_end("4")
 
     # ---- 5. main path against the plain path (f32, card vs CPU)
@@ -1095,11 +1339,11 @@ def main() -> int:
     cfg32 = cfg.clone()
     cfg32.TPU.COMPUTE_DTYPE = "float32"
     cfg32.freeze()
-    state = {k: v.cpu() for k, v in engine.model.state_dict().items()}
+    serve_state = {k: v.cpu() for k, v in engine.model.state_dict().items()}
     m_gpu = build_model(cfg32, "cuda")
-    m_gpu.load_state_dict(state)
+    m_gpu.load_state_dict(serve_state)
     m_cpu = build_model(cfg32, "cpu")
-    m_cpu.load_state_dict(state)
+    m_cpu.load_state_dict(serve_state)
     e_gpu = InferenceEngine(cfg32, model=m_gpu)
     e_cpu = InferenceEngine(cfg32, model=m_cpu, device="cpu")
     sample = e_gpu.preprocess(recs[0])
@@ -1138,7 +1382,9 @@ def main() -> int:
         log(f"  bf16 vs f32 on the card, {key}: agreement "
             f"{bf16_drift[key]:.6f}")
 
-    del e_gpu, e_cpu, m_gpu, m_cpu, engine
+    # The group-pooled f32 logits on the card, for phase 10.
+    grouped_f32 = {k: v.cpu() for k, v in out_gpu.items()}
+    del e_gpu, e_cpu, m_gpu, m_cpu, engine, out_gpu
     torch.cuda.empty_cache()
     phase_end("5")
 
@@ -1168,7 +1414,7 @@ def main() -> int:
     k2_rows, k2 = phase_k2(thier, trainer.model, gen)
     k3e8_rows, k3e8 = phase_k3_e8(thier, gen)
     gemm_grads = phase_gemm_grads(tcfg)
-    convs_per_step = len(grouped_convs(trainer.model, thier))
+    convs_per_step = len(slot_convs(trainer.model, thier))
     del thier
     torch.cuda.empty_cache()
     phase_end("6")
@@ -1199,56 +1445,85 @@ def main() -> int:
     # ---- 8. the training path
     log(f"== 8. training path: SemanticTrainer, bf16, batch {TRAIN_BATCH}, "
         f"{TRAIN_STEPS} steps + validation over {len(ds)} scans")
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    t0 = time.perf_counter()
-    trainer.train()
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
-    tlaunches = dict(LAUNCHES)
-    n_val = len(trainer.val_dataloader)
-    meters = trainer.train_metric_logger.meters
-    if trainer.step != TRAIN_STEPS:
-        raise AssertionError(f"{trainer.step} train steps, expected "
-                             f"{TRAIN_STEPS}")
-    for k in ("total_loss", "seg_loss_2d", "seg_loss_3d", "xm_loss_2d",
-              "xm_loss_3d"):
-        if not np.isfinite(meters[k].global_avg):
-            raise AssertionError(f"non-finite {k}")
-    if meters["voxel_overflow"].sum != 0 or meters["slot_overflow"].sum != 0:
-        raise AssertionError(f"lossy train steps: voxel_overflow "
-                             f"{meters['voxel_overflow'].sum}, slot "
-                             f"{meters['slot_overflow'].sum}")
-    n_fwd = TRAIN_STEPS + n_val
-    want = {"binned_conv_grouped_fwd": convs_per_step * n_fwd,
-            "binned_conv_grouped_bwd": convs_per_step * TRAIN_STEPS,
-            k3_name: 2 * n_fwd, k3e8_name: 2 * TRAIN_STEPS}
-    for name, n in want.items():
-        if tlaunches.get(name, 0) != n:
-            raise AssertionError(f"{name}: {tlaunches.get(name, 0)} launches "
-                                 f"on the training path, expected {n}")
-    val = {k: trainer.val_metric_logger.meters[k].global_avg
-           for k in ("seg_iou_2d", "seg_iou_3d", "seg_loss_2d",
-                     "seg_loss_3d")}
-    if not all(np.isfinite(v) for v in val.values()):
-        raise AssertionError(f"non-finite validation metrics {val}")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    losses = {k: meters[k].global_avg for k in
-              ("total_loss", "seg_loss_2d", "seg_loss_3d", "xm_loss_2d",
-               "xm_loss_3d")}
-    log(f"trained {TRAIN_STEPS} steps + validated {n_val} batches in "
-        f"{train_s:.1f} s ({TRAIN_STEPS * TRAIN_BATCH / train_s:.2f} train "
-        f"scans/s over the whole run, first-step set-up and validation "
-        f"included; {card}); launches {tlaunches} = per train step K1 "
-        f"{convs_per_step}, K2 {convs_per_step}, K3 2, K3[E=8] 2, and per "
-        f"eval step K1 {convs_per_step}, K3 2; voxel_overflow 0, slot "
-        f"overflow 0; mean losses {losses}; validation {val}; peak device "
-        f"memory {peak_gb:.1f} GB")
-    tbreak = train_breakdown(trainer)
-    window = train_window(trainer, tcfg, tbreak["step_ms"])
+    train = drive_trainer(trainer, tcfg, card, "grouped", convs_per_step,
+                          k3_name, k3e8_name)
+    tlaunches = train["launches"]
+    del trainer
+    torch.cuda.empty_cache()
     phase_end("8")
 
-    # ---- 9. kernels line
+    # ---- 9. K1' and K2' on the flagship's per-voxel maps
+    log("== 9. K1' binned_conv_slots_fwd and K2' binned_conv_slots_bwd vs "
+        "plain, on the flagship's own per-voxel K-slot maps (built on the "
+        "card), and what building them costs")
+    pcfg, ptcfg = per_voxel(cfg), per_voxel(tcfg)
+    sdb = device_batch(without_host_maps(batch), "cuda")
+    tdb = device_batch(without_host_maps(hb), "cuda")
+    maps_cost = {"serve (batch 1)": hier_cost(pcfg, sdb, None),
+                 f"train (batch {TRAIN_BATCH})": hier_cost(ptcfg, tdb, caps)}
+    shier = hier_from_cfg(pcfg, sdb)
+    pmodel = build_model(pcfg, "cuda")
+    pmodel.load_state_dict(serve_state)
+    k1p_rows, k1p, k1p_per_request = phase_k1(shier, pmodel, gen, "slots")
+    thier = hier_from_cfg(ptcfg, tdb, caps)
+    k2p_rows, k2p = phase_k2(thier, pmodel, gen, "slots")
+    del shier, thier, pmodel
+    torch.cuda.empty_cache()
+    phase_end("9")
+
+    # ---- 10. per-voxel serving
+    log("== 10. per-voxel serving: InferenceEngine with TPU.CONV_SLOT_POOL "
+        "False, bf16, batch 1")
+    pengine = InferenceEngine(pcfg, model=build_model(pcfg, "cuda"))
+    pengine.model.load_state_dict(serve_state)
+    if pengine._slot_pool is not None:
+        raise AssertionError("the per-voxel engine builds host slot maps")
+    pserve = drive_engine(pengine, recs, card, {
+        "binned_conv_slots_fwd": k1p_per_request * N_REQUESTS,
+        "binned_conv_grouped_fwd": 0, k3_name: 2 * N_REQUESTS})
+    # The engine's step routes on the batch: with the host maps it runs K1.
+    gdb = device_batch(batch, "cuda")
+    pserve["step_side_by_side_ms"] = side_by_side("predict step", {
+        "group-pooled maps (K1)": lambda: pengine._step(gdb),
+        "per-voxel maps (K1')": lambda: pengine._step(sdb)})
+    del pengine
+    pserve["f32"] = per_voxel_f32(cfg32, serve_state, sample, grouped_f32)
+    torch.cuda.empty_cache()
+    phase_end("10")
+
+    # ---- 11. per-voxel training
+    log(f"== 11. per-voxel training: one f32 train step on the card vs the "
+        f"CPU ({PARITY_SCANS} scans), then SemanticTrainer with "
+        f"TPU.CONV_SLOT_POOL False, bf16, batch {TRAIN_BATCH}")
+    collate2p = get_collate(
+        PARITY_SCANS, tcfg.TPU.POINT_CAPACITY,
+        tcfg.DATASET.SyntheticSCN.image_height,
+        tcfg.DATASET.SyntheticSCN.image_width,
+        tuple(tcfg.TPU.CAPACITY_BUCKETS),
+        level_counts=1 + len(tcfg.TPU.LEVEL_CAPACITY_FRACTIONS),
+        slot_pool=slot_pool_spec(ptcfg, adaptive=True))
+    hb2p = collate2p([ds[i] for i in range(PARITY_SCANS)])
+    ptrainer = SemanticTrainer(ptcfg)
+    if any(k.startswith("gslot_") for k in hb2p):
+        raise AssertionError("the per-voxel collate built host slot maps")
+    state = {k: v.cpu() for k, v in ptrainer.model.state_dict().items()}
+    pparity = phase_train_parity(ptcfg, state, hb2p,
+                                 ptrainer.level_caps(hb2p), conv_names,
+                                 kind="slots")
+    del state
+    ptrain = drive_trainer(ptrainer, ptcfg, card, "slots", convs_per_step,
+                           k3_name, k3e8_name)
+    ptlaunches = ptrain["launches"]
+    # The train step routes on the batch too: with the host maps K1 / K2.
+    pdb = device_batch(hb, "cuda")
+    ptrain["step_side_by_side_ms"] = side_by_side("train step", {
+        "group-pooled maps (K1/K2)": lambda: ptrainer.train_step(
+            pdb, ptrainer.generator, caps),
+        "per-voxel maps (K1'/K2')": lambda: ptrainer.train_step(
+            tdb, ptrainer.generator, caps)})
+    phase_end("11")
+
+    # ---- 12. kernels line
     def entry(name, source, replaces, m, library_ms, launches_of):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches_of.get(name, 0),
@@ -1261,36 +1536,36 @@ def main() -> int:
               "sorted_segment_weighted_sum": k3_rows,
               "binned_conv_grouped_bwd": k2_rows,
               "sorted_segment_weighted_sum_e8": k3e8_rows,
-              "engine": {"p50_ms": p50 * 1e3,
-                         "scans_per_s": 1 / statistics.mean(lat),
-                         "latencies_ms": [x * 1e3 for x in lat],
-                         "request_split_ms": split_ms,
-                         "step_breakdown": breakdown,
-                         "f32_card_vs_cpu_max_abs": worst,
+              "binned_conv_slots_fwd": k1p_rows,
+              "binned_conv_slots_bwd": k2p_rows,
+              "engine": {**serve, "f32_card_vs_cpu_max_abs": worst,
                          "bf16_vs_f32_on_card": bf16_drift},
-              "train": {"batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
-                        "val_batches": n_val, "run_s": train_s,
-                        "launches": tlaunches, "losses": losses,
-                        "validation": val, "peak_memory_gb": peak_gb,
-                        "breakdown": tbreak, "window": window,
+              "train": {**train, "batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
                         "card_vs_cpu": parity,
                         "bf16_gemm_grad_share": gemm_grads},
+              "per_voxel": {"slot_maps_cost": maps_cost, "engine": pserve,
+                            "train": {**ptrain, "card_vs_cpu": pparity}},
               "phase_s": phase_s}
-    log("== 9. kernels (ms, plain_ms, bound_ms, library_ms: K1 and K3 per "
-        "inference request at batch 1, K2 and K3[E=8] per train step at "
-        f"batch {TRAIN_BATCH}; each summed over the path's calls, bf16; "
-        "launches from the path each entry is timed on)")
+    log("== 12. kernels (ms, plain_ms, bound_ms, library_ms: K1, K1' and K3 "
+        "per inference request at batch 1, K2, K2' and K3[E=8] per train "
+        f"step at batch {TRAIN_BATCH}; each summed over the path's calls, "
+        "bf16; launches from the path each entry is timed on: K1' from "
+        "phase 10, K2' from phase 11)")
     log("detail: " + json.dumps(detail))
     log(f"phase seconds: {phase_s}, total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         entry("binned_conv_grouped_fwd", K1_SOURCE, K1_REPLACES, k1, None,
-              launches),
+              serve["launches"]),
         entry("binned_conv_grouped_bwd", K1_SOURCE, K2_REPLACES, k2, None,
               tlaunches),
         entry(k3_name, K3_SOURCE, K3_REPLACES, k3, k3["library_ms"],
-              launches),
+              serve["launches"]),
         entry(k3e8_name, K3_SOURCE, K3_REPLACES, k3e8, k3e8["library_ms"],
-              tlaunches)]}), flush=True)
+              tlaunches),
+        entry("binned_conv_slots_fwd", K1_SOURCE, K1_REPLACES, k1p, None,
+              pserve["launches"]),
+        entry("binned_conv_slots_bwd", K1_SOURCE, K2_REPLACES, k2p, None,
+              ptlaunches)]}), flush=True)
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -267,40 +267,30 @@ _C.TPU.LEVEL_CAPACITY_FRACTIONS = (1.0, 0.9, 0.8, 0.7)
 # syncs a global per-level max across ranks first (all ranks must compile
 # the same program); per-batch counts ride the collate's `level_counts`.
 _C.TPU.ADAPTIVE_LEVEL_CAPS = True
-# Compact conv tap slots per level (K); 0 at a level (or emptying the
-# tuple) = dense 27-tap gathers there.  ks=3 convs gather only the K live
-# source rows per voxel and rebin them tap-major (ops/sparse_conv.py
-# binned-slot path; identical math, 27/K fewer gather rows).  LiDAR
-# surfaces are thin: measured live ks3 taps per voxel top out at 9-18
-# (p99 8-12), so K=16 is lossless on KITTI-like scans — live taps beyond
-# K are DROPPED and counted in the per-step `tap_overflow` metric (the
-# trainer and the serving engine both surface it; 0 == lossless; raise K
-# if a dataset ever trips it — tools/derive_buckets.py reports tap-count
-# percentiles).  Levels past the tuple's length run dense (the tuple is
-# zero-padded to the hierarchy depth), as do wide-channel convs via the
-# backend routing below.  Default: K=16 at the first four levels — the
-# measured-fastest product configuration on v5e (+26% end to end);
-# the deepest level is all 256-channel convs, which keep the dense path.
+# Conv tap slots per level (K); 0 at a level (or all zeros) = the dense
+# 27-tap ks=3 conv there.  At a level with K > 0 every ks=3 conv runs a
+# hand-written binned-conv kernel pair on slot maps: the group-pooled maps
+# of CONV_SLOT_POOL below, or, with it off, per-voxel K-slot maps that the
+# hierarchy builds on the device (ops/hierarchy.py tap_slot_maps): the
+# first K live taps of each voxel.  Live taps beyond K are DROPPED and
+# counted in `tap_overflow` (the train step's metric, the engine's
+# `voxel_overflow`; the trainer warns; 0 == lossless).  LiDAR surfaces are
+# thin, so K=16 is lossless on KITTI-like scans.  Levels past the tuple's
+# length run dense (the tuple is zero-padded to the hierarchy depth).
+# Default: K=16 at the first four levels; the deepest level runs dense.
 _C.TPU.CONV_TAP_SLOTS = (16, 16, 16, 16, 0)
-# Run the K-slot ks=3 convs through the fused Pallas binning kernel
-# (ops/pallas/binned_conv.py) instead of the XLA one-hot rebinning.  The
-# kernel keeps the tap-major tensor in VMEM (no extra HBM pass), measured
-# 1.3-2.7x per conv at <=128-channel shapes on v5e; convs with
-# max(Cin, Cout) > 128 or Cin < 16 keep the dense path (measured slower
-# there — see tools/microbench_binned_conv.py).  Requires CONV_TAP_SLOTS
-# with K a multiple of 16.  On non-TPU backends the K-slot convs run the
-# XLA one-hot formulation instead (same math; Mosaic interpret mode is a
-# debug tool, not a product path).
+# Kept for the JAX package's configs; no meaning in the port.  There it
+# picks the Pallas kernel or the XLA formulation for the per-voxel maps on
+# a TPU; here every slot-map conv runs its CUDA kernel pair (K1'/K2' on
+# per-voxel maps), whatever its widths or K (ops/sparse_conv.py).
 _C.TPU.CONV_PALLAS = True
-# Host-built GROUP-POOLED slot maps (ops/host_slots.py, r5): the loader
-# joins ks3 neighbors per scan and pools slots per 8-voxel kernel group —
-# exact compaction the device build cannot afford (measured pool sizes
-# 80-96 of the 128 rows/group the K=16 maps gather; train step 138 -> 118
-# ms, inference 45.97 -> 52.8 scans/s on v5e).  Applies on single-device
-# single-process topologies for the levels where CONV_TAP_SLOTS is
-# nonzero; other topologies keep the per-voxel K-slot maps (data/build.py
-# gates).  SLOT_POOL_QUANTUM ladders the per-batch pool size S (multiples
-# of this) to bound retraces.
+# Host-built GROUP-POOLED slot maps (ops/host_slots.py): the collate joins
+# ks3 neighbors per scan and pools slots per 8-voxel kernel group (exact
+# compaction), at the levels where CONV_TAP_SLOTS is nonzero; their convs
+# run K1/K2.  Off: the batches carry no host maps and the steps build
+# per-voxel K-slot maps on the device (K1'/K2'; data/build.py
+# slot_pool_spec).  SLOT_POOL_QUANTUM ladders the per-batch pool size S
+# (multiples of this).
 _C.TPU.CONV_SLOT_POOL = True
 _C.TPU.SLOT_POOL_QUANTUM = 16
 # LRU bound on cached per-capacity jitted steps (train + eval each).  Every

@@ -34,6 +34,19 @@
 // version runs the products on the CUDA cores in f32, eight FMAs per W
 // element it loads, so it is far from the bf16 tensor-core rate at the wide
 // levels; wgmma tiles over the binned rows are the later step.
+//
+// Per-voxel K-slot maps (K1', K2').  The same kernels replace
+// `binned_conv_fwd` / `binned_conv_bwd(..., grouped=False)` and the gathers
+// of their callers `_subm3p_impl` / `_subm3p_bwd`.  There voxel v owns slots
+// v*K .. v*K + K-1 of maps src, tap [V, K]; read as [V/8, 8K], slot j of
+// group grp belongs to voxel j / K of the group and its bin is
+// tap*8 + j / K (the TPU kernel's `_oh216` rule with an int k).  The kernels
+// read the tap map themselves and apply that rule where they fill the bin
+// table (`bin_of`); nothing else changes.  A voxel's live taps are distinct,
+// so at most one slot feeds a bin here too.  Any K from 1 to 27 works: the
+// TPU kernel's 8K % 128 == 0 is a TPU lane rule.  The work is the same as
+// with group-pooled maps (it follows the live slots); the bin table is
+// filled from 8K slots instead of S.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,11 +61,22 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
+// The bin of slot j of a group, from its map code.  Group-pooled maps
+// (k == 0) carry the bin id itself.  Per-voxel K-slot maps (k > 0) carry a
+// tap id and the owning voxel is positional, slot j belonging to voxel j / k;
+// the sentinel tap 27 (or any id outside [0, 27)) feeds no bin.
+__device__ __forceinline__ int bin_of(int code, int j, int k) {
+  if (k == 0) return code;
+  return (code >= 0 && code < kTaps) ? code * 8 + j / k : kBins;
+}
+
+// kslots: 0 for group-pooled maps (`bins` holds bin ids), K for per-voxel
+// K-slot maps (`bins` holds tap ids, s == 8K); see bin_of.
 template <typename T, int NPER>
 __global__ void binned_conv_grouped_fwd_kernel(
     const T* __restrict__ feats, const int* __restrict__ src,
     const int* __restrict__ bins, const T* __restrict__ w,
-    float* __restrict__ out, int v, int s, int cin, int cout) {
+    float* __restrict__ out, int v, int s, int kslots, int cin, int cout) {
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);  // [cin][8]
   __shared__ int row_of_bin[kBins];
@@ -66,7 +90,7 @@ __global__ void binned_conv_grouped_fwd_kernel(
   const int* src_g = src + (int64_t)grp * s;
   const int* bin_g = bins + (int64_t)grp * s;
   for (int j = tid; j < s; j += blockDim.x) {
-    const int b = bin_g[j];
+    const int b = bin_of(bin_g[j], j, kslots);
     const int r = src_g[j];
     if (b >= 0 && b < kBins && r >= 0 && r < v) {
       row_of_bin[b] = r;
@@ -184,8 +208,8 @@ template <typename T>
 __global__ void __launch_bounds__(kDwThreads) binned_conv_grouped_dw_kernel(
     const T* __restrict__ dout, const T* __restrict__ feats,
     const int* __restrict__ src, const int* __restrict__ bins,
-    float* __restrict__ partial, int v, int s, int cin, int cout,
-    int groups_per_chunk) {
+    float* __restrict__ partial, int v, int s, int kslots, int cin,
+    int cout, int groups_per_chunk) {
   // Dynamic shared memory: acc[27][32][32] then ds[27][8][32], f32.
   extern __shared__ float4 dw_smem4[];
   float* acc = reinterpret_cast<float*>(dw_smem4);
@@ -211,7 +235,7 @@ __global__ void __launch_bounds__(kDwThreads) binned_conv_grouped_dw_kernel(
     const int* src_g = src + (int64_t)grp * s;
     const int* bin_g = bins + (int64_t)grp * s;
     for (int j = tid; j < s; j += kDwThreads) {
-      const int b = bin_g[j];
+      const int b = bin_of(bin_g[j], j, kslots);
       const int r = src_g[j];
       if (b >= 0 && b < kBins && r >= 0 && r < v) {
         row_of_bin[b] = r;
@@ -302,13 +326,14 @@ constexpr size_t kDwSmem =
 
 template <typename T>
 int launch(const void* feats, const int* src, const int* bins, const void* w,
-           float* out, int v, int s, int cin, int cout, cudaStream_t stream);
+           float* out, int v, int s, int kslots, int cin, int cout,
+           cudaStream_t stream);
 
 template <typename T>
 int launch_bwd(const void* dout, const void* feats, const int* src,
                const int* bins, const void* w, void* wt, float* partial,
-               float* dx, float* dw, int v, int s, int cin, int cout,
-               int nchunks, cudaStream_t stream) {
+               float* dx, float* dw, int v, int s, int kslots, int cin,
+               int cout, int nchunks, cudaStream_t stream) {
   const int64_t nw = (int64_t)kTaps * cin * cout;
   const int fill_blocks = (int)((nw + 255) / 256 < 1024 ? (nw + 255) / 256
                                                          : 1024);
@@ -317,7 +342,7 @@ int launch_bwd(const void* dout, const void* feats, const int* src,
   int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
   // dX: the forward kernel on dout with W' ([27, Cout, Cin]).
-  rc = launch<T>(dout, src, bins, wt, dx, v, s, cout, cin, stream);
+  rc = launch<T>(dout, src, bins, wt, dx, v, s, kslots, cout, cin, stream);
   if (rc != 0) return rc;
   rc = static_cast<int>(cudaFuncSetAttribute(
       binned_conv_grouped_dw_kernel<T>,
@@ -329,7 +354,7 @@ int launch_bwd(const void* dout, const void* feats, const int* src,
                   (cout + kTile - 1) / kTile);
   binned_conv_grouped_dw_kernel<T><<<grid, kDwThreads, kDwSmem, stream>>>(
       static_cast<const T*>(dout), static_cast<const T*>(feats), src, bins,
-      partial, v, s, cin, cout, gpc);
+      partial, v, s, kslots, cin, cout, gpc);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
   reduce_chunks_kernel<<<fill_blocks, 256, 0, stream>>>(partial, dw, nchunks,
@@ -339,7 +364,8 @@ int launch_bwd(const void* dout, const void* feats, const int* src,
 
 template <typename T>
 int launch(const void* feats, const int* src, const int* bins, const void* w,
-           float* out, int v, int s, int cin, int cout, cudaStream_t stream) {
+           float* out, int v, int s, int kslots, int cin, int cout,
+           cudaStream_t stream) {
   const int width = cout < 256 ? cout : 256;
   const int threads = (width + 31) / 32 * 32;
   const int nper = (cout + threads - 1) / threads;
@@ -350,19 +376,19 @@ int launch(const void* feats, const int* src, const int* bins, const void* w,
   switch (nper) {
     case 1:
       binned_conv_grouped_fwd_kernel<T, 1><<<grid, threads, smem, stream>>>(
-          f, src, bins, wt, out, v, s, cin, cout);
+          f, src, bins, wt, out, v, s, kslots, cin, cout);
       break;
     case 2:
       binned_conv_grouped_fwd_kernel<T, 2><<<grid, threads, smem, stream>>>(
-          f, src, bins, wt, out, v, s, cin, cout);
+          f, src, bins, wt, out, v, s, kslots, cin, cout);
       break;
     case 3:
       binned_conv_grouped_fwd_kernel<T, 3><<<grid, threads, smem, stream>>>(
-          f, src, bins, wt, out, v, s, cin, cout);
+          f, src, bins, wt, out, v, s, kslots, cin, cout);
       break;
     case 4:
       binned_conv_grouped_fwd_kernel<T, 4><<<grid, threads, smem, stream>>>(
-          f, src, bins, wt, out, v, s, cin, cout);
+          f, src, bins, wt, out, v, s, kslots, cin, cout);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -370,13 +396,9 @@ int launch(const void* feats, const int* src, const int* bins, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// dtype: 0 = float32 operands, 1 = bfloat16 operands.  Output is float32.
-extern "C" int ftx_binned_conv_grouped_fwd(const void* feats, const int* src,
-                                           const int* bins, const void* w,
-                                           float* out, int v, int s, int cin,
-                                           int cout, int dtype, void* stream) {
+int fwd(const void* feats, const int* src, const int* bins, const void* w,
+        float* out, int v, int s, int kslots, int cin, int cout, int dtype,
+        void* stream) {
   if (v < 0 || v % 8 != 0 || s < 0 || cin <= 0 || cin > 1024 || cout <= 0 ||
       cout > 1024) {
     return cudaErrorInvalidValue;
@@ -384,13 +406,46 @@ extern "C" int ftx_binned_conv_grouped_fwd(const void* feats, const int* src,
   if (v == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch<float>(feats, src, bins, w, out, v, s, cin, cout, st);
+    return launch<float>(feats, src, bins, w, out, v, s, kslots, cin, cout,
+                         st);
   }
   if (dtype == 1) {
-    return launch<__nv_bfloat16>(feats, src, bins, w, out, v, s, cin, cout,
-                                 st);
+    return launch<__nv_bfloat16>(feats, src, bins, w, out, v, s, kslots, cin,
+                                 cout, st);
   }
   return cudaErrorInvalidValue;
+}
+
+int bwd(const void* dout, const void* feats, const int* src, const int* bins,
+        const void* w, void* wt, float* partial, float* dx, float* dw, int v,
+        int s, int kslots, int cin, int cout, int nchunks, int dtype,
+        void* stream) {
+  if (v <= 0 || v % 8 != 0 || s < 0 || cin <= 0 || cin > 1024 ||
+      cout <= 0 || cout > 1024 || nchunks < 1 || nchunks > v / 8) {
+    return cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return launch_bwd<float>(dout, feats, src, bins, w, wt, partial, dx, dw,
+                             v, s, kslots, cin, cout, nchunks, st);
+  }
+  if (dtype == 1) {
+    return launch_bwd<__nv_bfloat16>(dout, feats, src, bins, w, wt, partial,
+                                     dx, dw, v, s, kslots, cin, cout, nchunks,
+                                     st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// dtype: 0 = float32 operands, 1 = bfloat16 operands.  Output is float32.
+// Group-pooled maps: src and bins [V/8, s], bins holding bin ids.
+extern "C" int ftx_binned_conv_grouped_fwd(const void* feats, const int* src,
+                                           const int* bins, const void* w,
+                                           float* out, int v, int s, int cin,
+                                           int cout, int dtype, void* stream) {
+  return fwd(feats, src, bins, w, out, v, s, 0, cin, cout, dtype, stream);
 }
 
 // Backward: dx [V, Cin] and dw [27, Cin, Cout], float32.  dout [V, Cout],
@@ -402,18 +457,26 @@ extern "C" int ftx_binned_conv_grouped_bwd(
     const void* dout, const void* feats, const int* src, const int* bins,
     const void* w, void* wt, float* partial, float* dx, float* dw, int v,
     int s, int cin, int cout, int nchunks, int dtype, void* stream) {
-  if (v <= 0 || v % 8 != 0 || s < 0 || cin <= 0 || cin > 1024 ||
-      cout <= 0 || cout > 1024 || nchunks < 1 || nchunks > v / 8) {
-    return cudaErrorInvalidValue;
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return launch_bwd<float>(dout, feats, src, bins, w, wt, partial, dx, dw,
-                             v, s, cin, cout, nchunks, st);
-  }
-  if (dtype == 1) {
-    return launch_bwd<__nv_bfloat16>(dout, feats, src, bins, w, wt, partial,
-                                     dx, dw, v, s, cin, cout, nchunks, st);
-  }
-  return cudaErrorInvalidValue;
+  return bwd(dout, feats, src, bins, w, wt, partial, dx, dw, v, s, 0, cin,
+             cout, nchunks, dtype, stream);
+}
+
+// Per-voxel K-slot maps (K1' and K2'): src and tap [V, K] int32, read as the
+// grouped layout [V/8, 8K] (the same memory); 1 <= K <= 27.  Otherwise as
+// the two functions above.
+extern "C" int ftx_binned_conv_slots_fwd(const void* feats, const int* src,
+                                         const int* tap, const void* w,
+                                         float* out, int v, int k, int cin,
+                                         int cout, int dtype, void* stream) {
+  if (k < 1 || k > kTaps) return cudaErrorInvalidValue;
+  return fwd(feats, src, tap, w, out, v, 8 * k, k, cin, cout, dtype, stream);
+}
+
+extern "C" int ftx_binned_conv_slots_bwd(
+    const void* dout, const void* feats, const int* src, const int* tap,
+    const void* w, void* wt, float* partial, float* dx, float* dw, int v,
+    int k, int cin, int cout, int nchunks, int dtype, void* stream) {
+  if (k < 1 || k > kTaps) return cudaErrorInvalidValue;
+  return bwd(dout, feats, src, tap, w, wt, partial, dx, dw, v, 8 * k, k, cin,
+             cout, nchunks, dtype, stream);
 }

@@ -22,7 +22,8 @@ from fusiontransformer_tpu_torch.ops.host_slots import SlotPoolSpec
 
 def slot_pool_spec(cfg, adaptive: bool):
     """The ``SlotPoolSpec`` of ``TPU.CONV_SLOT_POOL`` / ``CONV_TAP_SLOTS``,
-    or None when the config builds no group-pooled maps."""
+    or None when the config builds no group-pooled maps (then the batches
+    carry none, and the steps build per-voxel K-slot maps on the device)."""
     levels = [l for l, k in enumerate(cfg.TPU.CONV_TAP_SLOTS) if k]
     if not (cfg.TPU.CONV_SLOT_POOL and levels):
         return None

@@ -144,6 +144,12 @@ class SemanticTrainer:
                 "capacity overflow: %d voxels and %d conv slots dropped this "
                 "step — raise TPU.LEVEL_CAPACITY_FRACTIONS",
                 int(host["voxel_overflow"]), slot_overflow)
+        if host.get("tap_overflow", 0) > 0:
+            self.logger.warning(
+                "conv tap-slot overflow: %d live taps dropped this step — "
+                "gradients of the binned conv are inconsistent with its "
+                "forward under overflow; raise TPU.CONV_TAP_SLOTS",
+                int(host["tap_overflow"]))
         self.train_metric_logger.update(**host)
         self.train_3d_metric.update_matrix(metrics["cm_3d"].cpu().numpy())
         self.train_2d_metric.update_matrix(metrics["cm_2d"].cpu().numpy())

@@ -6,13 +6,15 @@ Port of ``fusiontransformer_tpu/modules/steps.py``:
   ``adaptive_level_caps`` from the batch's exact per-level voxel counts up
   the capacity ladder (``TPU.ADAPTIVE_LEVEL_CAPS``); the host slot maps use
   the same rules (``ops/host_slots.py``);
-* ``hier_from_cfg`` builds the hierarchy (with the batch's group-pooled slot
-  maps attached when it carries them), ``device_batch`` moves the array part
-  of a collated batch to the device;
+* ``hier_from_cfg`` builds the hierarchy with conv slot maps: the batch's
+  group-pooled maps when it carries them (``TPU.CONV_SLOT_POOL``), else
+  per-voxel K-slot maps built on the device (``TPU.CONV_TAP_SLOTS``);
+  ``device_batch`` moves the array part of a collated batch to the device;
 * ``make_train_step``: forward in train mode, CE + lambda * KL per stream,
   the two streams summed, one backward, the frozen-pattern mask, the
-  optimizer step; returns the losses, ``voxel_overflow`` and the confusion
-  matrices.  Image features are detached before fusion and the KL teachers
+  optimizer step; returns the losses, ``voxel_overflow`` (and
+  ``tap_overflow`` with per-voxel maps) and the confusion matrices.  Image
+  features are detached before fusion and the KL teachers
   are detached, so the gradient of the summed loss equals the reference's
   two accumulated backward passes (as in the JAX step).  Its parts run in
   ``record_function`` ranges (``train_step.forward`` / ``.backward`` /
@@ -67,15 +69,58 @@ def batch_level_caps(cfg, host_batch):
     return level_caps_for_n(cfg, n)
 
 
+def norm_tap_slots(cfg, num_levels: int):
+    """``TPU.CONV_TAP_SLOTS`` normalised to the hierarchy depth: levels past
+    the tuple get 0 (dense), extra entries are dropped; () when every entry
+    is 0."""
+    ts = tuple(cfg.TPU.CONV_TAP_SLOTS)
+    if not any(ts):
+        return ()
+    return (ts + (0,) * num_levels)[:num_levels]
+
+
+def per_voxel_slots(cfg, batch, num_levels: int):
+    """The K per level of the device-built per-voxel K-slot maps the step
+    uses for ``batch``: ``norm_tap_slots``, or () when the batch carries
+    host-built group-pooled maps (``TPU.CONV_SLOT_POOL``)."""
+    if "gslot_src_0" in batch:
+        return ()
+    return norm_tap_slots(cfg, num_levels)
+
+
 def hier_from_cfg(cfg, batch, level_caps=None):
     """Hierarchy at ``level_caps`` (by default sized from the batch's point
-    buffer), with the batch's group-pooled slot maps (``gslot_src_{l}`` /
-    ``gslot_bin_{l}``) attached; levels without maps run the dense ks3
-    path."""
+    buffer) with conv slot maps: the batch's group-pooled maps
+    (``gslot_src_{l}`` / ``gslot_bin_{l}``) when it carries them, else
+    per-voxel K-slot maps built on the device at the levels
+    ``TPU.CONV_TAP_SLOTS`` names (the JAX package's ``_hier_from_cfg``).
+    Levels without maps run the dense ks3 path."""
     caps = level_caps or level_caps_for_n(cfg, batch["coords"].shape[0])
     hier = build_hierarchy(batch["coords"], batch["pt_batch"],
-                           batch["pt_valid"], caps)
+                           batch["pt_valid"], caps,
+                           tap_slots=per_voxel_slots(cfg, batch, len(caps)))
     return attach_grouped_slots(hier, batch)
+
+
+def tap_overflow(hier, tap_slots):
+    """Live ks3 taps the per-voxel K-slot maps dropped (0: lossless)."""
+    total = 0
+    for lvl, k in zip(hier.levels, tap_slots):
+        if k:
+            live = (lvl.nbr_idx < lvl.valid.shape[0]).sum(1, dtype=torch.int32)
+            total = total + (live - k).clamp(min=0).sum()
+    return total
+
+
+def overflow_metrics(cfg, batch, hier):
+    """``voxel_overflow`` (voxels the level capacities dropped) and, where
+    the step built per-voxel maps, ``tap_overflow``, as device tensors."""
+    out = {"voxel_overflow": sum(
+        (l.nvalid_raw - l.valid.shape[0]).clamp(min=0) for l in hier.levels)}
+    ts = per_voxel_slots(cfg, batch, len(hier.levels))
+    if ts:
+        out["tap_overflow"] = tap_overflow(hier, ts)
+    return out
 
 
 _ARRAY_KEYS = ("coords", "feats", "seg_label", "pt_batch", "pt_valid", "img",
@@ -150,7 +195,8 @@ def make_train_step(cfg, model, optimizer):
 
     ``batch``: a ``device_batch``; ``generator``: the ``torch.Generator``
     (on the batch's device) that dropout draws from.  The metrics are
-    device tensors: the losses, ``total_loss``, ``voxel_overflow`` and the
+    device tensors: the losses, ``total_loss``, ``voxel_overflow``,
+    ``tap_overflow`` where the step built per-voxel slot maps, and the
     confusion matrices ``cm_2d`` / ``cm_3d``.  The parameters' ``.grad``
     hold the step's gradients after it.
     """
@@ -182,9 +228,7 @@ def make_train_step(cfg, model, optimizer):
         with record_function("train_step.metrics"), torch.no_grad():
             metrics = {k: v.detach() for k, v in parts.items()}
             metrics["total_loss"] = total.detach()
-            metrics["voxel_overflow"] = sum(
-                (l.nvalid_raw - l.valid.shape[0]).clamp(min=0)
-                for l in hier.levels)
+            metrics.update(overflow_metrics(cfg, batch, hier))
             metrics.update(confusions(cfg, out, batch))
         return metrics
 

@@ -16,6 +16,10 @@ Everything is fixed-capacity: each level has a static ``cap``; overflow
 voxels are dropped and counted in ``nvalid_raw``.  Index maps use the target
 level's ``cap`` as the "missing" sentinel, so gathers read a zero pad row.
 
+With ``tap_slots`` the device also compacts each level's ks3 map into
+per-voxel K-slot conv maps (the first K live taps of each voxel), the maps
+the JAX package uses wherever host-built group-pooled maps are off.
+
 Kernel offset conventions (x-slowest, as in the JAX package):
 * ks=3: k = (dx+1)*9 + (dy+1)*3 + (dz+1), offsets in {-1,0,1};
 * ks=2: k = bx*4 + by*2 + bz, where (bx,by,bz) = child coord & 1.
@@ -45,8 +49,10 @@ class Level(NamedTuple):
     child_idx: Optional[torch.Tensor]   # [V, 8] int32 into level l-1
     parent_idx: Optional[torch.Tensor]  # [V] int32 into level l+1
     child_kidx: Optional[torch.Tensor]  # [V] int32 in [0, 8)
-    # Group-pooled slot maps (src_pack [V/8, S], bin_pack [V/8, S]) attached
-    # by ``attach_grouped_slots``, or None (dense ks3 path).
+    # Conv slot maps, or None (dense ks3 path): per-voxel (src [V, K],
+    # tap [V, K]) built by ``build_hierarchy(tap_slots=...)``, or
+    # group-pooled (src_pack [V/8, S], bin_pack [V/8, S]) attached by
+    # ``attach_grouped_slots``.
     slot_idx: Optional[tuple] = None
 
 
@@ -156,8 +162,29 @@ FULL_SCALE_LOG2 = 12        # voxel coords lie in [0, 4096)
 POINT_LEVELS = (0, 2, 4)    # levels the model maps points to and from
 
 
+def tap_slot_maps(nbr, cap: int, k_slots: int):
+    """Per-voxel K-slot maps of a ks3 map ``nbr`` [V, 27] (sentinel ``cap``):
+    ``(src [V, K], tap [V, K])`` int32, the first K live taps of each voxel
+    in tap order, then sentinels ``src = cap``, ``tap = 27``.  Live taps
+    beyond K are dropped (``tap_overflow`` counts them).
+
+    The JAX package selects with a one-hot over [V, 27, K]; here each live
+    tap is written to its slot (its rank among the voxel's live taps) by one
+    scatter, and taps past slot K-1 land in a dump column that is cut off,
+    so every kept slot is written exactly once."""
+    v = nbr.shape[0]
+    live = nbr < cap
+    rank = torch.cumsum(live, dim=1, dtype=torch.int32) - 1
+    slot = torch.where(live & (rank < k_slots), rank, k_slots).long()
+    taps = torch.arange(27, dtype=torch.int32, device=nbr.device).expand(v, 27)
+    src = nbr.new_full((v, k_slots + 1), cap).scatter_(1, slot, nbr)
+    tap = nbr.new_full((v, k_slots + 1), 27).scatter_(1, slot, taps)
+    return src[:, :k_slots].contiguous(), tap[:, :k_slots].contiguous()
+
+
 def build_hierarchy(coords, batch_idx, valid,
-                    level_caps: Tuple[int, ...]) -> Hierarchy:
+                    level_caps: Tuple[int, ...],
+                    tap_slots: Tuple[int, ...] = ()) -> Hierarchy:
     """Build the voxel hierarchy and every kernel map for one batch.
 
     Args:
@@ -166,6 +193,9 @@ def build_hierarchy(coords, batch_idx, valid,
       batch_idx: [N] int32 scan index.
       valid: [N] bool mask for padding.
       level_caps: static per-level voxel capacities (level 0 may be < N).
+      tap_slots: K per level (one entry per level, or empty): each level
+        with K > 0 gets per-voxel K-slot maps (``tap_slot_maps``) as its
+        ``slot_idx``.
 
     Point<->voxel maps are built at ``POINT_LEVELS``.
     """
@@ -244,11 +274,17 @@ def build_hierarchy(coords, batch_idx, valid,
         childs = child2d[brick8.long()]                                # [V, 8, 8]
         nbr_by_level[l] = _select(childs.reshape(-1, 64), _NBR_SEL64, c_kidx)
 
+    if tap_slots and len(tap_slots) != num_levels:
+        raise ValueError(f"tap_slots {tap_slots} has not one entry per level "
+                         f"({num_levels})")
     out_levels = []
     for l in range(num_levels):
         p_idx, c_kidx = parent_links[l] if l < top_l else (None, None)
+        k_slots = tap_slots[l] if tap_slots else 0
         out_levels.append(levels[l]._replace(
-            nbr_idx=nbr_by_level[l], parent_idx=p_idx, child_kidx=c_kidx))
+            nbr_idx=nbr_by_level[l], parent_idx=p_idx, child_kidx=c_kidx,
+            slot_idx=(tap_slot_maps(nbr_by_level[l], level_caps[l], k_slots)
+                      if k_slots else None)))
 
     # ----- point->voxel containment + trilinear corner maps
     pt_corner_idx = [None] * num_levels

@@ -1,17 +1,26 @@
-"""Grouped binned submanifold conv, forward (K1) and backward (K2): CUDA
-kernels (``csrc/binned_conv.cu``) and their plain PyTorch versions.
+"""Binned submanifold conv, forward and backward: CUDA kernels
+(``csrc/binned_conv.cu``) and their plain PyTorch versions.
 
-    out[8*g + vo] = sum_t feats[src(g, t*8 + vo)] @ w[t]
+    out[v] = sum_t feats[nbr(v, t)] @ w[t]      (over the live taps the maps
+                                                 hold)
 
-Port of ``binned_conv_fwd`` / ``binned_conv_bwd(..., grouped=True)`` in
+Port of ``binned_conv_fwd`` / ``binned_conv_bwd`` in
 ``fusiontransformer_tpu/ops/pallas/binned_conv.py`` together with the row
-gathers their callers run first (``sparse_conv._subm3gp_impl`` /
-``_subm3gp_bwd`` of the JAX package).  Group-pooled maps: slot j of 8-voxel
-group g carries a source row
-``src_pack[g, j]`` (sentinel ``V``) and a bin id ``bin_pack[g, j] = t*8 + vo``
-(sentinel >= 216), at most one slot per bin.  ``w`` is ``[27, Cin, Cout]`` in
-the JAX tap order (x-slowest).  Operands are bf16 (the production path) or
-f32; products and sums are f32; the result is ``[V, Cout]`` float32.
+gathers their callers run first, for both kinds of slot map:
+
+* group-pooled maps, K1 / K2 (``grouped=True``; the JAX package's
+  ``sparse_conv._subm3gp_impl`` / ``_subm3gp_bwd``): slot j of 8-voxel group
+  g carries a source row ``src_pack[g, j]`` (sentinel ``V``) and a bin id
+  ``bin_pack[g, j] = t*8 + vo`` (sentinel >= 216), at most one slot per bin;
+* per-voxel K-slot maps, K1' / K2' (``grouped=False``; ``_subm3p_impl`` /
+  ``_subm3p_bwd``): ``src[v, k]`` (sentinel ``V``) and ``tap[v, k]``
+  (sentinel 27), each voxel's live taps distinct, as
+  ``ops.hierarchy.tap_slot_maps`` builds them.  The kernels read these maps
+  themselves as the grouped layout ``[V/8, 8K]``.
+
+``w`` is ``[27, Cin, Cout]`` in the JAX tap order (x-slowest).  Operands are
+bf16 (the production path) or f32; products and sums are f32; the results
+are float32.
 """
 
 from __future__ import annotations
@@ -25,7 +34,40 @@ from fusiontransformer_tpu_torch.ops.kernels.build import load
 
 NAME = "binned_conv_grouped_fwd"
 BWD_NAME = "binned_conv_grouped_bwd"
+SLOTS_NAME = "binned_conv_slots_fwd"
+SLOTS_BWD_NAME = "binned_conv_slots_bwd"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _fwd_from_tap_major(b, w):
+    """out = sum_t b[:, t] @ w[t] for a tap-major b [V, 27, Cin], f32."""
+    return b.reshape(b.shape[0], -1).float() @ w.float().reshape(
+        -1, w.shape[2])
+
+
+def _bwd_from_tap_major(bd, feats, w):
+    """(dX, dW) from the binned dout bd[u, t] = dout[nbr(u, t)] [V, 27,
+    Cout] (mirror symmetry): dX = sum_t bd[:, t] @ W[26-t]^T,
+    dW[26-t] = feats^T @ bd[:, t], f32 products and sums."""
+    v, cin = feats.shape
+    cout = w.shape[2]
+    bd = bd.float().reshape(v, 27 * cout)
+    dx = bd @ w.float().flip(0).transpose(1, 2).reshape(27 * cout, cin)
+    dw = (feats.float().t() @ bd).reshape(cin, 27, cout).transpose(0, 1)
+    return dx, dw.flip(0).contiguous()
+
+
+def _slot_tap_major(x, src, tap):
+    """[V, 27, C] tap-major neighbor tensor of ``x`` [V, C] from per-voxel
+    K-slot maps (the JAX package's ``_binned_tap_major``; exact: a voxel's
+    taps are distinct, empty taps zero)."""
+    v, c = x.shape
+    g = torch.cat([x, x.new_zeros((1, c))])[src.long()]      # [V, K, C]
+    row = torch.arange(v, device=x.device)[:, None]
+    flat = torch.where((tap >= 0) & (tap < 27), row * 27 + tap.long(), v * 27)
+    b = x.new_zeros((v * 27 + 1, c))
+    b[flat.reshape(-1)] = g.reshape(-1, c)
+    return b[:v * 27].reshape(v, 27, c)
 
 
 def _tap_major(x, src_pack, bin_pack):
@@ -48,9 +90,7 @@ def binned_conv_grouped_ref(feats, src_pack, bin_pack, w):
     """Plain version, the ``_grouped_tap_major`` formulation of the JAX
     package: bin the gathered slot rows into a tap-major [V, 27, Cin] tensor,
     then one weight contraction with f32 products and sums."""
-    v, cin = feats.shape
-    b = _tap_major(feats, src_pack, bin_pack)
-    return b.reshape(v, 27 * cin).float() @ w.float().reshape(27 * cin, -1)
+    return _fwd_from_tap_major(_tap_major(feats, src_pack, bin_pack), w)
 
 
 def binned_conv_grouped_bwd_ref(dout, feats, src_pack, bin_pack, w):
@@ -58,24 +98,38 @@ def binned_conv_grouped_bwd_ref(dout, feats, src_pack, bin_pack, w):
     the JAX package: bd[u, t] = dout[nbr(u, t)] from the same maps (mirror
     symmetry), dX = sum_t bd[:, t] @ W[26-t]^T, dW[26-t] = feats^T @ bd[:, t],
     f32 products and sums."""
-    v, cin = feats.shape
-    cout = w.shape[2]
-    bd = _tap_major(dout, src_pack, bin_pack).float()           # [V, 27, Cout]
-    wrev = w.float().flip(0)
-    dx = bd.reshape(v, 27 * cout) @ wrev.transpose(1, 2).reshape(27 * cout,
-                                                                 cin)
-    dw = (feats.float().t() @ bd.reshape(v, 27 * cout)).reshape(
-        cin, 27, cout).transpose(0, 1).flip(0)
-    return dx, dw.contiguous()
+    return _bwd_from_tap_major(_tap_major(dout, src_pack, bin_pack), feats, w)
 
 
-def _check(feats, src_pack, bin_pack, w):
+def binned_conv_slots_ref(feats, src, tap, w):
+    """Plain version of K1', the ``_binned_tap_major`` / ``_subm3s``
+    formulation of the JAX package: bin the K slot rows of each voxel into a
+    tap-major [V, 27, Cin] tensor, then one weight contraction with f32
+    products and sums."""
+    return _fwd_from_tap_major(_slot_tap_major(feats, src, tap), w)
+
+
+def binned_conv_slots_bwd_ref(dout, feats, src, tap, w):
+    """Plain version of K2', the ``_subm3s_bwd`` formulation of the JAX
+    package: bd[u, t] = dout[src[u, k]] where tap[u, k] = t, from u's own
+    maps, then as ``binned_conv_grouped_bwd_ref``.  Under tap overflow this
+    is JAX's backward (taps dropped by the source's slot budget), not the
+    exact gradient of the lossy forward."""
+    return _bwd_from_tap_major(_slot_tap_major(dout, src, tap), feats, w)
+
+
+def _check_operands(feats, w):
     if feats.dim() != 2 or w.dim() != 3 or w.shape[0] != 27:
         raise ValueError(f"expected feats [V, Cin], w [27, Cin, Cout]; got "
                          f"{tuple(feats.shape)}, {tuple(w.shape)}")
-    v, cin = feats.shape
-    if w.shape[1] != cin:
-        raise ValueError(f"w has Cin {w.shape[1]}, feats have {cin}")
+    if w.shape[1] != feats.shape[1]:
+        raise ValueError(f"w has Cin {w.shape[1]}, feats have "
+                         f"{feats.shape[1]}")
+
+
+def _check(feats, src_pack, bin_pack, w):
+    _check_operands(feats, w)
+    v = feats.shape[0]
     if v % 8 or src_pack.shape != (v // 8, src_pack.shape[1]) \
             or bin_pack.shape != src_pack.shape:
         raise ValueError(f"maps must be [V/8, S] with V % 8 == 0; got V {v}, "
@@ -85,50 +139,67 @@ def _check(feats, src_pack, bin_pack, w):
         raise ValueError("feats, maps and w must be on one device")
 
 
-def _check_cuda(feats, src_pack, bin_pack, w, *more):
+def _check_slots(feats, src, tap, w):
+    """Per-voxel maps: src and tap [V, K] int32 with 1 <= K <= 27, on the
+    operands' device."""
+    _check_operands(feats, w)
+    v = feats.shape[0]
+    if src.dim() != 2 or src.shape[0] != v or tap.shape != src.shape \
+            or not 1 <= src.shape[1] <= 27:
+        raise ValueError(f"maps must be [V, K] with 1 <= K <= 27; got V {v}, "
+                         f"src {tuple(src.shape)}, tap {tuple(tap.shape)}")
+    if src.dtype != torch.int32 or tap.dtype != torch.int32:
+        raise TypeError(f"maps must be int32, got {src.dtype}, {tap.dtype}")
+    if not (feats.device == src.device == tap.device == w.device):
+        raise ValueError("feats, maps and w must be on one device")
+
+
+def _check_cuda(feats, src, codes, w, *more):
     """What the CUDA kernels take: one operand dtype (bf16 or f32), int32
-    maps, everything contiguous, Cin and Cout at most 1024."""
+    maps, everything contiguous, V % 8 == 0, Cin and Cout at most 1024."""
     if feats.device.type != "cuda":
         raise ValueError(f"unsupported device {feats.device}")
     if feats.dtype not in _DTYPES or any(t.dtype != feats.dtype
                                          for t in (w, *more)):
         raise TypeError(f"operands must all be bf16 or all f32, got "
                         f"{[t.dtype for t in (feats, w, *more)]}")
-    if src_pack.dtype != torch.int32 or bin_pack.dtype != torch.int32:
+    if src.dtype != torch.int32 or codes.dtype != torch.int32:
         raise TypeError("maps must be int32")
-    if not all(t.is_contiguous()
-               for t in (feats, src_pack, bin_pack, w, *more)):
+    if not all(t.is_contiguous() for t in (feats, src, codes, w, *more)):
         raise ValueError("operands and maps must be contiguous")
+    if feats.shape[0] % 8:
+        raise ValueError(f"the kernels take V % 8 == 0, got V "
+                         f"{feats.shape[0]}")
     if feats.shape[1] > 1024 or w.shape[2] > 1024:
         raise ValueError(f"channels above 1024 are not supported "
                          f"(Cin {feats.shape[1]}, Cout {w.shape[2]})")
 
 
-def binned_conv_grouped_fwd(feats, src_pack, bin_pack, w):
-    """[V, Cout] float32 (see the module docstring).
+def _check_dout(dout, feats, w):
+    if dout.shape != (feats.shape[0], w.shape[2]) or \
+            dout.device != feats.device:
+        raise ValueError(f"dout must be [V, Cout] on {feats.device}, got "
+                         f"{tuple(dout.shape)} on {dout.device}")
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel,
-    which needs feats and w of one dtype (bf16 or f32), int32 maps, all
-    contiguous, Cin and Cout at most 1024.
-    """
-    _check(feats, src_pack, bin_pack, w)
-    if feats.device.type == "cpu":
-        return binned_conv_grouped_ref(feats, src_pack, bin_pack, w)
-    _check_cuda(feats, src_pack, bin_pack, w)
+
+def _launch_fwd(name, symbol, feats, src, codes, w):
+    """One forward kernel launch; the maps' second dimension (S or K) is the
+    C function's width argument."""
+    _check_cuda(feats, src, codes, w)
     v, cin = feats.shape
     cout = w.shape[2]
     out = torch.empty((v, cout), dtype=torch.float32, device=feats.device)
-    fn = load("binned_conv").ftx_binned_conv_grouped_fwd
+    fn = getattr(load("binned_conv"), symbol)
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(feats.device).cuda_stream
-    rc = fn(feats.data_ptr(), src_pack.data_ptr(), bin_pack.data_ptr(),
-            w.data_ptr(), out.data_ptr(), v, src_pack.shape[1], cin, cout,
+    rc = fn(feats.data_ptr(), src.data_ptr(), codes.data_ptr(),
+            w.data_ptr(), out.data_ptr(), v, src.shape[1], cin, cout,
             _DTYPES[feats.dtype], stream)
     if rc != 0:
-        raise RuntimeError(f"{NAME} launch failed: CUDA error {rc}")
-    LAUNCHES[NAME] += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
     return out
 
 
@@ -141,6 +212,48 @@ def bwd_chunks(v: int, cin: int, cout: int) -> int:
     return max(1, min(v // 8, -(-4 * 132 // tiles)))
 
 
+def _launch_bwd(name, symbol, dout, feats, src, codes, w):
+    """One backward launch (dX, dW), as ``_launch_fwd``."""
+    _check_cuda(feats, src, codes, w, dout)
+    v, cin = feats.shape
+    cout = w.shape[2]
+    nchunks = bwd_chunks(v, cin, cout)
+    dev = feats.device
+    dx = torch.empty((v, cin), dtype=torch.float32, device=dev)
+    dw = torch.empty((27, cin, cout), dtype=torch.float32, device=dev)
+    wt = torch.empty_like(w)
+    partial = torch.empty((nchunks, 27, cin, cout), dtype=torch.float32,
+                          device=dev)
+    fn = getattr(load("binned_conv"), symbol)
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(dout.data_ptr(), feats.data_ptr(), src.data_ptr(),
+            codes.data_ptr(), w.data_ptr(), wt.data_ptr(),
+            partial.data_ptr(), dx.data_ptr(), dw.data_ptr(), v,
+            src.shape[1], cin, cout, nchunks, _DTYPES[feats.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+    return dx, dw
+
+
+def binned_conv_grouped_fwd(feats, src_pack, bin_pack, w):
+    """[V, Cout] float32 from group-pooled maps (K1; see the module
+    docstring).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    which needs feats and w of one dtype (bf16 or f32), int32 maps, all
+    contiguous, Cin and Cout at most 1024.
+    """
+    _check(feats, src_pack, bin_pack, w)
+    if feats.device.type == "cpu":
+        return binned_conv_grouped_ref(feats, src_pack, bin_pack, w)
+    return _launch_fwd(NAME, "ftx_binned_conv_grouped_fwd", feats, src_pack,
+                       bin_pack, w)
+
+
 def binned_conv_grouped_bwd(dout, feats, src_pack, bin_pack, w):
     """Backward of ``binned_conv_grouped_fwd``: ``(dX [V, Cin], dW [27, Cin,
     Cout])``, float32 (K2; see ``binned_conv_grouped_bwd_ref`` for the math).
@@ -151,33 +264,36 @@ def binned_conv_grouped_bwd(dout, feats, src_pack, bin_pack, w):
     no atomics, so it is bitwise repeatable.
     """
     _check(feats, src_pack, bin_pack, w)
-    if dout.shape != (feats.shape[0], w.shape[2]) or \
-            dout.device != feats.device:
-        raise ValueError(f"dout must be [V, Cout] on {feats.device}, got "
-                         f"{tuple(dout.shape)} on {dout.device}")
+    _check_dout(dout, feats, w)
     if feats.device.type == "cpu":
         return binned_conv_grouped_bwd_ref(dout, feats, src_pack, bin_pack, w)
-    _check_cuda(feats, src_pack, bin_pack, w, dout)
-    v, cin = feats.shape
-    cout = w.shape[2]
-    nchunks = bwd_chunks(v, cin, cout)
-    dev = feats.device
-    dx = torch.empty((v, cin), dtype=torch.float32, device=dev)
-    dw = torch.empty((27, cin, cout), dtype=torch.float32, device=dev)
-    wt = torch.empty_like(w)
-    partial = torch.empty((nchunks, 27, cin, cout), dtype=torch.float32,
-                          device=dev)
-    fn = load("binned_conv").ftx_binned_conv_grouped_bwd
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(dout.data_ptr(), feats.data_ptr(), src_pack.data_ptr(),
-            bin_pack.data_ptr(), w.data_ptr(), wt.data_ptr(),
-            partial.data_ptr(), dx.data_ptr(), dw.data_ptr(), v,
-            src_pack.shape[1], cin, cout, nchunks, _DTYPES[feats.dtype],
-            stream)
-    if rc != 0:
-        raise RuntimeError(f"{BWD_NAME} launch failed: CUDA error {rc}")
-    LAUNCHES[BWD_NAME] += 1
-    return dx, dw
+    return _launch_bwd(BWD_NAME, "ftx_binned_conv_grouped_bwd", dout, feats,
+                       src_pack, bin_pack, w)
+
+
+def binned_conv_slots_fwd(feats, src, tap, w):
+    """[V, Cout] float32 from per-voxel K-slot maps src, tap [V, K] int32
+    (K1'; see ``binned_conv_slots_ref`` for the math).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    which reads the maps as [V/8, 8K] and so needs V % 8 == 0, feats and w
+    of one dtype (bf16 or f32), all contiguous, Cin and Cout at most 1024.
+    """
+    _check_slots(feats, src, tap, w)
+    if feats.device.type == "cpu":
+        return binned_conv_slots_ref(feats, src, tap, w)
+    return _launch_fwd(SLOTS_NAME, "ftx_binned_conv_slots_fwd", feats, src,
+                       tap, w)
+
+
+def binned_conv_slots_bwd(dout, feats, src, tap, w):
+    """Backward of ``binned_conv_slots_fwd`` as the JAX package computes it:
+    ``(dX [V, Cin], dW [27, Cin, Cout])``, float32 (K2'; see
+    ``binned_conv_slots_bwd_ref``).  Takes what ``binned_conv_slots_fwd``
+    takes, dout in the operands' dtype; dW is bitwise repeatable."""
+    _check_slots(feats, src, tap, w)
+    _check_dout(dout, feats, w)
+    if feats.device.type == "cpu":
+        return binned_conv_slots_bwd_ref(dout, feats, src, tap, w)
+    return _launch_bwd(SLOTS_BWD_NAME, "ftx_binned_conv_slots_bwd", dout,
+                       feats, src, tap, w)

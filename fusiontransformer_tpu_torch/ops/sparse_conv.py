@@ -3,10 +3,12 @@
 Port of ``fusiontransformer_tpu/ops/sparse_conv.py``.  Every op reads
 through a zero pad row at index ``V``, so sentinel indices contribute zeros.
 
-* ``subm_conv3`` — ks=3 stride=1.  At a level that carries group-pooled slot
-  maps it runs the hand-written kernels ``binned_conv_grouped_fwd`` (K1) and,
-  for its gradient, ``binned_conv_grouped_bwd`` (K2); otherwise the dense
-  27-tap gather + one GEMM.
+* ``subm_conv3`` — ks=3 stride=1.  At a level that carries slot maps it
+  runs hand-written kernels: ``binned_conv_slots_fwd`` (K1') and, for its
+  gradient, ``binned_conv_slots_bwd`` (K2') on the device-built per-voxel
+  K-slot maps; ``binned_conv_grouped_fwd`` (K1) and
+  ``binned_conv_grouped_bwd`` (K2) on host-built group-pooled maps.  A level
+  without maps runs the dense 27-tap gather + one GEMM.
 * ``down_conv2`` / ``up_conv2`` / ``conv1x1`` — gather + GEMM.
 * ``voxelize_mean`` — the sums and counts come from the hand-written kernel
   ``sorted_segment_weighted_sum`` (K3) over the level's ``DevoxPlan``.
@@ -19,13 +21,20 @@ ks3 map, the adjoint ks2 map, or the sorted point stream), never autograd's
 ``index_put_(accumulate=True)`` scatter, whose float atomics are neither
 deterministic nor fast.
 
-Routing differs from the JAX package on purpose.  There a grouped-map conv
-takes the Pallas kernel only for ``16 <= Cin`` and ``max(Cin, Cout) <= 128``
-(``_PALLAS_MIN_CIN`` / ``_PALLAS_MAX_CH``, TPU VMEM limits) and the dense path
-otherwise.  Here every ks=3 conv at a level with grouped maps (L0-L3 of the
-flagship) runs K1 and K2, whatever its widths, and L4, which has no maps,
-runs the dense path.  Both paths compute the same function (the maps are
-lossless); only the arithmetic that runs differs.
+Routing differs from the JAX package's TPU routing on purpose.  There a
+slot-map conv takes the Pallas kernel only for ``16 <= Cin`` and
+``max(Cin, Cout) <= 128`` (``_PALLAS_MIN_CIN`` / ``_PALLAS_MAX_CH``, TPU VMEM
+limits), per-voxel maps also only for ``8K % 128 == 0`` (TPU lanes), and the
+dense path otherwise; ``TPU.CONV_PALLAS`` switches the per-voxel maps
+between the Pallas kernel and the XLA formulation.  Here every ks=3 conv at
+a level with maps (L0-L3 of the flagship) runs its kernel pair, whatever its
+widths and K, and L4, which has no maps, runs the dense path;
+``TPU.CONV_PALLAS`` has no meaning.  With lossless maps every route
+computes the same function; only the arithmetic differs.  With per-voxel
+maps that drop live taps (``tap_overflow`` > 0) the route decides the
+function: the port computes what the JAX package computes on the CPU
+(``_subm3s``, K taps per voxel, and its mirrored backward), where the TPU
+route would run dense, lossless, convs at the wide levels.
 
 Precision: ``compute_dtype`` float32 means true f32 (TF32 stays off).  With
 bfloat16 the operands are rounded to bf16 and every product is accumulated
@@ -42,7 +51,8 @@ from typing import NamedTuple
 import torch
 
 from fusiontransformer_tpu_torch.ops.kernels.binned_conv import (
-    binned_conv_grouped_bwd, binned_conv_grouped_fwd)
+    binned_conv_grouped_bwd, binned_conv_grouped_fwd, binned_conv_slots_bwd,
+    binned_conv_slots_fwd)
 from fusiontransformer_tpu_torch.ops.kernels.segment_sum import (
     sorted_segment_weighted_sum)
 
@@ -141,23 +151,47 @@ class _Subm3Dense(torch.autograd.Function):
         return dx.to(feats.dtype), dw.to(w.dtype), None, None
 
 
+def _binned_fwd(ctx, kernel, feats, w, src, codes, cdt):
+    """A slot-map ks3 forward kernel on ``cdt`` operands, kept for the
+    backward."""
+    fc = feats.to(cdt).contiguous()
+    wc = w.to(cdt).contiguous()
+    ctx.save_for_backward(fc, wc, src, codes)
+    ctx.dtypes = (feats.dtype, w.dtype)
+    return kernel(fc, src, codes, wc)
+
+
+def _binned_bwd(ctx, kernel, dout):
+    fc, wc, src, codes = ctx.saved_tensors
+    dx, dw = kernel(dout.to(fc.dtype).contiguous(), fc, src, codes, wc)
+    return dx.to(ctx.dtypes[0]), dw.to(ctx.dtypes[1]), None, None, None
+
+
 class _Subm3Grouped(torch.autograd.Function):
-    """Grouped-map ks3: K1 forward, K2 backward (``_subm3gp``)."""
+    """Group-pooled-map ks3: K1 forward, K2 backward (``_subm3gp``)."""
 
     @staticmethod
     def forward(ctx, feats, w, src, binp, cdt):
-        fc = feats.to(cdt).contiguous()
-        wc = w.to(cdt).contiguous()
-        ctx.save_for_backward(fc, wc, src, binp)
-        ctx.dtypes = (feats.dtype, w.dtype)
-        return binned_conv_grouped_fwd(fc, src, binp, wc)
+        return _binned_fwd(ctx, binned_conv_grouped_fwd, feats, w, src, binp,
+                           cdt)
 
     @staticmethod
     def backward(ctx, dout):
-        fc, wc, src, binp = ctx.saved_tensors
-        dx, dw = binned_conv_grouped_bwd(dout.to(fc.dtype).contiguous(), fc,
-                                         src, binp, wc)
-        return dx.to(ctx.dtypes[0]), dw.to(ctx.dtypes[1]), None, None, None
+        return _binned_bwd(ctx, binned_conv_grouped_bwd, dout)
+
+
+class _Subm3Slots(torch.autograd.Function):
+    """Per-voxel K-slot-map ks3: K1' forward, K2' backward (``_subm3p``;
+    under tap overflow the backward is JAX's, see
+    ``binned_conv_slots_bwd_ref``)."""
+
+    @staticmethod
+    def forward(ctx, feats, w, src, tap, cdt):
+        return _binned_fwd(ctx, binned_conv_slots_fwd, feats, w, src, tap, cdt)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return _binned_bwd(ctx, binned_conv_slots_bwd, dout)
 
 
 def subm_conv3(feats, w, nbr_idx, compute_dtype=torch.bfloat16,
@@ -168,19 +202,17 @@ def subm_conv3(feats, w, nbr_idx, compute_dtype=torch.bfloat16,
       feats: [V, Cin].
       w: [27, Cin, Cout] kernel (x-slowest tap order).
       nbr_idx: [V, 27] int32 ks3 map (sentinel V).
-      slot_idx: optional group-pooled maps (src_pack [V/8, S],
-        bin_pack [V/8, S]); when given, the conv runs K1 and its gradient K2.
+      slot_idx: optional slot maps, routed on their shape: per-voxel
+        (src [V, K], tap [V, K]) run K1' and, for the gradient, K2';
+        group-pooled (src_pack [V/8, S], bin_pack [V/8, S]) run K1 and K2.
     Returns:
       [V, Cout] float32.
     """
     if slot_idx is None:
         return _Subm3Dense.apply(feats, w, nbr_idx, compute_dtype)
-    src, binp = slot_idx
-    if src.shape[0] == feats.shape[0]:
-        raise NotImplementedError(
-            "per-voxel K-slot maps are not ported; use group-pooled maps "
-            "(TPU.CONV_SLOT_POOL) or none")
-    return _Subm3Grouped.apply(feats, w, src, binp, compute_dtype)
+    src, codes = slot_idx
+    fn = _Subm3Slots if src.shape[0] == feats.shape[0] else _Subm3Grouped
+    return fn.apply(feats, w, src, codes, compute_dtype)
 
 
 class _Down2(torch.autograd.Function):

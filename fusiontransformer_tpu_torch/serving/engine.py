@@ -8,10 +8,13 @@ Port of ``fusiontransformer_tpu/serving/engine.py`` for one device:
 * ``dispatch_samples`` — ``collate_padded`` into the smallest capacity
   bucket, with host-built group-pooled slot maps when ``TPU.CONV_SLOT_POOL``
   is on, then the predict step on the device;
-* the predict step (``make_predict_step``) — hierarchy + slot maps -> model
-  -> per-point argmax of each stream and of the sum of the 2D and 3D
-  softmaxes, packed with the ``voxel_overflow`` health count into one int32
-  array, so each batch needs one device->host copy;
+* the predict step (``make_predict_step``) — hierarchy + slot maps (the
+  batch's group-pooled maps, or per-voxel K-slot maps built on the device
+  when ``TPU.CONV_SLOT_POOL`` is off) -> model -> per-point argmax of each
+  stream and of the sum of the 2D and 3D softmaxes, packed with the
+  ``voxel_overflow`` health count (dropped voxels plus, with per-voxel maps,
+  dropped live taps) into one int32 array, so each batch needs one
+  device->host copy;
 * ``complete`` — de-voxelise the predictions back to every raw point
   (out-of-frustum and capacity-dropped points get class 0, the ignore id).
 
@@ -36,7 +39,8 @@ from fusiontransformer_tpu_torch.data.utils.augmentation_3d import (
 from fusiontransformer_tpu_torch.data.utils.validate import map_sparse_to_org
 from fusiontransformer_tpu_torch.models.build import build_model
 from fusiontransformer_tpu_torch.modules.steps import (device_batch,
-                                                       hier_from_cfg)
+                                                       hier_from_cfg,
+                                                       overflow_metrics)
 from fusiontransformer_tpu_torch.utils.device import resolve_device
 
 PRED_KEYS = ("pred", "pred_2d", "pred_3d", "voxel_overflow")
@@ -52,8 +56,9 @@ def make_predict_step(cfg, model):
             out = model(batch, hier)
             lidar, img = out["lidar_seg_logit"], out["img_seg_logit"]
             probs = torch.softmax(img, -1) + torch.softmax(lidar, -1)
-            overflow = sum((l.nvalid_raw - l.valid.shape[0]).clamp(min=0)
-                           for l in hier.levels)
+            # Live taps the per-voxel slot maps dropped count as overflow
+            # too (the JAX engine's rule).
+            overflow = sum(overflow_metrics(cfg, batch, hier).values())
             pred = torch.argmax(probs, -1)
             cols = [pred, torch.argmax(img, -1), torch.argmax(lidar, -1),
                     overflow.expand(pred.shape)]
@@ -93,7 +98,8 @@ class InferenceEngine:
         self._step, self._pred_keys = make_predict_step(cfg, self.model)
 
         # Host-built group-pooled slot maps at the levels CONV_TAP_SLOTS
-        # names, at the static capacities of the bucket.
+        # names, at the static capacities of the bucket (None with
+        # CONV_SLOT_POOL off: the step builds per-voxel maps).
         self._slot_pool = slot_pool_spec(cfg, adaptive=False)
         self._device_lock = threading.Lock()
         self._stats_lock = threading.Lock()

@@ -148,6 +148,56 @@ def test_binned_conv_bwd_kernel_matches_plain(cuda, dtype, cin, cout):
     assert torch.equal(dw, dw2)
 
 
+def _per_voxel_maps(cuda, k, level=1):
+    """Per-voxel K-slot maps built on the card by the hierarchy."""
+    from fusiontransformer_tpu_torch.data.collate import collate_padded
+    from fusiontransformer_tpu_torch.data.synthetic import SyntheticSCN
+    from fusiontransformer_tpu_torch.ops.hierarchy import build_hierarchy
+    ds = SyntheticSCN(num_scans=2, num_points=3000, image_height=37,
+                      image_width=61)
+    b = collate_padded([ds[0], ds[1]], 2, 3072, 37, 61)
+    args = [torch.as_tensor(b[key], device=cuda)
+            for key in ("coords", "pt_batch", "pt_valid")]
+    caps = (6144, 6144, 4096, 3072, 2048)
+    hier = build_hierarchy(*args, caps, tap_slots=(k,) * 4 + (0,))
+    return hier.levels[level].slot_idx
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k,cin,cout", [(16, 4, 32), (16, 128, 96),
+                                        (5, 32, 64), (16, 384, 256)])
+def test_binned_conv_slots_kernels_match_plain(cuda, dtype, k, cin, cout):
+    """K1' and K2' (dX, dW) against their plain versions on the card, on
+    per-voxel maps the hierarchy built there (K=5 drops live taps), 2e-5 of
+    the sum of |terms|; dW bitwise repeatable across two launches."""
+    from fusiontransformer_tpu_torch.ops.kernels.binned_conv import (
+        SLOTS_BWD_NAME, SLOTS_NAME, binned_conv_slots_bwd,
+        binned_conv_slots_bwd_ref, binned_conv_slots_fwd,
+        binned_conv_slots_ref)
+    src, tap = _per_voxel_maps(cuda, k)
+    v = src.shape[0]
+    gen = torch.Generator().manual_seed(cin + cout + k)
+    x = torch.randn(v, cin, generator=gen).to(cuda, dtype)
+    w = torch.randn(27, cin, cout, generator=gen).to(cuda, dtype)
+    dout = torch.randn(v, cout, generator=gen).to(cuda, dtype)
+    before = (LAUNCHES[SLOTS_NAME], LAUNCHES[SLOTS_BWD_NAME])
+    out = binned_conv_slots_fwd(x, src, tap, w)
+    dx, dw = binned_conv_slots_bwd(dout, x, src, tap, w)
+    assert (LAUNCHES[SLOTS_NAME], LAUNCHES[SLOTS_BWD_NAME]) == (
+        before[0] + 1, before[1] + 1)
+    ref = binned_conv_slots_ref(x, src, tap, w)
+    rdx, rdw = binned_conv_slots_bwd_ref(dout, x, src, tap, w)
+    scale = binned_conv_slots_ref(x.abs(), src, tap, w.abs()).max()
+    sdx, sdw = binned_conv_slots_bwd_ref(dout.abs(), x.abs(), src, tap,
+                                         w.abs())
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 2e-5 * scale.item()
+    assert (dx - rdx).abs().max().item() <= 2e-5 * sdx.max().item()
+    assert (dw - rdw).abs().max().item() <= 2e-5 * sdw.max().item()
+    _, dw2 = binned_conv_slots_bwd(dout, x, src, tap, w)
+    assert torch.equal(dw, dw2)
+
+
 def test_devoxelize_adjoint_runs_k3_e8_on_the_card(cuda):
     """The devoxelize gradient with a plan (K3 at E=8) on the card against
     the same op on the CPU (plain version)."""
@@ -187,16 +237,36 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, monkeypatch):
     the confusion matrices, and every gradient, with the leaf and median
     bounds of ``test_torch_port_train`` (the same conditioning applies)."""
     from fusiontransformer_tpu_torch.config.defaults import get_default_cfg
+    from test_torch_port_common import train_cfg
+    _train_step_card_vs_cpu(monkeypatch, train_cfg(get_default_cfg))
+
+
+def test_per_voxel_train_step_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """As above with ``TPU.CONV_SLOT_POOL`` off: per-voxel K-slot maps built
+    on each device, K1' / K2' on the card."""
+    from fusiontransformer_tpu_torch.config.defaults import get_default_cfg
+    from fusiontransformer_tpu_torch.ops.kernels.binned_conv import (
+        SLOTS_BWD_NAME)
+    from test_torch_port_common import train_cfg
+    cfg = train_cfg(get_default_cfg)
+    cfg.defrost()
+    cfg.TPU.CONV_SLOT_POOL = False
+    cfg.freeze()
+    before = LAUNCHES[SLOTS_BWD_NAME]
+    metrics = _train_step_card_vs_cpu(monkeypatch, cfg)
+    assert LAUNCHES[SLOTS_BWD_NAME] > before
+    assert int(metrics["tap_overflow"]) == 0
+
+
+def _train_step_card_vs_cpu(monkeypatch, cfg):
     from fusiontransformer_tpu_torch.data.build import build_dataloader
     from fusiontransformer_tpu_torch.models import spvcnn
     from fusiontransformer_tpu_torch.models.build import build_model
     from fusiontransformer_tpu_torch.modules import steps
     from fusiontransformer_tpu_torch.solver.build import build_optimizer
-    from test_torch_port_common import (LEAF_ATOL, LEAF_RTOL, MEDIAN_RTOL,
-                                        train_cfg)
+    from test_torch_port_common import LEAF_ATOL, LEAF_RTOL, MEDIAN_RTOL
 
     monkeypatch.setattr(spvcnn, "DROPOUT", 0.0)
-    cfg = train_cfg(get_default_cfg)
     batch = next(iter(build_dataloader(cfg, "train")))
     caps = steps.batch_level_caps(cfg, batch)
     res = {}
@@ -222,6 +292,7 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, monkeypatch):
         if scale > 0:
             shares.append(err / scale)
     assert np.median(shares) <= MEDIAN_RTOL
+    return mg
 
 
 @pytest.mark.parametrize("shape_a,shape_b", [((3, 70, 96), (96, 40)),

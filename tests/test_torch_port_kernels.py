@@ -24,7 +24,8 @@ from fusiontransformer_tpu.ops.pallas.segment_sum import (
     sorted_segment_weighted_sum as j_segsum)
 from fusiontransformer_tpu_torch.ops.kernels import LAUNCHES
 from fusiontransformer_tpu_torch.ops.kernels.binned_conv import (
-    binned_conv_grouped_fwd, binned_conv_grouped_ref)
+    binned_conv_grouped_fwd, binned_conv_grouped_ref, binned_conv_slots_bwd,
+    binned_conv_slots_bwd_ref, binned_conv_slots_fwd, binned_conv_slots_ref)
 from fusiontransformer_tpu_torch.ops.kernels.segment_sum import (
     sorted_segment_weighted_sum, sorted_segment_weighted_sum_ref)
 
@@ -100,6 +101,17 @@ def test_wrappers_take_the_plain_path_on_cpu():
     before = dict(LAUNCHES)
     out = binned_conv_grouped_fwd(feats, src_t, bin_t, w)
     assert torch.equal(out, binned_conv_grouped_ref(feats, src_t, bin_t, w))
+    # Per-voxel K-slot maps (K1', K2'): 3 slots per voxel, sentinels mixed in.
+    slot_src = torch.as_tensor(rs.randint(0, v + 1, (v, 3)), dtype=torch.int32)
+    slot_tap = torch.as_tensor(np.stack([rs.permutation(28)[:3]
+                                         for _ in range(v)]), dtype=torch.int32)
+    dout = torch.as_tensor(rs.randn(v, 8).astype(np.float32))
+    assert torch.equal(binned_conv_slots_fwd(feats, slot_src, slot_tap, w),
+                       binned_conv_slots_ref(feats, slot_src, slot_tap, w))
+    for a, b in zip(binned_conv_slots_bwd(dout, feats, slot_src, slot_tap, w),
+                    binned_conv_slots_bwd_ref(dout, feats, slot_src, slot_tap,
+                                              w)):
+        assert torch.equal(a, b)
     g, wt, ids, nv = _segment_inputs(2, 5, seed=1)
     args = (torch.as_tensor(g), torch.as_tensor(wt), torch.as_tensor(ids), nv)
     assert torch.equal(sorted_segment_weighted_sum(*args),
@@ -123,6 +135,24 @@ def test_wrappers_reject_other_devices_and_bad_shapes():
                                 torch.zeros(1, 8, dtype=torch.int32),
                                 torch.zeros(1, 8, dtype=torch.int32),
                                 torch.zeros(27, 4, 8))
+    i32 = dict(dtype=torch.int32)
+    for fn, pre in ((binned_conv_slots_fwd, ()),
+                    (binned_conv_slots_bwd, (torch.zeros(16, 8),))):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(*(t.to("meta") for t in pre), torch.empty(16, 4, **meta),
+               torch.empty(16, 2, **i32, **meta),
+               torch.empty(16, 2, **i32, **meta),
+               torch.empty(27, 4, 8, **meta))
+        for k in (0, 28):                                    # a bad K
+            with pytest.raises(ValueError, match="1 <= K <= 27"):
+                fn(*pre, torch.zeros(16, 4), torch.zeros(16, k, **i32),
+                   torch.zeros(16, k, **i32), torch.zeros(27, 4, 8))
+        with pytest.raises(TypeError, match="int32"):       # int64 maps
+            fn(*pre, torch.zeros(16, 4), torch.zeros(16, 2, dtype=torch.long),
+               torch.zeros(16, 2, **i32), torch.zeros(27, 4, 8))
+        with pytest.raises(ValueError, match="one device"):  # mixed devices
+            fn(*pre, torch.zeros(16, 4), torch.zeros(16, 2, **i32),
+               torch.zeros(16, 2, **i32, **meta), torch.zeros(27, 4, 8))
     with pytest.raises(ValueError, match="row counts"):
         sorted_segment_weighted_sum(torch.zeros(4, 3), torch.zeros(5, 1),
                                     torch.zeros(4, dtype=torch.int32), 2)
