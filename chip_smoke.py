@@ -58,13 +58,29 @@ maps; the hierarchy builds per-voxel K-slot maps on the card):
 11. one f32 train step on the per-voxel path as in phase 7 (with a K2'
     whose dW misses 1/16 of the groups), then ``SemanticTrainer`` as in
     phase 8; its train step side by side with the group-pooled one;
-12. a ``{"kernels": [...]}`` line: launches, errors and times of each kernel.
+
+then the tool kernels, the port's counterparts of the JAX tools' Pallas
+kernels:
+
+12. the port's three microbenches as a user runs them
+    (``fusiontransformer_tpu_torch.tools.microbench_dma_gather``,
+    ``microbench_gather``, ``microbench_attention``, default arguments),
+    with the launch counts read around them; then T1 ``gather_blocks8``,
+    T2 ``gather_rows_sum_pipelined`` and T3 ``gather_rows_sum_smem`` on the
+    flagship's own L0 and L2 per-voxel maps (T1 bit for bit, T2/T3 within
+    SUM_ORDER_RTOL of the sum of |rows| and bitwise repeatable; per 16384
+    indices and for the whole level in one launch), and T4
+    ``flash_attention`` at DeiT-B/384 shapes, B = 1, 2, 8, 12 chained calls,
+    plus a tail-heavy and a negative-score input, each within ATTN_TOL of
+    its plain version;
+13. a ``{"kernels": [...]}`` line: launches, errors and times of each kernel.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
-Times are CUDA-event medians; ``bound_ms`` is the larger of bytes over
-3.35 TB/s and flops over the peak rate of the operand type (989 TFLOP/s
-bf16, 67 TFLOP/s f32) of an H100 SXM.
+Times are CUDA-event medians (phase 12's kernel and library times over
+CUDA-graph replays: those calls are shorter than a launch from Python);
+``bound_ms`` is the larger of bytes over 3.35 TB/s and flops over the peak
+rate of the operand type (989 TFLOP/s bf16, 67 TFLOP/s f32) of an H100 SXM.
 """
 
 from __future__ import annotations
@@ -87,6 +103,16 @@ K1_REPLACES = "fusiontransformer_tpu/ops/pallas/binned_conv.py:123"
 K3_SOURCE = "fusiontransformer_tpu_torch/csrc/segment_sum.cu"
 K3_REPLACES = "fusiontransformer_tpu/ops/pallas/segment_sum.py:129"
 K2_REPLACES = "fusiontransformer_tpu/ops/pallas/binned_conv.py:198"
+# The tool kernels (phase 12): the port's counterparts of the Pallas
+# row-gather probes and of the TPU flash attention the JAX tools call.
+GATHER_SOURCE = "fusiontransformer_tpu_torch/csrc/row_gather.cu"
+FLASH_SOURCE = "fusiontransformer_tpu_torch/csrc/flash_attention.cu"
+TOOL_KERNELS = {
+    "gather_blocks8": "tools/microbench_dma_gather.py:89",
+    "gather_rows_sum_pipelined": "tools/microbench_dma_gather.py:155",
+    "gather_rows_sum_smem": "tools/microbench_dma_gather.py:190",
+    "flash_attention": "tools/microbench_attention.py:42"}
+ATTN_BATCHES = (1, 2, 8)
 # The training path: the flagship's model and training settings
 # (middlefusion.yaml) on SyntheticSCN scans, 3 steps of batch 10 and one
 # validation over the same number of scans; then a steady window of
@@ -140,20 +166,8 @@ def card_line():
 
 def cuda_ms(fn, iters=20, reps=5):
     """Median over ``reps`` CUDA-event windows of ``iters`` calls, in ms."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    return statistics.median(times)
+    from fusiontransformer_tpu_torch.utils.profiler import time_cuda
+    return time_cuda(fn, iters=reps, calls=iters)[0]
 
 
 def bound(nbytes, flops, dtype):
@@ -1250,6 +1264,249 @@ def per_voxel_f32(cfg32, state, sample, grouped_f32):
 
 
 # --------------------------------------------------------------------------- #
+# Phase 12: the tool kernels T1-T4 behind the port's microbenches.
+
+def tool_paths():
+    """The slice's main path: the port's three microbenches as a user runs
+    them (``python -m fusiontransformer_tpu_torch.tools.<name>``, defaults:
+    the card, the flagship's L0/L2 slot maps, B = 1, 2, 8 at DeiT-B/384),
+    with every launch count set to 0 just before and read just after."""
+    from fusiontransformer_tpu_torch.ops.kernels import (LAUNCHES,
+                                                         reset_launches)
+    from fusiontransformer_tpu_torch.tools import (microbench_attention,
+                                                   microbench_dma_gather,
+                                                   microbench_gather)
+    reset_launches()
+    t0 = time.time()
+    res = {"microbench_dma_gather": microbench_dma_gather.main([]),
+           "microbench_gather": microbench_gather.main([]),
+           "microbench_attention": microbench_attention.main([])}
+    res["launches"] = dict(LAUNCHES)
+    res["seconds"] = time.time() - t0
+    log(f"  microbenches in {res['seconds']:.1f} s; launches "
+        f"{res['launches']}")
+    for name in TOOL_KERNELS:
+        if not res["launches"].get(name, 0) > 0:
+            raise AssertionError(f"{name} was not launched by the "
+                                 f"microbenches: {res['launches']}")
+    return res
+
+
+def graph_ms(fn, calls=20):
+    """ms per call: CUDA-event median over CUDA-graph replays of ``calls``
+    calls, so that the host's launch overhead drops out of kernels shorter
+    than it (the gathers at one chunk run in microseconds)."""
+    from fusiontransformer_tpu_torch.utils.profiler import time_cuda
+    return time_cuda(fn, iters=5, calls=calls, graph=True)[0]
+
+
+def _gather_bounds(feats, ix):
+    """Bytes each function must move for these indices (the rows they
+    touch, read once; the indices; the output): T1's, then T2/T3's."""
+    import torch
+    r, c = feats.shape
+    n = ix.shape[0]
+    groups = torch.unique(ix[:n // 8].long() // 8)
+    rows_t1 = int((r - 8 * groups).clamp(max=8).sum())
+    rows_sum = int(torch.unique(ix).numel())
+    return (2 * c * rows_t1 + 4 * (n // 8) + 2 * c * n,
+            2 * c * rows_sum + 4 * n + 4 * c)
+
+
+def phase_gather_kernels():
+    """T1-T3 on the flagship's own L0 (C = 32) and L2 (C = 128) per-voxel
+    maps, as the microbench builds them: T1 bit for bit against its plain
+    version, T2/T3 within SUM_ORDER_RTOL of the sum of |rows| and equal bit
+    for bit across two launches, per CHUNK indices and for the whole level
+    in one launch; times of the kernel and ``library`` in CUDA graphs, of
+    the plain version eagerly (it checks its indices on the host)."""
+    import torch
+    import torch.nn.functional as F
+    from fusiontransformer_tpu_torch.ops.kernels import row_gather as rg
+    from fusiontransformer_tpu_torch.tools import microbench_dma_gather as mdg
+    kernels = {rg.BLOCKS8: (rg.gather_blocks8, rg.gather_blocks8_ref),
+               rg.PIPELINED: (rg.gather_rows_sum_pipelined,
+                              rg.gather_rows_sum_ref),
+               rg.SMEM: (rg.gather_rows_sum_smem, rg.gather_rows_sum_ref)}
+    idx = mdg.level_indices("cuda")
+    rows = []
+    main = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                "library_ms": 0.0, "max_abs_err": 0.0, "bound_t": {}}
+            for k in kernels}
+    for level, c in mdg.LEVELS:
+        feats = mdg.level_table(level, c, "cuda")
+        r = feats.shape[0]
+        whole = idx[level][:idx[level].shape[0] // 8 * 8]
+        blocks = torch.cat([feats, feats.new_zeros(((-r) % 8, c))]).view(
+            -1, 8, c)
+        for label, ix in (("chunk", whole[:mdg.CHUNK]), ("whole", whole)):
+            n = ix.shape[0]
+            groups = ix[:n // 8].long() // 8
+            ix_bag = ix.long().view(1, -1)
+            bytes_t1, bytes_sum = _gather_bounds(feats, ix)
+            ref_sum = rg.gather_rows_sum_ref(feats, ix)
+            scale = rg.gather_rows_sum_ref(feats.abs(), ix).max().item()
+            for name, (fn, ref_fn) in kernels.items():
+                out = fn(feats, ix)
+                if name == rg.BLOCKS8:
+                    err = (out.float() - ref_fn(feats, ix).float()).abs().max(
+                    ).item()
+                    if err != 0.0:
+                        raise AssertionError(f"T1 {name} L{level} {label}: "
+                                             f"not a copy (max abs {err})")
+                    lib = lambda: blocks.index_select(0, groups)  # noqa: E731
+                    b_ms, b_by = bound(bytes_t1, 0, "bfloat16")
+                else:
+                    again = fn(feats, ix)
+                    if not torch.equal(out, again):
+                        raise AssertionError(f"{name} L{level} {label}: two "
+                                             "launches differ")
+                    err = (out - ref_sum).abs().max().item()
+                    if not err <= SUM_ORDER_RTOL * scale:
+                        raise AssertionError(
+                            f"{name} L{level} {label}: max abs err {err} > "
+                            f"{SUM_ORDER_RTOL} x {scale}")
+                    lib = lambda: F.embedding_bag(  # noqa: E731
+                        ix_bag, feats, mode="sum")
+                    b_ms, b_by = bound(bytes_sum, n * c, "float32")
+                ms = graph_ms(lambda: fn(feats, ix, check=False))
+                plain_ms = cuda_ms(lambda: ref_fn(feats, ix), iters=5,
+                                   reps=3)
+                lib_ms = graph_ms(lib)
+                rate = n / (ms * 1e-3) / 1e6
+                lib_rate = n / (lib_ms * 1e-3) / 1e6
+                rows.append(dict(kernel=name, level=level, C=c, rows=r,
+                                 case=label, n=n, max_abs_err=err, ms=ms,
+                                 plain_ms=plain_ms, bound_ms=b_ms,
+                                 bound_by=b_by, library_ms=lib_ms,
+                                 M_rows_per_s=rate,
+                                 library_M_rows_per_s=lib_rate))
+                log(f"  {name:26s} L{level} C={c:3d} {label:5s} n={n:6d}: "
+                    f"err {err:.3g}  kernel {ms:.4f} ms "
+                    f"({rate:.0f} M rows/s)  plain {plain_ms:.4f} ms  "
+                    f"library {lib_ms:.4f} ms ({lib_rate:.0f} M rows/s)  "
+                    f"bound {b_ms:.4f} ms ({b_by})")
+                m = main[name]
+                m["max_abs_err"] = max(m["max_abs_err"], err)
+                if label == "whole":
+                    m["ms"] += ms
+                    m["plain_ms"] += plain_ms
+                    m["library_ms"] += lib_ms
+                    m["bound_ms"] += b_ms
+                    m["bound_t"][b_by] = m["bound_t"].get(b_by, 0) + b_ms
+    return rows, main
+
+
+def tail_heavy(b, h, n, seed=0):
+    """q > 0 and the last two keys 2.0 in every dim: they carry nearly all of
+    each row's softmax mass, with values 3 and 5 (5 alone at n = 1)."""
+    import numpy as np
+    import torch
+    rs = np.random.RandomState(seed)
+    q = np.abs(rs.randn(b, h, n, 64))
+    k = 0.1 * rs.randn(b, h, n, 64)
+    k[:, :, -2:] = 2.0
+    v = rs.randn(b, h, n, 64)
+    v[:, :, -2:] = np.array([3.0, 5.0])[-min(n, 2):, None]
+    return [torch.as_tensor(x.astype(np.float32)).to("cuda", torch.bfloat16)
+            for x in (q, k, v)]
+
+
+def negative_scores(b, h, n, seed=0):
+    """q > 0 and k < 0: every score is about -5, so a key past the end that
+    scored 0 instead of -inf would take most of the mass."""
+    import numpy as np
+    import torch
+    rs = np.random.RandomState(seed)
+    q, k, v = (rs.randn(b, h, n, 64) for _ in range(3))
+    return [torch.as_tensor(x.astype(np.float32)).to("cuda", torch.bfloat16)
+            for x in (np.abs(q), -np.abs(k), v)]
+
+
+def phase_flash():
+    """T4 at DeiT-B/384 (12 heads, 578 tokens, head dim 64), B = 1, 2, 8: 12
+    chained calls (each output the next query, as the microbench runs
+    them), each held against the plain version on its own inputs within
+    ATTN_TOL of every output's sum_j p_ij |v_j|; the tail-heavy and the
+    negative-score inputs likewise, and the tail-heavy input with the last
+    two keys dropped must fail that bound.  Times per 12 calls: the kernel
+    and SDPA in CUDA graphs, the plain version eagerly."""
+    import torch
+    import torch.nn.functional as F
+    from fusiontransformer_tpu_torch.ops.kernels.flash_attention import (
+        ATTN_TOL, attention_error_scale, flash_attention,
+        flash_attention_ref)
+    from fusiontransformer_tpu_torch.tools import microbench_attention as mat
+    h, n, d, depth = mat.H, mat.N, mat.D, mat.DEPTH
+    scale = d ** -0.5
+
+    def share(out, q, k, v):
+        diff = (out.float() - flash_attention_ref(q, k, v, scale).float())
+        bound_ = ATTN_TOL * attention_error_scale(q, k, v, scale)
+        return (diff.abs() / bound_).max().item(), diff.abs().max().item()
+
+    rows = []
+    main = None
+    for b in ATTN_BATCHES:
+        q, k, v = mat.inputs(b, h, n, "cuda")
+        worst, err, x = 0.0, 0.0, q
+        for _ in range(depth):
+            out = flash_attention(x, k, v, scale)
+            s, e = share(out, x, k, v)
+            worst, err = max(worst, s), max(err, e)
+            x = out
+        special = {}
+        for label, make in (("tail-heavy", tail_heavy),
+                            ("negative scores", negative_scores)):
+            tq, tk, tv = make(b, h, n)
+            special[label], e = share(flash_attention(tq, tk, tv, scale),
+                                      tq, tk, tv)
+            err = max(err, e)
+            if label == "tail-heavy":
+                tail_mass = torch.softmax(
+                    torch.matmul(tq.float(), tk.float().transpose(-1, -2))
+                    * scale, -1)[..., -2:].sum(-1).min().item()
+                dropped = flash_attention(tq, tk[:, :, :-2].contiguous(),
+                                          tv[:, :, :-2].contiguous(), scale)
+                special["tail dropped"] = share(dropped, tq, tk, tv)[0]
+        if not (worst <= 1.0 and max(special["tail-heavy"],
+                                     special["negative scores"]) <= 1.0):
+            raise AssertionError(f"T4 b={b}: worst share of the bound "
+                                 f"{worst} (chain), {special}")
+        if not (tail_mass > 0.5 and special["tail dropped"] > 1.0):
+            raise AssertionError(f"T4 b={b}: the tail-heavy input does not "
+                                 f"catch a dropped tail: mass {tail_mass}, "
+                                 f"{special}")
+        ms = graph_ms(lambda: mat.chain(mat.flash, q, k, v, depth), calls=1)
+        plain_ms = cuda_ms(lambda: mat.chain(
+            lambda *a: flash_attention_ref(*a, scale), q, k, v, depth),
+            iters=2, reps=3)
+        lib_ms = graph_ms(lambda: mat.chain(
+            lambda *a: F.scaled_dot_product_attention(*a, scale=scale), q, k,
+            v, depth), calls=1)
+        nbytes = 4 * b * h * n * d * 2
+        flops = 4 * b * h * n * n * d
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        row = dict(batch=b, heads=h, tokens=n, depth=depth,
+                   worst_share_of_bound=worst, special_share=special,
+                   tail_mass_min=tail_mass, max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=depth * b_ms, bound_by=b_by)
+        rows.append(row)
+        log(f"  flash_attention b={b} x{depth} chained: worst {worst:.3g} of "
+            f"the bound; tail-heavy {special['tail-heavy']:.3g} (tail mass "
+            f">= {tail_mass:.4f}; dropped: {special['tail dropped']:.3g}), "
+            f"negative scores {special['negative scores']:.3g}; kernel "
+            f"{ms:.4f} ms  plain {plain_ms:.4f} ms  SDPA {lib_ms:.4f} ms  "
+            f"bound {depth * b_ms:.4f} ms ({b_by}) per {depth} calls")
+        main = {"ms": ms, "plain_ms": plain_ms, "bound_ms": depth * b_ms,
+                "library_ms": lib_ms,
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "bound_t": {b_by: depth * b_ms}}
+    return rows, main
+
+
+# --------------------------------------------------------------------------- #
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1523,7 +1780,16 @@ def main() -> int:
             tdb, ptrainer.generator, caps)})
     phase_end("11")
 
-    # ---- 12. kernels line
+    # ---- 12. the tool kernels behind the port's microbenches
+    log("== 12. tool kernels: the port's microbenches (T1-T3 row gathers "
+        "at the flagship's L0/L2 slot maps, T4 flash attention at "
+        "DeiT-B/384), then each kernel against its plain version")
+    tools = tool_paths()
+    gather_rows, gather_main = phase_gather_kernels()
+    flash_rows, flash_main = phase_flash()
+    phase_end("12")
+
+    # ---- 13. kernels line
     def entry(name, source, replaces, m, library_ms, launches_of):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches_of.get(name, 0),
@@ -1545,12 +1811,16 @@ def main() -> int:
                         "bf16_gemm_grad_share": gemm_grads},
               "per_voxel": {"slot_maps_cost": maps_cost, "engine": pserve,
                             "train": {**ptrain, "card_vs_cpu": pparity}},
+              "tools": {"runs": tools, "row_gather": gather_rows,
+                        "flash_attention": flash_rows},
               "phase_s": phase_s}
-    log("== 12. kernels (ms, plain_ms, bound_ms, library_ms: K1, K1' and K3 "
+    log("== 13. kernels (ms, plain_ms, bound_ms, library_ms: K1, K1' and K3 "
         "per inference request at batch 1, K2, K2' and K3[E=8] per train "
         f"step at batch {TRAIN_BATCH}; each summed over the path's calls, "
         "bf16; launches from the path each entry is timed on: K1' from "
-        "phase 10, K2' from phase 11)")
+        "phase 10, K2' from phase 11; T1-T3 one whole-level launch at L0 "
+        "plus one at L2, T4 12 chained calls at B=8, launches from the "
+        "microbenches in phase 12)")
     log("detail: " + json.dumps(detail))
     log(f"phase seconds: {phase_s}, total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [
@@ -1565,7 +1835,13 @@ def main() -> int:
         entry("binned_conv_slots_fwd", K1_SOURCE, K1_REPLACES, k1p, None,
               pserve["launches"]),
         entry("binned_conv_slots_bwd", K1_SOURCE, K2_REPLACES, k2p, None,
-              ptlaunches)]}), flush=True)
+              ptlaunches),
+        *(entry(name, GATHER_SOURCE, TOOL_KERNELS[name], m,
+                m["library_ms"], tools["launches"])
+          for name, m in gather_main.items()),
+        entry("flash_attention", FLASH_SOURCE, TOOL_KERNELS["flash_attention"],
+              flash_main, flash_main["library_ms"], tools["launches"])]}),
+        flush=True)
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

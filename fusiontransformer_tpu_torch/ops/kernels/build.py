@@ -22,7 +22,7 @@ import time
 _PKG = osp.dirname(osp.dirname(osp.dirname(osp.abspath(__file__))))
 SRC_DIR = osp.join(_PKG, "csrc")
 BUILD_DIR = osp.join(_PKG, "_build")
-SOURCES = ("binned_conv", "segment_sum")
+SOURCES = ("binned_conv", "segment_sum", "row_gather", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -322,3 +322,167 @@ def test_bf16_matmul_gradients(cuda, shape_a, shape_b):
                                 (terms_a, terms_b)):
         assert got.shape == want.shape
         assert ((got - want).abs() <= 1e-2 * terms + 1e-6).all()
+
+
+# --------------------------------------------------------------------------- #
+# The tool kernels T1-T4 (row gathers, flash attention).
+
+def _gather_inputs(cuda, r, c, n, seed):
+    rs = np.random.RandomState(seed)
+    feats = torch.as_tensor(rs.randn(r, c).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    idx = rs.randint(0, r, n).astype(np.int32)
+    idx[:min(n, 3)] = r - 1          # the last row: a partial 8-row block
+    return feats, torch.as_tensor(idx, device=cuda)
+
+
+@pytest.mark.parametrize("r,c,n", [(1001, 8, 8), (1001, 32, 1000),
+                                   (17409, 32, 16384), (7809, 128, 16392),
+                                   (33, 136, 64)])
+def test_gather_blocks8_kernel_matches_plain(cuda, r, c, n):
+    """T1 copies: bit for bit equal to its plain version, rows past the
+    table's end zero; an index out of range raises, or with check=False
+    gives a zero block."""
+    from fusiontransformer_tpu_torch.ops.kernels.row_gather import (
+        BLOCKS8, gather_blocks8, gather_blocks8_ref)
+    feats, idx = _gather_inputs(cuda, r, c, n, r + c)
+    before = LAUNCHES[BLOCKS8]
+    out = gather_blocks8(feats, idx)
+    assert LAUNCHES[BLOCKS8] == before + 1
+    assert out.shape == (n, c) and out.dtype == torch.bfloat16
+    assert torch.equal(out, gather_blocks8_ref(feats, idx))
+    if r % 8:
+        assert not out[(r % 8):8].any()   # block 0 starts at 8*((r-1)//8)
+    bad = idx.clone()
+    bad[0] = r
+    with pytest.raises(IndexError):
+        gather_blocks8(feats, bad)
+    out = gather_blocks8(feats, bad, check=False)
+    torch.cuda.synchronize()
+    assert not out[:8].any()
+    assert torch.equal(out[8:], gather_blocks8_ref(feats, idx)[8:])
+
+
+@pytest.mark.parametrize("kind", ["pipelined", "smem"])
+@pytest.mark.parametrize("r,c,n", [(1001, 8, 1), (1001, 32, 0),
+                                   (1001, 32, 1003), (17409, 32, 16389),
+                                   (7809, 128, 124931), (50, 24, 7)])
+def test_gather_rows_sum_kernels_match_plain(cuda, kind, r, c, n):
+    """T2 and T3 against the plain f32 sum within 2e-5 of the sum of
+    |rows|, equal bit for bit across two launches; an index out of range
+    raises, or with check=False counts as a zero row."""
+    from fusiontransformer_tpu_torch.ops.kernels import row_gather as rg
+    name, fn = {"pipelined": (rg.PIPELINED, rg.gather_rows_sum_pipelined),
+                "smem": (rg.SMEM, rg.gather_rows_sum_smem)}[kind]
+    feats, idx = _gather_inputs(cuda, r, c, n, r + c + n)
+    before = LAUNCHES[name]
+    a = fn(feats, idx)
+    b = fn(feats, idx)
+    assert LAUNCHES[name] == before + 2
+    assert a.shape == (1, c) and a.dtype == torch.float32
+    assert torch.equal(a, b)
+    ref = rg.gather_rows_sum_ref(feats, idx)
+    scale = rg.gather_rows_sum_ref(feats.abs(), idx).max().item()
+    assert (a - ref).abs().max().item() <= 2e-5 * scale
+    if n:
+        bad = idx.clone()
+        bad[-1] = -1
+        with pytest.raises(IndexError):
+            fn(feats, bad)
+        got = fn(feats, bad, check=False)
+        want = rg.gather_rows_sum_ref(feats, idx[:-1])
+        assert (got - want).abs().max().item() <= 2e-5 * scale
+
+
+def test_gather_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    from fusiontransformer_tpu_torch.ops.kernels import row_gather as rg
+    feats, idx = _gather_inputs(cuda, 1001, 32, 64, 0)
+    for fn in (rg.gather_blocks8, rg.gather_rows_sum_pipelined,
+               rg.gather_rows_sum_smem):
+        with pytest.raises(TypeError):
+            fn(feats.float(), idx)
+        with pytest.raises(TypeError):
+            fn(feats, idx.long())
+        with pytest.raises(ValueError):
+            fn(feats, idx.cpu())
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(feats.t().contiguous().t(), idx)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(feats, idx[::2])
+    with pytest.raises(ValueError, match="multiple of 8"):
+        rg.gather_blocks8(feats, idx[:20])
+    with pytest.raises(ValueError, match="C % 8"):
+        rg.gather_rows_sum_pipelined(feats[:, :4].contiguous(), idx)
+    with pytest.raises(ValueError, match="aligned"):
+        rg.gather_rows_sum_smem(feats[:, :4].contiguous()[1:], idx)
+    with pytest.raises(ValueError, match="even one column"):
+        rg.gather_rows_sum_smem(
+            torch.zeros(120_000, 8, dtype=torch.bfloat16, device=cuda), idx)
+
+
+def _attention_held(out, q, k, v):
+    from fusiontransformer_tpu_torch.ops.kernels.flash_attention import (
+        ATTN_TOL, attention_error_scale, flash_attention_ref)
+    ref = flash_attention_ref(q, k, v, 0.125).float()
+    scale = attention_error_scale(q, k, v, 0.125)
+    return bool(((out.float() - ref).abs() <= ATTN_TOL * scale).all())
+
+
+@pytest.mark.parametrize("n", [1, 63, 65, 578])
+@pytest.mark.parametrize("b,h", [(1, 1), (2, 3)])
+def test_flash_attention_kernel_matches_plain(cuda, n, b, h):
+    """T4 against its plain version, three calls chained (each output the
+    next query), on unit-normal inputs and on the two inputs of
+    ``chip_smoke.py`` that catch a dropped or zero-scored ragged tail."""
+    from fusiontransformer_tpu_torch.ops.kernels.flash_attention import (
+        NAME, flash_attention)
+    rs = np.random.RandomState(n + b)
+    q, k, v = (torch.as_tensor(rs.randn(b, h, n, 64).astype(np.float32)).to(
+        cuda, torch.bfloat16) for _ in range(3))
+    before = LAUNCHES[NAME]
+    x = q
+    for _ in range(3):
+        out = flash_attention(x, k, v, 0.125)
+        assert out.shape == q.shape and out.dtype == torch.bfloat16
+        assert _attention_held(out, x, k, v)
+        x = out
+    assert LAUNCHES[NAME] == before + 3
+    from chip_smoke import negative_scores, tail_heavy
+    for make in (tail_heavy, negative_scores):
+        q, k, v = make(b, h, n)
+        assert _attention_held(flash_attention(q, k, v, 0.125), q, k, v)
+
+
+def test_flash_attention_kernel_keeps_the_ragged_tail(cuda):
+    """At N = 578 = 9*64 + 2 the last two keys are a tile of their own: a
+    kernel that drops them fails the bound on the tail-heavy input."""
+    from chip_smoke import tail_heavy
+    from fusiontransformer_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention)
+    q, k, v = tail_heavy(2, 3, 578)
+    assert _attention_held(flash_attention(q, k, v, 0.125), q, k, v)
+    dropped = flash_attention(q, k[:, :, :576].contiguous(),
+                              v[:, :, :576].contiguous(), 0.125)
+    assert not _attention_held(dropped, q, k, v)
+    # Queries and keys of other lengths.
+    kq = q[:, :, :65].contiguous()
+    assert _attention_held(flash_attention(kq, k, v, 0.125), kq, k, v)
+
+
+def test_flash_attention_wrapper_raises_on_what_the_kernel_does_not_take(
+        cuda):
+    from fusiontransformer_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention)
+    q = torch.randn(1, 2, 70, 64, device=cuda).to(torch.bfloat16)
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), q.half(), q.half(), 0.125)
+    with pytest.raises(ValueError, match="head dim"):
+        d32 = q[..., :32].contiguous()
+        flash_attention(d32, d32, d32, 0.125)
+    with pytest.raises(ValueError, match="shapes differ"):
+        flash_attention(q, q[:1, :1], q[:1, :1], 0.125)
+    with pytest.raises(ValueError):
+        flash_attention(q, q.cpu(), q, 0.125)
+    with pytest.raises(ValueError, match="contiguous"):
+        qt = q.transpose(1, 2).contiguous().transpose(1, 2)
+        flash_attention(qt, q, q, 0.125)
