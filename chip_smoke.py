@@ -7,7 +7,8 @@ Drives ``fusiontransformer_tpu_torch`` (and nothing of the JAX package) on
 the card, in phases; any failure raises and the exit code is non-zero:
 
 1. device and build — the card's name and power limit, then every kernel
-   in ``fusiontransformer_tpu_torch/csrc`` built with nvcc (in parallel);
+   in ``fusiontransformer_tpu_torch/csrc`` built with nvcc (in parallel),
+   with ptxas's registers, static shared memory and spills per kernel;
 2. K3 ``sorted_segment_weighted_sum`` against its plain version at the
    flagship's shapes (voxelize_mean at L4 and L2 of a real batch, plus one
    E=8 case), bf16-rounding and precise;
@@ -24,10 +25,13 @@ the card, in phases; any failure raises and the exit code is non-zero:
    bf16 path's drift from the f32 one on the card (reported);
 6. K2 ``binned_conv_grouped_bwd`` against its plain version at every
    grouped (level, Cin, Cout) of the flagship's train step, on a real
-   training batch (10 scans, adaptive capacities), bf16 and f32, with dW
-   bitwise equal across two launches; K3 at E=8 (the devoxelize adjoint)
-   at L4 and L2 of the same batch; the card's bf16 GEMM gradient against
-   the CPU's at the ViT's shapes;
+   training batch (10 scans, adaptive capacities), bf16 (dW on the tensor
+   cores) and f32 (dW on the CUDA cores), with dW bitwise equal across two
+   launches; each launch split into dX, dW and reduce by kernel name from
+   the profiler, each beside its bound, and for bf16 the CUDA-core dW on
+   the same operands beside the tensor-core one; K3 at E=8 (the devoxelize
+   adjoint) at L4 and L2 of the same batch; the card's bf16 GEMM gradient
+   against the CPU's at the ViT's shapes;
 7. one train step: f32, TF32 off, shared weights, dropout off, 2 scans (the
    batch is cut from 10 to keep the CPU's time short), on the CPU and on
    the card with the kernels, with the plain versions in their place, and
@@ -41,7 +45,9 @@ the card, in phases; any failure raises and the exit code is non-zero:
    maps, copy, step on CUDA events; forward / backward / optimizer /
    metrics from the step's own ``record_function`` ranges; device busy
    share) and a steady window of ``train_for_one_epoch`` over 6 more
-   batches (train scans/s);
+   batches (train scans/s); then every K2 call of one more bf16 train step
+   against its plain version on the same inputs, and the same step with a
+   K2 whose dW misses 1/16 of the groups, which that check must catch;
 
 then the same configuration with ``TPU.CONV_SLOT_POOL False`` (no host slot
 maps; the hierarchy builds per-voxel K-slot maps on the card):
@@ -49,15 +55,16 @@ maps; the hierarchy builds per-voxel K-slot maps on the card):
 9. K1' ``binned_conv_slots_fwd`` on the batch-1 serving scan's per-voxel
    maps and K2' ``binned_conv_slots_bwd`` on the batch-10 training batch's,
    at every L0-L3 (Cin, Cout), against their plain versions, bf16 and f32,
-   dW bitwise equal across two launches; what the maps cost inside the
-   hierarchy build;
+   dW bitwise equal across two launches, K2' split as K2 in phase 6; what
+   the maps cost inside the hierarchy build;
 10. ``InferenceEngine`` on the per-voxel path, 8 requests at batch 1 as in
     phase 4; its f32 logits on the card against the CPU's and against the
     group-pooled path's on the card; its predict step side by side with
     the group-pooled one;
 11. one f32 train step on the per-voxel path as in phase 7 (with a K2'
     whose dW misses 1/16 of the groups), then ``SemanticTrainer`` as in
-    phase 8; its train step side by side with the group-pooled one;
+    phase 8, with its bf16 per-call K2' check; its train step side by side
+    with the group-pooled one;
 
 then the tool kernels, the port's counterparts of the JAX tools' Pallas
 kernels:
@@ -73,7 +80,10 @@ kernels:
     ``flash_attention`` at DeiT-B/384 shapes, B = 1, 2, 8, 12 chained calls,
     plus a tail-heavy and a negative-score input, each within ATTN_TOL of
     its plain version;
-13. a ``{"kernels": [...]}`` line: launches, errors and times of each kernel.
+13. a ``{"kernels": [...]}`` line: launches, errors and times of each
+    kernel; K2 and K2' also carry their dX / dW / reduce times, the dX and
+    dW bounds, the CUDA-core dW time on the same bf16 operands, and the
+    tensor-core dW's launches on the path (``dw_launches``).
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -168,6 +178,40 @@ def cuda_ms(fn, iters=20, reps=5):
     """Median over ``reps`` CUDA-event windows of ``iters`` calls, in ms."""
     from fusiontransformer_tpu_torch.utils.profiler import time_cuda
     return time_cuda(fn, iters=reps, calls=iters)[0]
+
+
+def kernel_name(mangled):
+    """A kernel's name (and its tile, for the dW kernel) from its mangled
+    name: the length-prefixed identifier ending in ``_kernel`` (the
+    anonymous namespace's own mangled name ends in hex digits, so each
+    suffix of a digit run is tried as the length)."""
+    import re
+    for m in re.finditer(r"\d+", mangled):
+        for i in range(len(m.group())):
+            n = int(m.group()[i:])
+            ident = mangled[m.end():m.end() + n]
+            if n and len(ident) == n and ident.endswith("_kernel") \
+                    and ident.isidentifier():
+                tile = re.match(r"ILi(\d+)ELi(\d+)E", mangled[m.end() + n:])
+                return ident + (f"<{tile[1]},{tile[2]}>" if tile else "") + (
+                    " (bf16)" if "bfloat16" in mangled else "")
+    return mangled
+
+
+def ptxas_summary(text):
+    """(kernel, properties) for each entry function in nvcc's ``-Xptxas -v``
+    log: its spills and stack, then its registers and static shared memory
+    (the dW kernel's ring is dynamic shared memory, 3 x 64 x (tile_m +
+    tile_n) bf16, which ptxas does not count)."""
+    import re
+    out, entry = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = kernel_name(m.group(1))
+        elif entry and ("registers" in line or "spill" in line):
+            out.append((entry, line.split(":", 1)[-1].strip()))
+    return out
 
 
 def bound(nbytes, flops, dtype):
@@ -297,13 +341,80 @@ def binned_kernels(kind):
                     ref=bc.binned_conv_grouped_ref,
                     bwd=bc.binned_conv_grouped_bwd,
                     bwd_ref=bc.binned_conv_grouped_bwd_ref,
+                    bwd_launch=(bc.BWD_NAME, "ftx_binned_conv_grouped_bwd"),
+                    sentinel=216,
                     live=lambda src, codes, v: int(
                         ((codes < 216) & (src < v)).sum()))
     return dict(ids=("K1'", "K2'"), width="K", fwd=bc.binned_conv_slots_fwd,
                 ref=bc.binned_conv_slots_ref, bwd=bc.binned_conv_slots_bwd,
                 bwd_ref=bc.binned_conv_slots_bwd_ref,
+                bwd_launch=(bc.SLOTS_BWD_NAME, "ftx_binned_conv_slots_bwd"),
+                sentinel=27,
                 live=lambda src, codes, v: int(((codes < 27) & (src < v))
                                                .sum()))
+
+
+def dw_missing_groups(kind):
+    """A deliberately wrong K2 (or K2'): dX as the kernel's, dW from maps
+    whose first 1/16 of the voxel groups feed no bin.  Map rows are groups
+    (group-pooled maps) or voxels, 8 to a group (per-voxel maps)."""
+    kk = binned_kernels(kind)
+    bwd = kk["bwd"]
+
+    def wrong(d, x, src, codes, w):
+        cut = codes.clone()
+        rows = len(cut) // 16 if kind == "grouped" else len(cut) // 128 * 8
+        cut[:max(1, rows)] = kk["sentinel"]
+        return bwd(d, x, src, codes, w)[0], bwd(d, x, src, cut, w)[1]
+    return wrong
+
+
+# K2's launch runs these kernels, by the name the profiler gives them: dX
+# (the tap-reversed W, then K1's kernel on dout), dW (the row table and the
+# tensor-core kernel for bf16, the CUDA-core kernel for f32), and the
+# fixed-order sum of the chunks' partials.
+BWD_PARTS = {"dx": ("flip_transpose_kernel", "binned_conv_grouped_fwd_kernel"),
+             "dw": ("bin_rows_kernel", "binned_conv_dw_mma_kernel",
+                    "binned_conv_grouped_dw_kernel", "Memset"),
+             "reduce": ("reduce_chunks_kernel",)}
+
+
+def bwd_split(fn, route, calls=5, attempts=4):
+    """Device ms per call of each part of one backward launch (BWD_PARTS)
+    from a profiler trace of ``calls`` calls after one warm call.  Each of
+    the launch's kernels runs once a call, so a part's time is the sum of
+    its kernels' median durations.  The H100 machines' traces drop some
+    kernel records; a median needs only one record, so a trace is taken
+    again (up to ``attempts`` times) only while a kernel has none, and
+    otherwise every part is None (not measured)."""
+    import statistics as st
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    need = ("flip_transpose_kernel", "binned_conv_grouped_fwd_kernel",
+            "reduce_chunks_kernel") + (
+        ("bin_rows_kernel", "binned_conv_dw_mma_kernel") if route
+        else ("binned_conv_grouped_dw_kernel",))
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        times = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                name = next((n for names in BWD_PARTS.values() for n in names
+                             if n in e.name), None)
+                if name is not None:
+                    times.setdefault(name, []).append(
+                        e.time_range.elapsed_us() / 1e3)
+        if all(n in times for n in need):
+            return {p: sum(st.median(times[n]) for n in names if n in times)
+                    for p, names in BWD_PARTS.items()}
+    return dict.fromkeys(BWD_PARTS)
 
 
 def phase_k1(hier, model, gen, kind="grouped"):
@@ -515,18 +626,29 @@ def train_cfg():
     return cfg
 
 
+def fmt(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
 def phase_k2(hier, model, gen, kind="grouped"):
     """K2 (or K2') vs plain at every slot-map (level, Cin, Cout) of the
-    train step, bf16 and f32; dW bitwise equal across two launches."""
+    train step, bf16 and f32; dW bitwise equal across two launches.  Each
+    launch split into dX, dW and reduce (``bwd_split``), each part beside its
+    bound; for bf16 also the CUDA-core dW (the f32 route's kernel, run on
+    the same bf16 operands) in the same call, as the before of the
+    tensor-core one."""
     import torch
+    from fusiontransformer_tpu_torch.ops.kernels import binned_conv as bc
     kk = binned_kernels(kind)
     bwd, bwd_ref, kid = kk["bwd"], kk["bwd_ref"], kk["ids"][1]
     dev = hier.pt_valid.device
     shapes = {}
     for level, cin, cout, w in slot_convs(model, hier):
         shapes.setdefault((level, cin, cout), [0, w])[0] += 1
-    rows, main = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                      "max_abs_err": 0.0, "bound_t": {}}
+    keys = ("ms", "plain_ms", "bound_ms", "dx_ms", "dw_ms", "reduce_ms",
+            "dx_bound_ms", "dw_bound_ms", "cuda_core_dw_ms")
+    rows, main = [], {**dict.fromkeys(keys, 0.0), "max_abs_err": 0.0,
+                      "bound_t": {}}
     for (level, cin, cout), (count, w) in sorted(shapes.items()):
         src, binp = hier.levels[level].slot_idx
         v = hier.levels[level].valid.shape[0]
@@ -554,15 +676,30 @@ def phase_k2(hier, model, gen, kind="grouped"):
                                          f"{tname} {key}: max abs err {err} "
                                          f"> {tol}")
                 errs[key] = (err, tol)
-            del rdx, rdw, sdx, sdw
+            del rdx, rdw, sdx, sdw, dx, dw, dw2
+            sched = bc.dw_schedule(v, cin, cout, dtype)
             ms = cuda_ms(lambda: bwd(d, x, src, binp, wd), iters=3, reps=3)
+            split = bwd_split(lambda: bwd(d, x, src, binp, wd),
+                              sched.route)
             plain_ms = (cuda_ms(lambda: bwd_ref(d, x, src, binp, wd),
                                 iters=1, reps=3)
                         if dtype == torch.bfloat16 else None)
+            core_dw = None
+            if dtype == torch.bfloat16:
+                core = bc.dw_schedule(v, cin, cout, torch.float32)
+                core_dw = bwd_split(lambda: bc._launch_bwd(
+                    *kk["bwd_launch"], d, x, src, binp, wd, sched=core),
+                    core.route)["dw"]
             es = x.element_size()
-            nbytes = (es * (d.numel() + x.numel() + wd.numel())
-                      + 8 * src.numel() + 4 * (v * cin + wd.numel()))
-            b_ms, b_by = bound(nbytes, 4 * live * cin * cout, tname)
+            maps = 8 * src.numel()
+            nbytes = (es * (d.numel() + x.numel() + wd.numel()) + maps
+                      + 4 * (v * cin + wd.numel()))
+            flops = 2 * live * cin * cout
+            b_ms, b_by = bound(nbytes, 2 * flops, tname)
+            dx_b, _ = bound(es * (d.numel() + wd.numel()) + maps
+                            + 4 * v * cin, flops, tname)
+            dw_b, dw_by = bound(es * (d.numel() + x.numel()) + maps
+                                + 4 * wd.numel(), flops, tname)
             rows.append(dict(level=level, cin=cin, cout=cout, dtype=tname,
                              per_step=count, V=v,
                              **{kk["width"]: src.shape[1]},
@@ -572,18 +709,34 @@ def phase_k2(hier, model, gen, kind="grouped"):
                              max_abs_err_dw=errs["dW"][0],
                              tol_dw=errs["dW"][1], dw_bitwise_repeat=True,
                              ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                             bound_by=b_by))
+                             bound_by=b_by, dw_route=sched.route,
+                             dw_schedule=sched._asdict(),
+                             **{f"{p}_ms": t for p, t in split.items()},
+                             dx_bound_ms=dx_b, dw_bound_ms=dw_b,
+                             dw_bound_by=dw_by, cuda_core_dw_ms=core_dw))
             log(f"  {kid} L{level} {cin:3d}->{cout:3d} {tname:8s} x{count} "
                 f"V={v} {kk['width']}={src.shape[1]} live={live}: err dX "
                 f"{errs['dX'][0]:.3g} (tol {errs['dX'][1]:.3g}) dW "
                 f"{errs['dW'][0]:.3g} (tol {errs['dW'][1]:.3g}), dW bitwise "
-                f"repeatable  kernel {ms:.4f} ms  plain "
+                f"repeatable  kernel {ms:.4f} ms = dX {fmt(split['dx'])} "
+                f"(bound {dx_b:.4f}) + dW {fmt(split['dw'])} (route "
+                f"{sched.route}, {sched.tile_m}x{sched.tile_n} x "
+                f"{sched.nchunks} chunks; bound {dw_b:.4f}, {dw_by}) + reduce "
+                f"{fmt(split['reduce'])}"
+                + (f"; CUDA-core dW on these bf16 operands {fmt(core_dw)}"
+                   if dtype == torch.bfloat16 else "")
+                + f"  plain "
                 f"{plain_ms if plain_ms is None else round(plain_ms, 4)} ms  "
                 f"bound {b_ms:.4f} ms ({b_by})")
             if dtype == torch.bfloat16:
-                main["ms"] += count * ms
-                main["plain_ms"] += count * plain_ms
-                main["bound_ms"] += count * b_ms
+                for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                                 ("bound_ms", b_ms), ("dx_ms", split["dx"]),
+                                 ("dw_ms", split["dw"]),
+                                 ("reduce_ms", split["reduce"]),
+                                 ("dx_bound_ms", dx_b), ("dw_bound_ms", dw_b),
+                                 ("cuda_core_dw_ms", core_dw)):
+                    main[key] = (None if val is None or main[key] is None
+                                 else main[key] + count * val)
                 main["bound_t"][b_by] = (main["bound_t"].get(b_by, 0)
                                          + count * b_ms)
             main["max_abs_err"] = max(main["max_abs_err"], errs["dX"][0],
@@ -794,11 +947,12 @@ def grad_readings(ref, got, conv_names, gates):
     return r
 
 
-def check_recorded_calls(calls, ref_fn):
+def call_shares(calls, ref_fn):
     """Each recorded kernel call against its plain version on the same
-    inputs, within SUM_ORDER_RTOL of the sum of |terms|; the worst share."""
+    inputs: the worst error over the calls as a share of the sum of
+    |terms|, for each output of the kernel (dX and dW for K2)."""
     import torch
-    worst = 0.0
+    worst = []
     for args, kw, out in calls:
         ref = ref_fn(*args, **kw)
         terms = ref_fn(*(a.abs() if torch.is_tensor(a)
@@ -808,13 +962,21 @@ def check_recorded_calls(calls, ref_fn):
         outs = out if isinstance(out, tuple) else (out,)
         refs = ref if isinstance(ref, tuple) else (ref,)
         sums = terms if isinstance(terms, tuple) else (terms,)
-        for o, r, t in zip(outs, refs, sums):
+        for k, (o, r, t) in enumerate(zip(outs, refs, sums)):
             share = (o - r).abs().max().item() / max(t.max().item(), 1e-30)
-            worst = max(worst, share)
-            if not share <= SUM_ORDER_RTOL:
-                raise AssertionError(f"{ref_fn.__name__} in the train step: "
-                                     f"error {share} of the sum of |terms| > "
-                                     f"{SUM_ORDER_RTOL}")
+            if k == len(worst):
+                worst.append(0.0)
+            worst[k] = max(worst[k], share)
+    return worst
+
+
+def check_recorded_calls(calls, ref_fn):
+    """``call_shares`` within SUM_ORDER_RTOL (raises past it); the worst."""
+    worst = max(call_shares(calls, ref_fn), default=0.0)
+    if not worst <= SUM_ORDER_RTOL:
+        raise AssertionError(f"{ref_fn.__name__} in the train step: error "
+                             f"{worst} of the sum of |terms| > "
+                             f"{SUM_ORDER_RTOL}")
     return worst
 
 
@@ -839,18 +1001,9 @@ def phase_train_parity(cfg, state, host_batch, caps, conv_names,
     k1, k2 = kk["ids"]
     fname, bname = kk["fwd"].__name__, kk["bwd"].__name__
     bwd = kk["bwd"]
-    sentinel = 216 if kind == "grouped" else 27
     cfg32 = cfg.clone()
     cfg32.TPU.COMPUTE_DTYPE = "float32"
     cfg32.freeze()
-
-    def dw_missing_groups(d, x, src, codes, w):
-        cut = codes.clone()
-        # The first 1/16 of the groups: map rows are groups (grouped maps)
-        # or voxels, 8 to a group (per-voxel maps).
-        rows = len(cut) // 16 if kind == "grouped" else len(cut) // 128 * 8
-        cut[:max(1, rows)] = sentinel
-        return bwd(d, x, src, codes, w)[0], bwd(d, x, src, cut, w)[1]
 
     def dx_taps_unreversed(d, x, src, codes, w):
         return (bwd(d, x, src, codes, w.flip(0).contiguous())[0],
@@ -867,7 +1020,7 @@ def phase_train_parity(cfg, state, host_batch, caps, conv_names,
             fname: kk["ref"], bname: kk["bwd_ref"],
             "sorted_segment_weighted_sum": sorted_segment_weighted_sum_ref},
         f"wrong {k2}: dW misses 1/16 of the groups": {
-            bname: dw_missing_groups},
+            bname: dw_missing_groups(kind)},
     }
     if kind == "grouped":
         variants[f"wrong {k2}: dX taps not reversed"] = {
@@ -930,6 +1083,48 @@ def phase_train_parity(cfg, state, host_batch, caps, conv_names,
             "losses": {k: [runs["kernels"][0][k].item(), cpu[0][k].item()]
                        for k in ("total_loss", "seg_loss_2d",
                                  "seg_loss_3d")}}
+
+
+def bf16_step_calls(trainer, kind, db, caps, convs_per_step):
+    """Every K2 (or K2') call of one bf16 train step of ``trainer`` (the
+    shipped ``trainer.train_step`` on ``db``) against its plain version on
+    the same inputs, within SUM_ORDER_RTOL of the sum of |terms|; then the
+    same with a K2 whose dW misses the first 1/16 of the groups
+    (``dw_missing_groups``), which that check must catch."""
+    import torch
+    from fusiontransformer_tpu_torch.ops.kernels import LAUNCHES
+    from fusiontransformer_tpu_torch.ops.kernels.binned_conv import (
+        DW_MMA_NAME)
+    kk = binned_kernels(kind)
+    k2, bname = kk["ids"][1], kk["bwd"].__name__
+    out = {}
+    for label, fn in (("kernels", kk["bwd"]),
+                      ("wrong dW", dw_missing_groups(kind))):
+        calls, before = [], LAUNCHES[DW_MMA_NAME]
+        with replaced(**{bname: recording(fn, calls)}):
+            trainer.train_step(db, trainer.generator, caps)
+            torch.cuda.synchronize()
+        if len(calls) != convs_per_step or (
+                LAUNCHES[DW_MMA_NAME] - before < convs_per_step):
+            raise AssertionError(f"{label}: {len(calls)} {k2} calls, "
+                                 f"{LAUNCHES[DW_MMA_NAME] - before} "
+                                 f"tensor-core dW launches in one bf16 step, "
+                                 f"expected {convs_per_step}")
+        out[label] = dict(zip(("dx", "dw"), call_shares(calls,
+                                                       kk["bwd_ref"])))
+        del calls
+        torch.cuda.empty_cache()
+    log(f"  {k2} calls of one bf16 train step against their plain versions "
+        f"on the same inputs (worst share of the sum of |terms|, bound "
+        f"{SUM_ORDER_RTOL}): the kernels x{convs_per_step} dX "
+        f"{out['kernels']['dx']:.3g}, dW {out['kernels']['dw']:.3g}; a {k2} "
+        f"whose dW misses 1/16 of the groups: dW {out['wrong dW']['dw']:.3g}")
+    if not max(out["kernels"].values()) <= SUM_ORDER_RTOL:
+        raise AssertionError(f"bf16 {k2} in the train step: {out}")
+    if out["wrong dW"]["dw"] <= SUM_ORDER_RTOL:
+        raise AssertionError(f"the bf16 per-call check does not catch a "
+                             f"wrong {k2} dW: {out}")
+    return out
 
 
 def step_parts(prof):
@@ -1097,6 +1292,8 @@ def drive_trainer(trainer, cfg, card, kind, convs_per_step, k3_name,
     import torch
     from fusiontransformer_tpu_torch.ops.kernels import (LAUNCHES,
                                                          reset_launches)
+    from fusiontransformer_tpu_torch.ops.kernels.binned_conv import (
+        DW_MMA_NAME)
     kk = binned_kernels(kind)
     other = binned_kernels("slots" if kind == "grouped" else "grouped")
     torch.cuda.reset_peak_memory_stats()
@@ -1122,6 +1319,7 @@ def drive_trainer(trainer, cfg, card, kind, convs_per_step, k3_name,
     n_fwd = TRAIN_STEPS + n_val
     want = {kk["fwd"].__name__: convs_per_step * n_fwd,
             kk["bwd"].__name__: convs_per_step * TRAIN_STEPS,
+            DW_MMA_NAME: convs_per_step * TRAIN_STEPS,
             other["fwd"].__name__: 0, other["bwd"].__name__: 0,
             k3_name: 2 * n_fwd, k3e8_name: 2 * TRAIN_STEPS}
     for name, n in want.items():
@@ -1139,7 +1337,8 @@ def drive_trainer(trainer, cfg, card, kind, convs_per_step, k3_name,
         f"{train_s:.1f} s ({TRAIN_STEPS * TRAIN_BATCH / train_s:.2f} train "
         f"scans/s over the whole run, first-step set-up and validation "
         f"included; {card}); launches {launches} = per train step {k1} "
-        f"{convs_per_step}, {k2} {convs_per_step}, K3 2, K3[E=8] 2, and per "
+        f"{convs_per_step}, {k2} {convs_per_step} (each with one "
+        f"tensor-core dW), K3 2, K3[E=8] 2, and per "
         f"eval step {k1} {convs_per_step}, K3 2; overflow {overflow}; mean "
         f"losses {losses}; validation {val}; peak device memory "
         f"{peak_gb:.1f} GB")
@@ -1520,6 +1719,8 @@ def main() -> int:
     from fusiontransformer_tpu_torch.ops.kernels import (LAUNCHES,
                                                          reset_launches)
     from fusiontransformer_tpu_torch.ops.kernels import build as kbuild
+    from fusiontransformer_tpu_torch.ops.kernels.binned_conv import (
+        DW_MMA_NAME)
     from fusiontransformer_tpu_torch.ops.kernels.segment_sum import (
         launch_name)
     k3_name, k3e8_name = launch_name(1), launch_name(8)
@@ -1547,9 +1748,8 @@ def main() -> int:
     log(f"kernels built in {time.time() - t0:.1f} s (parallel nvcc): "
         + ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in report.items()))
     for name, rep in report.items():
-        for line in rep["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        for entry, props in ptxas_summary(rep["log"]):
+            log(f"  ptxas {name} {entry}: {props}")
 
     cfg = get_default_cfg()
     cfg.merge_from_file(CONFIG)
@@ -1705,6 +1905,9 @@ def main() -> int:
     train = drive_trainer(trainer, tcfg, card, "grouped", convs_per_step,
                           k3_name, k3e8_name)
     tlaunches = train["launches"]
+    train["bf16_k2_calls"] = bf16_step_calls(
+        trainer, "grouped", device_batch(hb, trainer.device), caps,
+        convs_per_step)
     del trainer
     torch.cuda.empty_cache()
     phase_end("8")
@@ -1771,6 +1974,8 @@ def main() -> int:
     ptrain = drive_trainer(ptrainer, ptcfg, card, "slots", convs_per_step,
                            k3_name, k3e8_name)
     ptlaunches = ptrain["launches"]
+    ptrain["bf16_k2_calls"] = bf16_step_calls(ptrainer, "slots", tdb, caps,
+                                              convs_per_step)
     # The train step routes on the batch too: with the host maps K1 / K2.
     pdb = device_batch(hb, "cuda")
     ptrain["step_side_by_side_ms"] = side_by_side("train step", {
@@ -1797,6 +2002,15 @@ def main() -> int:
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                 "bound_by": max(m["bound_t"], key=m["bound_t"].get),
                 "library_ms": library_ms}
+
+    def bwd_entry(name, m, launches_of):
+        """K2 / K2' with their launch split into dX, dW (the tensor-core
+        kernel, launched ``dw_launches`` times on the path) and reduce."""
+        return {**entry(name, K1_SOURCE, K2_REPLACES, m, None, launches_of),
+                **{k: m[k] for k in ("dx_ms", "dw_ms", "reduce_ms",
+                                     "dx_bound_ms", "dw_bound_ms",
+                                     "cuda_core_dw_ms")},
+                "dw_launches": launches_of.get(DW_MMA_NAME, 0)}
 
     detail = {"card": card, "binned_conv_grouped_fwd": k1_rows,
               "sorted_segment_weighted_sum": k3_rows,
@@ -1826,16 +2040,14 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("binned_conv_grouped_fwd", K1_SOURCE, K1_REPLACES, k1, None,
               serve["launches"]),
-        entry("binned_conv_grouped_bwd", K1_SOURCE, K2_REPLACES, k2, None,
-              tlaunches),
+        bwd_entry("binned_conv_grouped_bwd", k2, tlaunches),
         entry(k3_name, K3_SOURCE, K3_REPLACES, k3, k3["library_ms"],
               serve["launches"]),
         entry(k3e8_name, K3_SOURCE, K3_REPLACES, k3e8, k3e8["library_ms"],
               tlaunches),
         entry("binned_conv_slots_fwd", K1_SOURCE, K1_REPLACES, k1p, None,
               pserve["launches"]),
-        entry("binned_conv_slots_bwd", K1_SOURCE, K2_REPLACES, k2p, None,
-              ptlaunches),
+        bwd_entry("binned_conv_slots_bwd", k2p, ptlaunches),
         *(entry(name, GATHER_SOURCE, TOOL_KERNELS[name], m,
                 m["library_ms"], tools["launches"])
           for name, m in gather_main.items()),

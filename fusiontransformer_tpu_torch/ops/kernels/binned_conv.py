@@ -20,12 +20,15 @@ gathers their callers run first, for both kinds of slot map:
 
 ``w`` is ``[27, Cin, Cout]`` in the JAX tap order (x-slowest).  Operands are
 bf16 (the production path) or f32; products and sums are f32; the results
-are float32.
+are float32.  The backward's dW routes on the operand dtype
+(``dw_schedule``): bf16 on the tensor cores, f32 (the precise path) on the
+CUDA cores.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -36,6 +39,9 @@ NAME = "binned_conv_grouped_fwd"
 BWD_NAME = "binned_conv_grouped_bwd"
 SLOTS_NAME = "binned_conv_slots_fwd"
 SLOTS_BWD_NAME = "binned_conv_slots_bwd"
+# The tensor-core dW kernel inside K2 / K2' (bf16 operands): counted beside
+# the backward's own count, once per backward launch that runs it.
+DW_MMA_NAME = "binned_conv_dw_mma"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -203,39 +209,110 @@ def _launch_fwd(name, symbol, feats, src, codes, w):
     return out
 
 
-def bwd_chunks(v: int, cin: int, cout: int) -> int:
-    """How many consecutive chunks of groups the dW reduction splits into:
-    about four waves of (chunk x 32x32-tile) blocks over the 132 SMs of an
-    H100 (one block fits an SM), at most one chunk per group.  Each chunk
-    costs a 27*Cin*Cout f32 partial: at most about 60 MB in all."""
-    tiles = -(-cin // 32) * -(-cout // 32)
-    return max(1, min(v // 8, -(-4 * 132 // tiles)))
+# The dW reduction's schedule on an H100: 132 SMs, 228 KB of shared memory
+# an SM, at most 2048 threads an SM.  The tensor-core kernel runs blocks of
+# DW_THREADS threads over k-steps of DW_STEP voxels in a DW_STAGES-deep ring.
+SMS = 132
+SMEM_PER_SM = 228 * 1024
+DW_THREADS = 128
+DW_STEP = 64
+DW_STAGES = 3
+DW_WAVES = 4            # waves the chunk count aims at
+DW_SCRATCH = 64 << 20   # partials + row table, bytes
 
 
-def _launch_bwd(name, symbol, dout, feats, src, codes, w):
-    """One backward launch (dX, dW), as ``_launch_fwd``."""
+class DwSchedule(NamedTuple):
+    """How one dW launch runs (``dw_schedule``)."""
+    route: int          # 0 CUDA cores (f32 operands), 1 tensor cores (bf16)
+    tile_m: int         # (Cin, Cout) tile of a block
+    tile_n: int
+    nchunks: int        # consecutive chunks of chunk_groups groups
+    chunk_groups: int   # (the last chunk shorter, none empty)
+    scratch_bytes: int  # f32 partials, and the int32 row table of route 1
+
+
+def _tile(width: int) -> int:
+    """32 or 64, whichever pads ``width`` less; 64 on a tie."""
+    return min((64, 32), key=lambda b: -(-width // b) * b)
+
+
+def dw_resident_blocks(tile_m: int, tile_n: int) -> int:
+    """Blocks of the tensor-core dW kernel that fit on one SM by shared
+    memory (its ring plus 1 KB the card reserves per block) and by threads:
+    the most that can run at once; registers may allow fewer."""
+    smem = DW_STAGES * DW_STEP * (tile_m + tile_n) * 2
+    return min(2048 // DW_THREADS, SMEM_PER_SM // (smem + 1024))
+
+
+def dw_schedule(v: int, cin: int, cout: int, dtype) -> DwSchedule:
+    """The route, tiles and chunks of the dW reduction of one backward call.
+
+    bf16 operands take the tensor-core kernel (route 1): (Cin, Cout) tiles
+    of 32 or 64, one block per (tile, tap, chunk), chunks whole k-steps of
+    8 groups, enough of them for DW_WAVES waves at the most blocks an SM
+    can hold, within DW_SCRATCH with the [27, V] row table.  f32 operands
+    (the precise path) keep the CUDA-core kernel (route 0): 32x32 tiles,
+    about four waves of one block an SM, at most one chunk per group.
+    """
+    ng = max(1, v // 8)
+    per_chunk = 27 * cin * cout * 4
+    if dtype == torch.bfloat16:
+        tm, tn = _tile(cin), _tile(cout)
+        blocks = 27 * -(-cin // tm) * -(-cout // tn)
+        table = 27 * v * 4
+        step = DW_STEP // 8
+        want = -(-DW_WAVES * SMS * dw_resident_blocks(tm, tn) // blocks)
+        n = max(1, min(want, (DW_SCRATCH - table) // per_chunk,
+                       -(-ng // step)))
+        cg = -(-ng // n)
+        cg = -(-cg // step) * step      # whole k-steps
+        route = 1
+    else:
+        tm = tn = 32
+        tiles = -(-cin // 32) * -(-cout // 32)
+        n = max(1, min(ng, -(-4 * SMS // tiles), DW_SCRATCH // per_chunk))
+        cg = -(-ng // n)
+        table, route = 0, 0
+    n = -(-ng // cg)
+    return DwSchedule(route, tm, tn, n, cg, n * per_chunk + table)
+
+
+def _launch_bwd(name, symbol, dout, feats, src, codes, w, sched=None):
+    """One backward launch (dX, dW), as ``_launch_fwd``; ``sched`` defaults
+    to ``dw_schedule`` for the operands' dtype."""
     _check_cuda(feats, src, codes, w, dout)
+    stream = torch.cuda.current_stream(feats.device).cuda_stream
+    return _run_bwd(name, symbol, dout, feats, src, codes, w, stream, sched)
+
+
+def _run_bwd(name, symbol, dout, feats, src, codes, w, stream, sched=None):
     v, cin = feats.shape
     cout = w.shape[2]
-    nchunks = bwd_chunks(v, cin, cout)
+    if sched is None:
+        sched = dw_schedule(v, cin, cout, feats.dtype)
     dev = feats.device
     dx = torch.empty((v, cin), dtype=torch.float32, device=dev)
     dw = torch.empty((27, cin, cout), dtype=torch.float32, device=dev)
     wt = torch.empty_like(w)
-    partial = torch.empty((nchunks, 27, cin, cout), dtype=torch.float32,
-                          device=dev)
+    partial = torch.empty((sched.nchunks, 27, cin, cout),
+                          dtype=torch.float32, device=dev)
+    rows = (torch.empty((27, v), dtype=torch.int32, device=dev)
+            if sched.route == 1 else None)
     fn = getattr(load("binned_conv"), symbol)
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(dout.data_ptr(), feats.data_ptr(), src.data_ptr(),
             codes.data_ptr(), w.data_ptr(), wt.data_ptr(),
-            partial.data_ptr(), dx.data_ptr(), dw.data_ptr(), v,
-            src.shape[1], cin, cout, nchunks, _DTYPES[feats.dtype], stream)
+            None if rows is None else rows.data_ptr(), partial.data_ptr(),
+            dx.data_ptr(), dw.data_ptr(), v, src.shape[1], cin, cout,
+            sched.route, sched.tile_m, sched.tile_n, sched.nchunks,
+            sched.chunk_groups, _DTYPES[feats.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
+    if sched.route == 1:
+        LAUNCHES[DW_MMA_NAME] += 1
     return dx, dw
 
 

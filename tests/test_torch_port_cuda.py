@@ -120,32 +120,65 @@ def _grouped_maps(cuda, cap=6144, level=1):
     return [torch.as_tensor(m, device=cuda) for m in maps[level]]
 
 
+def _ragged_without_tap0(src, codes, kind, groups=397):
+    """The maps' first ``groups`` groups (a group count that is a multiple
+    of neither the dW kernel's 8-group k-step nor its chunk), rows past them
+    made the sentinel, and tap 0 emptied in every group."""
+    v = groups * 8
+    n = groups if kind == "grouped" else v
+    src, codes = src[:n].clone(), codes[:n].clone()
+    if kind == "grouped":
+        codes[codes // 8 == 0] = 216             # bins 0-7 are tap 0's
+    else:
+        codes[codes == 0] = 27
+    src[src >= v] = v
+    return src, codes
+
+
+def _check_bwd(bwd, bwd_ref, name, dout, x, src, codes, w, tap0_empty):
+    """One backward launch against its plain version: dX and dW within 2e-5
+    of the sum of |terms|, dW bitwise equal across two launches, bf16 dW on
+    the tensor-core kernel, dW[26] zero where tap 0 is empty."""
+    from fusiontransformer_tpu_torch.ops.kernels.binned_conv import (
+        DW_MMA_NAME)
+    before = (LAUNCHES[name], LAUNCHES[DW_MMA_NAME])
+    dx, dw = bwd(dout, x, src, codes, w)
+    mma = int(x.dtype == torch.bfloat16)
+    assert (LAUNCHES[name], LAUNCHES[DW_MMA_NAME]) == (before[0] + 1,
+                                                       before[1] + mma)
+    rdx, rdw = bwd_ref(dout, x, src, codes, w)
+    sdx, sdw = bwd_ref(dout.abs(), x.abs(), src, codes, w.abs())
+    torch.cuda.synchronize()
+    assert (dx - rdx).abs().max().item() <= 2e-5 * sdx.max().item()
+    assert (dw - rdw).abs().max().item() <= 2e-5 * sdw.max().item()
+    _, dw2 = bwd(dout, x, src, codes, w)
+    assert torch.equal(dw, dw2)
+    if tap0_empty:
+        assert not dw[26].any() and not rdw[26].any()
+
+
+@pytest.mark.parametrize("ragged", [False, True])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("cin,cout", [(4, 32), (32, 64), (128, 96),
-                                      (384, 256)])
-def test_binned_conv_bwd_kernel_matches_plain(cuda, dtype, cin, cout):
+                                      (192, 128), (384, 256)])
+def test_binned_conv_bwd_kernel_matches_plain(cuda, dtype, cin, cout, ragged):
     """K2 (dX and dW) against its plain version on the card, at the widths
     of the flagship's grouped levels; both sum the same f32 products in
-    another order (2e-5 of the sum of |terms|).  dW is bitwise repeatable."""
+    another order (2e-5 of the sum of |terms|).  dW is bitwise repeatable;
+    bf16 takes the tensor-core dW, f32 the CUDA-core one.  ``ragged``: 397
+    groups with tap 0 empty everywhere."""
     from fusiontransformer_tpu_torch.ops.kernels.binned_conv import (
         BWD_NAME, binned_conv_grouped_bwd, binned_conv_grouped_bwd_ref)
     src, binp = _grouped_maps(cuda)
+    if ragged:
+        src, binp = _ragged_without_tap0(src, binp, "grouped")
     cap = src.shape[0] * 8
     gen = torch.Generator().manual_seed(cin + cout)
     x = torch.randn(cap, cin, generator=gen).to(cuda, dtype)
     w = torch.randn(27, cin, cout, generator=gen).to(cuda, dtype)
     dout = torch.randn(cap, cout, generator=gen).to(cuda, dtype)
-    before = LAUNCHES[BWD_NAME]
-    dx, dw = binned_conv_grouped_bwd(dout, x, src, binp, w)
-    assert LAUNCHES[BWD_NAME] == before + 1
-    rdx, rdw = binned_conv_grouped_bwd_ref(dout, x, src, binp, w)
-    sdx, sdw = binned_conv_grouped_bwd_ref(dout.abs(), x.abs(), src, binp,
-                                           w.abs())
-    torch.cuda.synchronize()
-    assert (dx - rdx).abs().max().item() <= 2e-5 * sdx.max().item()
-    assert (dw - rdw).abs().max().item() <= 2e-5 * sdw.max().item()
-    _, dw2 = binned_conv_grouped_bwd(dout, x, src, binp, w)
-    assert torch.equal(dw, dw2)
+    _check_bwd(binned_conv_grouped_bwd, binned_conv_grouped_bwd_ref,
+               BWD_NAME, dout, x, src, binp, w, ragged)
 
 
 def _per_voxel_maps(cuda, k, level=1):
@@ -164,38 +197,37 @@ def _per_voxel_maps(cuda, k, level=1):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("k,cin,cout", [(16, 4, 32), (16, 128, 96),
-                                        (5, 32, 64), (16, 384, 256)])
-def test_binned_conv_slots_kernels_match_plain(cuda, dtype, k, cin, cout):
+@pytest.mark.parametrize("k,cin,cout,ragged", [
+    (16, 4, 32, False), (16, 128, 96, False), (5, 32, 64, False),
+    (16, 384, 256, False), (1, 32, 64, False), (27, 192, 128, False),
+    (27, 64, 128, True), (1, 128, 96, True), (5, 384, 256, True)])
+def test_binned_conv_slots_kernels_match_plain(cuda, dtype, k, cin, cout,
+                                               ragged):
     """K1' and K2' (dX, dW) against their plain versions on the card, on
-    per-voxel maps the hierarchy built there (K=5 drops live taps), 2e-5 of
-    the sum of |terms|; dW bitwise repeatable across two launches."""
+    per-voxel maps the hierarchy built there (K < 27 drops live taps), 2e-5
+    of the sum of |terms|; dW bitwise repeatable across two launches, bf16
+    on the tensor-core dW.  ``ragged``: 397 groups with tap 0 empty."""
     from fusiontransformer_tpu_torch.ops.kernels.binned_conv import (
         SLOTS_BWD_NAME, SLOTS_NAME, binned_conv_slots_bwd,
         binned_conv_slots_bwd_ref, binned_conv_slots_fwd,
         binned_conv_slots_ref)
     src, tap = _per_voxel_maps(cuda, k)
+    if ragged:
+        src, tap = _ragged_without_tap0(src, tap, "slots")
     v = src.shape[0]
     gen = torch.Generator().manual_seed(cin + cout + k)
     x = torch.randn(v, cin, generator=gen).to(cuda, dtype)
     w = torch.randn(27, cin, cout, generator=gen).to(cuda, dtype)
     dout = torch.randn(v, cout, generator=gen).to(cuda, dtype)
-    before = (LAUNCHES[SLOTS_NAME], LAUNCHES[SLOTS_BWD_NAME])
+    before = LAUNCHES[SLOTS_NAME]
     out = binned_conv_slots_fwd(x, src, tap, w)
-    dx, dw = binned_conv_slots_bwd(dout, x, src, tap, w)
-    assert (LAUNCHES[SLOTS_NAME], LAUNCHES[SLOTS_BWD_NAME]) == (
-        before[0] + 1, before[1] + 1)
+    assert LAUNCHES[SLOTS_NAME] == before + 1
     ref = binned_conv_slots_ref(x, src, tap, w)
-    rdx, rdw = binned_conv_slots_bwd_ref(dout, x, src, tap, w)
     scale = binned_conv_slots_ref(x.abs(), src, tap, w.abs()).max()
-    sdx, sdw = binned_conv_slots_bwd_ref(dout.abs(), x.abs(), src, tap,
-                                         w.abs())
     torch.cuda.synchronize()
     assert (out - ref).abs().max().item() <= 2e-5 * scale.item()
-    assert (dx - rdx).abs().max().item() <= 2e-5 * sdx.max().item()
-    assert (dw - rdw).abs().max().item() <= 2e-5 * sdw.max().item()
-    _, dw2 = binned_conv_slots_bwd(dout, x, src, tap, w)
-    assert torch.equal(dw, dw2)
+    _check_bwd(binned_conv_slots_bwd, binned_conv_slots_bwd_ref,
+               SLOTS_BWD_NAME, dout, x, src, tap, w, ragged)
 
 
 def test_devoxelize_adjoint_runs_k3_e8_on_the_card(cuda):
