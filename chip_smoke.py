@@ -14,22 +14,29 @@ the card, in phases; any failure raises and the exit code is non-zero:
    E=8 case), bf16-rounding and precise;
 3. K1 ``binned_conv_grouped_fwd`` against its plain version on the same
    batch's group-pooled maps at L0-L3, for every (Cin, Cout) the flagship
-   runs there, bf16 and f32;
+   runs there, bf16 (the tensor-core kernel) and f32 (the CUDA-core one),
+   each bitwise repeatable; for bf16 also the CUDA-core kernel's time on
+   the same operands, the live (64-voxel tile, tap) and (group, tap)
+   shares, and a forward that skips the center tap, which the check must
+   fail;
 4. the inference path — ``InferenceEngine`` for
    ``configs/semantic_kitti/middlefusion.yaml`` (DeiT-B/384 + SPVCNN cr 1.0,
    20 classes, random weights from a seed): warmup, then requests of
    SyntheticSCN scans of about 18,000 points at batch 1, with the kernels'
-   launch counts read around them;
+   launch counts read around them (every K1 on the tensor-core forward);
 5. the inference path against the plain path — the same weights and records
    in f32 on the card (TF32 off) and through the port on the CPU; and the
    bf16 path's drift from the f32 one on the card (reported);
-6. K2 ``binned_conv_grouped_bwd`` against its plain version at every
-   grouped (level, Cin, Cout) of the flagship's train step, on a real
-   training batch (10 scans, adaptive capacities), bf16 (dW on the tensor
-   cores) and f32 (dW on the CUDA cores), with dW bitwise equal across two
-   launches; each launch split into dX, dW and reduce by kernel name from
-   the profiler, each beside its bound, and for bf16 the CUDA-core dW on
-   the same operands beside the tensor-core one; K3 at E=8 (the devoxelize
+6. K1 as in phase 3 and K2 ``binned_conv_grouped_bwd`` against its plain
+   version at every grouped (level, Cin, Cout) of the flagship's train
+   step, on a real training batch (10 scans, adaptive capacities), bf16 (dX
+   and dW on the tensor cores) and f32 (on the CUDA cores), with dX and dW
+   bitwise equal across two launches; each launch split into row table,
+   dX, dW and reduce by kernel name from the profiler, each beside its
+   bound, and for bf16 the CUDA-core route on the same operands beside the
+   tensor-core one; whether the forward's, dX's and dW's times follow
+   the live (tile, tap) share (the same maps with only the center tap, and
+   with no live bin); K3 at E=8 (the devoxelize
    adjoint) at L4 and L2 of the same batch; the card's bf16 GEMM gradient
    against the CPU's at the ViT's shapes;
 7. one train step: f32, TF32 off, shared weights, dropout off, 2 scans (the
@@ -45,26 +52,28 @@ the card, in phases; any failure raises and the exit code is non-zero:
    maps, copy, step on CUDA events; forward / backward / optimizer /
    metrics from the step's own ``record_function`` ranges; device busy
    share) and a steady window of ``train_for_one_epoch`` over 6 more
-   batches (train scans/s); then every K2 call of one more bf16 train step
-   against its plain version on the same inputs, and the same step with a
-   K2 whose dW misses 1/16 of the groups, which that check must catch;
+   batches (train scans/s); then every K1 and K2 call of one more bf16
+   train step against its plain version on the same inputs (with the
+   step's tensor-core launches counted), and the same step with a K2 whose
+   dW misses 1/16 of the groups, which that check must catch;
 
 then the same configuration with ``TPU.CONV_SLOT_POOL False`` (no host slot
 maps; the hierarchy builds per-voxel K-slot maps on the card):
 
-9. K1' ``binned_conv_slots_fwd`` on the batch-1 serving scan's per-voxel
-   maps and K2' ``binned_conv_slots_bwd`` on the batch-10 training batch's,
-   at every L0-L3 (Cin, Cout), against their plain versions, bf16 and f32,
-   dW bitwise equal across two launches, K2' split as K2 in phase 6; what
-   the maps cost inside the hierarchy build;
+9. K1' ``binned_conv_slots_fwd`` on the batch-1 serving scan's and the
+   batch-10 training batch's per-voxel maps (as K1 in phase 3) and K2'
+   ``binned_conv_slots_bwd`` on the training batch's, at every L0-L3
+   (Cin, Cout), against their plain versions, bf16 and f32, bitwise
+   repeatable, K2' split as K2 in phase 6; what the maps cost inside the
+   hierarchy build;
 10. ``InferenceEngine`` on the per-voxel path, 8 requests at batch 1 as in
     phase 4; its f32 logits on the card against the CPU's and against the
     group-pooled path's on the card; its predict step side by side with
     the group-pooled one;
 11. one f32 train step on the per-voxel path as in phase 7 (with a K2'
     whose dW misses 1/16 of the groups), then ``SemanticTrainer`` as in
-    phase 8, with its bf16 per-call K2' check; its train step side by side
-    with the group-pooled one;
+    phase 8, with its bf16 per-call K1' / K2' check; its train step side by
+    side with the group-pooled one;
 
 then the tool kernels, the port's counterparts of the JAX tools' Pallas
 kernels:
@@ -81,9 +90,13 @@ kernels:
     plus a tail-heavy and a negative-score input, each within ATTN_TOL of
     its plain version;
 13. a ``{"kernels": [...]}`` line: launches, errors and times of each
-    kernel; K2 and K2' also carry their dX / dW / reduce times, the dX and
-    dW bounds, the CUDA-core dW time on the same bf16 operands, and the
-    tensor-core dW's launches on the path (``dw_launches``).
+    kernel; K1 and K1' also carry their device time over CUDA-graph
+    replays, the CUDA-core kernel's times on the same operands, the
+    tensor-core forward's launches on the path and the same numbers per
+    train step; K2 and K2' their row table / dX / dW / reduce times, the dX
+    and dW bounds, the CUDA-core route's times on the same bf16 operands,
+    and the tensor-core launches on the path (``dw_launches``,
+    ``fwd_mma_launches``).
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -369,14 +382,22 @@ def dw_missing_groups(kind):
     return wrong
 
 
-# K2's launch runs these kernels, by the name the profiler gives them: dX
-# (the tap-reversed W, then K1's kernel on dout), dW (the row table and the
-# tensor-core kernel for bf16, the CUDA-core kernel for f32), and the
-# fixed-order sum of the chunks' partials.
-BWD_PARTS = {"dx": ("flip_transpose_kernel", "binned_conv_grouped_fwd_kernel"),
-             "dw": ("bin_rows_kernel", "binned_conv_dw_mma_kernel",
-                    "binned_conv_grouped_dw_kernel", "Memset"),
+# K2's launch runs these kernels, by the name the profiler gives them: the
+# row table (bf16: one a launch, read by dX and dW), dX (bf16: the
+# tensor-core forward on dout and W[26-t] read transposed; f32: the
+# tap-reversed W, then the CUDA-core forward), dW (the tensor-core kernel
+# for bf16, the CUDA-core kernel for f32), and the fixed-order sum of the
+# chunks' partials.
+BWD_PARTS = {"rows": ("bin_rows_kernel", "Memset"),
+             "dx": ("flip_transpose_kernel", "binned_conv_grouped_fwd_kernel",
+                    "binned_conv_fwd_mma_kernel"),
+             "dw": ("binned_conv_dw_mma_kernel",
+                    "binned_conv_grouped_dw_kernel"),
              "reduce": ("reduce_chunks_kernel",)}
+BWD_NEED = {1: ("bin_rows_kernel", "binned_conv_fwd_mma_kernel",
+                "binned_conv_dw_mma_kernel", "reduce_chunks_kernel"),
+            0: ("flip_transpose_kernel", "binned_conv_grouped_fwd_kernel",
+                "binned_conv_grouped_dw_kernel", "reduce_chunks_kernel")}
 
 
 def bwd_split(fn, route, calls=5, attempts=4):
@@ -391,10 +412,6 @@ def bwd_split(fn, route, calls=5, attempts=4):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    need = ("flip_transpose_kernel", "binned_conv_grouped_fwd_kernel",
-            "reduce_chunks_kernel") + (
-        ("bin_rows_kernel", "binned_conv_dw_mma_kernel") if route
-        else ("binned_conv_grouped_dw_kernel",))
     fn()
     torch.cuda.synchronize()
     for _ in range(attempts):
@@ -411,67 +428,158 @@ def bwd_split(fn, route, calls=5, attempts=4):
                 if name is not None:
                     times.setdefault(name, []).append(
                         e.time_range.elapsed_us() / 1e3)
-        if all(n in times for n in need):
+        if all(n in times for n in BWD_NEED[route]):
             return {p: sum(st.median(times[n]) for n in names if n in times)
                     for p, names in BWD_PARTS.items()}
     return dict.fromkeys(BWD_PARTS)
 
 
-def phase_k1(hier, model, gen, kind="grouped"):
-    """K1 (or K1') vs plain at every slot-map (level, Cin, Cout), bf16 and
-    f32."""
+def tap_skipped(kind, fwd, tap=13):
+    """A deliberately wrong forward: the kernel on maps whose tap ``tap``
+    (the center tap by default, live at every valid voxel) feeds no bin."""
+    sentinel = binned_kernels(kind)["sentinel"]
+
+    def wrong(x, src, codes, w):
+        cut = codes.clone()
+        cut[(cut // 8 if kind == "grouped" else cut) == tap] = sentinel
+        return fwd(x, src, cut, w)
+    return wrong
+
+
+def phase_k1(hier, model, gen, kind="grouped", per="request"):
+    """K1 (or K1') vs plain at every slot-map (level, Cin, Cout), bf16 (the
+    tensor-core kernel) and f32 (the CUDA-core kernel), each launch bitwise
+    repeatable.  For bf16 also the CUDA-core kernel on the same operands (the
+    route f32 takes, and the kernel bf16 ran before), the share of (64-voxel
+    tile, tap) and (8-voxel group, tap) pairs that hold a live bin, the
+    device time of every (Cout tile, k-step) pair beside the schedule's
+    pick, and a forward that skips the center tap, which the check must
+    fail.  Times on
+    CUDA events: eager (``ms``, what a caller's launch costs) and over
+    CUDA-graph replays (``graph_ms``, the device's time).  ``per``: what the
+    counts are per (a "request" or a "train step")."""
     import torch
+    from fusiontransformer_tpu_torch.ops.kernels import binned_conv as bc
     kk = binned_kernels(kind)
     fwd, fwd_ref, kid = kk["fwd"], kk["ref"], kk["ids"][0]
+    symbol = ("ftx_binned_conv_grouped_fwd" if kind == "grouped"
+              else "ftx_binned_conv_slots_fwd")
+    wrong_fwd = tap_skipped(kind, fwd)
     dev = hier.pt_valid.device
     convs = slot_convs(model, hier)
     shapes = {}
     for level, cin, cout, w in convs:
         shapes.setdefault((level, cin, cout), [0, w])[0] += 1
-    rows, main = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                      "max_abs_err": 0.0, "bound_t": {}}
+    keys = ("ms", "graph_ms", "plain_ms", "bound_ms", "cuda_core_ms",
+            "cuda_core_graph_ms", "best_tiles_graph_ms", "live_flops",
+            "tile_flops", "group_flops")
+    rows, main = [], {**dict.fromkeys(keys, 0.0), "max_abs_err": 0.0,
+                      "max_share": 0.0, "wrong_share": math.inf,
+                      "bound_t": {}, "per": per}
     for (level, cin, cout), (count, w) in sorted(shapes.items()):
         src, binp = hier.levels[level].slot_idx
         v = hier.levels[level].valid.shape[0]
         live = kk["live"](src, binp, v)
+        table = bc.bin_rows_ref(src, binp, per_voxel=kind == "slots")
+        share64 = bc.live_tile_share(table, 64)
+        share8 = bc.live_tile_share(table, 8)
+        del table
         x32 = torch.randn(v, cin, generator=gen).to(dev)
         for dtype in (torch.bfloat16, torch.float32):
             x, wd = x32.to(dtype), w.to(dtype).contiguous()
             out = fwd(x, src, binp, wd)
+            out2 = fwd(x, src, binp, wd)
             ref = fwd_ref(x, src, binp, wd)
             scale = fwd_ref(x.abs(), src, binp, wd.abs()).max().item()
             torch.cuda.synchronize()
+            if not torch.equal(out, out2):
+                raise AssertionError(f"{kid} L{level} {cin}->{cout} {dtype}: "
+                                     f"differs between two launches")
             err = (out - ref).abs().max().item()
             if not err <= SUM_ORDER_RTOL * scale:
                 raise AssertionError(
                     f"{kid} L{level} {cin}->{cout} {dtype}: max abs err "
                     f"{err} > {SUM_ORDER_RTOL} x {scale}")
+            del out2
             ms = cuda_ms(lambda: fwd(x, src, binp, wd))
+            gms = graph_ms(lambda: fwd(x, src, binp, wd))
             plain_ms = cuda_ms(lambda: fwd_ref(x, src, binp, wd), iters=3,
                                reps=3)
             tname = str(dtype).replace("torch.", "")
             nbytes = (x.numel() * x.element_size() + 8 * src.numel()
                       + wd.numel() * wd.element_size() + 4 * v * cout)
             b_ms, b_by = bound(nbytes, 2 * live * cin * cout, tname)
-            rows.append(dict(level=level, cin=cin, cout=cout, dtype=tname,
-                             per_request=count, V=v,
-                             **{kk["width"]: src.shape[1]},
-                             live_slots=live, max_abs_err=err,
-                             tol=SUM_ORDER_RTOL * scale, ms=ms,
-                             plain_ms=plain_ms, bound_ms=b_ms,
-                             bound_by=b_by))
-            log(f"  {kid} L{level} {cin:3d}->{cout:3d} {tname:8s} x{count} "
-                f"V={v} {kk['width']}={src.shape[1]} live={live}: err "
-                f"{err:.3g} (tol {SUM_ORDER_RTOL * scale:.3g})  kernel "
-                f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms "
-                f"({b_by})")
+            row = dict(level=level, cin=cin, cout=cout, dtype=tname,
+                       **{f"per_{per.replace(' ', '_')}": count}, V=v,
+                       **{kk["width"]: src.shape[1]}, live_slots=live,
+                       live_tile64_share=share64, live_group8_share=share8,
+                       max_abs_err=err, tol=SUM_ORDER_RTOL * scale,
+                       bitwise_repeat=True, ms=ms, graph_ms=gms,
+                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+            extra = ""
             if dtype == torch.bfloat16:
-                main["ms"] += count * ms
-                main["plain_ms"] += count * plain_ms
-                main["bound_ms"] += count * b_ms
+                sched = bc.fwd_schedule(v, cin, cout, dtype)
+                core = bc.fwd_schedule(v, cin, cout, torch.float32)
+                wrong = (wrong_fwd(x, src, binp, wd) - ref).abs().max().item()
+                if wrong <= SUM_ORDER_RTOL * scale:
+                    raise AssertionError(f"the check does not catch a {kid} "
+                                         f"that skips the center tap: {wrong}")
+
+                def launch(s):
+                    return lambda: bc._launch_fwd(kid, symbol, x, src, binp,
+                                                  wd, s)
+                core_ms = cuda_ms(launch(core))
+                core_gms = graph_ms(launch(core))
+                # The schedule's pick against every (Cout tile, k-step).
+                tiles = {f"{tn}x{tk}": graph_ms(launch(sched._replace(
+                    tile_n=tn, tile_k=tk, tiles_n=-(-cout // tn))))
+                    for tn in (32, 64) for tk in (32, 64)}
+                best = min(tiles, key=tiles.get)
+                row.update(schedule=sched._asdict(), cuda_core_ms=core_ms,
+                           cuda_core_graph_ms=core_gms, tiles_graph_ms=tiles,
+                           wrong_share=wrong / scale)
+                main["best_tiles_graph_ms"] += count * tiles[best]
+                extra = (f"; tensor cores {sched.tile_m}x{sched.tile_n}x"
+                         f"{sched.tile_k} (of the Cout tile x k-step pairs "
+                         f"{best} is fastest: " + ", ".join(
+                             f"{k} {v:.4f}" for k, v in tiles.items())
+                         + f"), CUDA cores on these operands "
+                         f"{core_ms:.4f} ms (graph {core_gms:.4f}); live "
+                         f"(64-voxel tile, tap) {share64:.3f}, (group, tap) "
+                         f"{share8:.3f}; center tap skipped: "
+                         f"{wrong / scale:.3g}")
+                for key, val in (("ms", ms), ("graph_ms", gms),
+                                 ("plain_ms", plain_ms), ("bound_ms", b_ms),
+                                 ("cuda_core_ms", core_ms),
+                                 ("cuda_core_graph_ms", core_gms),
+                                 ("live_flops", 2 * live * cin * cout),
+                                 ("tile_flops", 2 * share64 * 27 * v * cin
+                                  * cout),
+                                 ("group_flops", 2 * share8 * 27 * v * cin
+                                  * cout)):
+                    main[key] += count * val
                 main["bound_t"][b_by] = (main["bound_t"].get(b_by, 0)
                                          + count * b_ms)
+                main["wrong_share"] = min(main["wrong_share"], wrong / scale)
+            rows.append(row)
+            log(f"  {kid} L{level} {cin:3d}->{cout:3d} {tname:8s} x{count} "
+                f"V={v} {kk['width']}={src.shape[1]} live={live}: err "
+                f"{err:.3g} (tol {SUM_ORDER_RTOL * scale:.3g}), bitwise "
+                f"repeatable  kernel {ms:.4f} ms (graph {gms:.4f})  plain "
+                f"{plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}){extra}")
             main["max_abs_err"] = max(main["max_abs_err"], err)
+            main["max_share"] = max(main["max_share"], err / scale)
+    log(f"  {kid} per {per}, bf16, summed over its {len(convs)} calls: "
+        f"tensor cores {main['ms']:.3f} ms (graph {main['graph_ms']:.3f}; "
+        f"with each shape's fastest tiles {main['best_tiles_graph_ms']:.3f}), "
+        f"CUDA cores on the same operands {main['cuda_core_ms']:.3f} ms "
+        f"(graph {main['cuda_core_graph_ms']:.3f}), bound "
+        f"{main['bound_ms']:.4f} ms; TFLOP live bins "
+        f"{main['live_flops'] / 1e12:.4f}, live (64-voxel tile, tap) "
+        f"{main['tile_flops'] / 1e12:.4f} (what the kernel multiplies), "
+        f"live (group, tap) {main['group_flops'] / 1e12:.4f}; worst share "
+        f"{main['max_share']:.3g}, center tap skipped >= "
+        f"{main['wrong_share']:.3g}")
     return rows, main, len(convs)
 
 
@@ -632,11 +740,11 @@ def fmt(ms):
 
 def phase_k2(hier, model, gen, kind="grouped"):
     """K2 (or K2') vs plain at every slot-map (level, Cin, Cout) of the
-    train step, bf16 and f32; dW bitwise equal across two launches.  Each
-    launch split into dX, dW and reduce (``bwd_split``), each part beside its
-    bound; for bf16 also the CUDA-core dW (the f32 route's kernel, run on
-    the same bf16 operands) in the same call, as the before of the
-    tensor-core one."""
+    train step, bf16 and f32; dX and dW bitwise equal across two launches.
+    Each launch split into row table, dX, dW and reduce (``bwd_split``),
+    each part beside its bound; for bf16 also the CUDA-core route (the f32
+    route's kernels, run on the same bf16 operands) in the same call, as the
+    before of the tensor-core one."""
     import torch
     from fusiontransformer_tpu_torch.ops.kernels import binned_conv as bc
     kk = binned_kernels(kind)
@@ -645,8 +753,9 @@ def phase_k2(hier, model, gen, kind="grouped"):
     shapes = {}
     for level, cin, cout, w in slot_convs(model, hier):
         shapes.setdefault((level, cin, cout), [0, w])[0] += 1
-    keys = ("ms", "plain_ms", "bound_ms", "dx_ms", "dw_ms", "reduce_ms",
-            "dx_bound_ms", "dw_bound_ms", "cuda_core_dw_ms")
+    keys = ("ms", "plain_ms", "bound_ms", "rows_ms", "dx_ms", "dw_ms",
+            "reduce_ms", "dx_bound_ms", "dw_bound_ms", "cuda_core_ms",
+            "cuda_core_dx_ms", "cuda_core_dw_ms")
     rows, main = [], {**dict.fromkeys(keys, 0.0), "max_abs_err": 0.0,
                       "bound_t": {}}
     for (level, cin, cout), (count, w) in sorted(shapes.items()):
@@ -658,13 +767,13 @@ def phase_k2(hier, model, gen, kind="grouped"):
         for dtype in (torch.bfloat16, torch.float32):
             x, d, wd = x32.to(dtype), d32.to(dtype), w.to(dtype).contiguous()
             dx, dw = bwd(d, x, src, binp, wd)
-            _, dw2 = bwd(d, x, src, binp, wd)
+            dx2, dw2 = bwd(d, x, src, binp, wd)
             rdx, rdw = bwd_ref(d, x, src, binp, wd)
             sdx, sdw = bwd_ref(d.abs(), x.abs(), src, binp, wd.abs())
             torch.cuda.synchronize()
-            if not torch.equal(dw, dw2):
+            if not (torch.equal(dw, dw2) and torch.equal(dx, dx2)):
                 raise AssertionError(f"{kid} L{level} {cin}->{cout} {dtype}: "
-                                     f"dW differs between two launches")
+                                     f"dX or dW differs between two launches")
             tname = str(dtype).replace("torch.", "")
             errs = {}
             for key, got, ref, terms in (("dX", dx, rdx, sdx),
@@ -676,7 +785,7 @@ def phase_k2(hier, model, gen, kind="grouped"):
                                          f"{tname} {key}: max abs err {err} "
                                          f"> {tol}")
                 errs[key] = (err, tol)
-            del rdx, rdw, sdx, sdw, dx, dw, dw2
+            del rdx, rdw, sdx, sdw, dx, dw, dx2, dw2
             sched = bc.dw_schedule(v, cin, cout, dtype)
             ms = cuda_ms(lambda: bwd(d, x, src, binp, wd), iters=3, reps=3)
             split = bwd_split(lambda: bwd(d, x, src, binp, wd),
@@ -684,12 +793,18 @@ def phase_k2(hier, model, gen, kind="grouped"):
             plain_ms = (cuda_ms(lambda: bwd_ref(d, x, src, binp, wd),
                                 iters=1, reps=3)
                         if dtype == torch.bfloat16 else None)
-            core_dw = None
+            core_ms = core_dx = core_dw = None
             if dtype == torch.bfloat16:
+                # The CUDA-core route on the same bf16 operands: the
+                # kernels bf16 ran before.
                 core = bc.dw_schedule(v, cin, cout, torch.float32)
-                core_dw = bwd_split(lambda: bc._launch_bwd(
-                    *kk["bwd_launch"], d, x, src, binp, wd, sched=core),
-                    core.route)["dw"]
+
+                def core_fn():
+                    return bc._launch_bwd(*kk["bwd_launch"], d, x, src, binp,
+                                          wd, sched=core)
+                core_ms = cuda_ms(core_fn, iters=3, reps=3)
+                core_split = bwd_split(core_fn, core.route)
+                core_dx, core_dw = core_split["dx"], core_split["dw"]
             es = x.element_size()
             maps = 8 * src.numel()
             nbytes = (es * (d.numel() + x.numel() + wd.numel()) + maps
@@ -707,33 +822,40 @@ def phase_k2(hier, model, gen, kind="grouped"):
                              max_abs_err_dx=errs["dX"][0],
                              tol_dx=errs["dX"][1],
                              max_abs_err_dw=errs["dW"][0],
-                             tol_dw=errs["dW"][1], dw_bitwise_repeat=True,
+                             tol_dw=errs["dW"][1], bitwise_repeat=True,
                              ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                              bound_by=b_by, dw_route=sched.route,
                              dw_schedule=sched._asdict(),
                              **{f"{p}_ms": t for p, t in split.items()},
                              dx_bound_ms=dx_b, dw_bound_ms=dw_b,
-                             dw_bound_by=dw_by, cuda_core_dw_ms=core_dw))
+                             dw_bound_by=dw_by, cuda_core_ms=core_ms,
+                             cuda_core_dx_ms=core_dx, cuda_core_dw_ms=core_dw))
             log(f"  {kid} L{level} {cin:3d}->{cout:3d} {tname:8s} x{count} "
                 f"V={v} {kk['width']}={src.shape[1]} live={live}: err dX "
                 f"{errs['dX'][0]:.3g} (tol {errs['dX'][1]:.3g}) dW "
-                f"{errs['dW'][0]:.3g} (tol {errs['dW'][1]:.3g}), dW bitwise "
-                f"repeatable  kernel {ms:.4f} ms = dX {fmt(split['dx'])} "
+                f"{errs['dW'][0]:.3g} (tol {errs['dW'][1]:.3g}), dX and dW "
+                f"bitwise repeatable  kernel {ms:.4f} ms = row table "
+                f"{fmt(split['rows'])} + dX {fmt(split['dx'])} "
                 f"(bound {dx_b:.4f}) + dW {fmt(split['dw'])} (route "
                 f"{sched.route}, {sched.tile_m}x{sched.tile_n} x "
                 f"{sched.nchunks} chunks; bound {dw_b:.4f}, {dw_by}) + reduce "
                 f"{fmt(split['reduce'])}"
-                + (f"; CUDA-core dW on these bf16 operands {fmt(core_dw)}"
+                + (f"; the CUDA-core route on these bf16 operands "
+                   f"{core_ms:.4f} ms: dX {fmt(core_dx)}, dW {fmt(core_dw)}"
                    if dtype == torch.bfloat16 else "")
                 + f"  plain "
                 f"{plain_ms if plain_ms is None else round(plain_ms, 4)} ms  "
                 f"bound {b_ms:.4f} ms ({b_by})")
             if dtype == torch.bfloat16:
                 for key, val in (("ms", ms), ("plain_ms", plain_ms),
-                                 ("bound_ms", b_ms), ("dx_ms", split["dx"]),
+                                 ("bound_ms", b_ms),
+                                 ("rows_ms", split["rows"]),
+                                 ("dx_ms", split["dx"]),
                                  ("dw_ms", split["dw"]),
                                  ("reduce_ms", split["reduce"]),
                                  ("dx_bound_ms", dx_b), ("dw_bound_ms", dw_b),
+                                 ("cuda_core_ms", core_ms),
+                                 ("cuda_core_dx_ms", core_dx),
                                  ("cuda_core_dw_ms", core_dw)):
                     main[key] = (None if val is None or main[key] is None
                                  else main[key] + count * val)
@@ -742,6 +864,38 @@ def phase_k2(hier, model, gen, kind="grouped"):
             main["max_abs_err"] = max(main["max_abs_err"], errs["dX"][0],
                                       errs["dW"][0])
     return rows, main
+
+
+def live_share_scaling(hier, gen, shapes=((0, 96, 96), (3, 256, 256))):
+    """Whether a kernel's time follows the live (64-voxel tile, tap) share:
+    the bf16 forward (CUDA-graph time) and the backward's dX and dW
+    (``bwd_split``) on the batch's group-pooled maps, on the same maps with
+    every tap but the center one emptied, and with no live bin at all."""
+    import torch
+    from fusiontransformer_tpu_torch.ops.kernels import binned_conv as bc
+    rows = []
+    for level, cin, cout in shapes:
+        src, binp = hier.levels[level].slot_idx
+        v = hier.levels[level].valid.shape[0]
+        x = torch.randn(v, cin, generator=gen).cuda().bfloat16()
+        d = torch.randn(v, cout, generator=gen).cuda().bfloat16()
+        w = torch.randn(27, cin, cout, generator=gen).cuda().bfloat16()
+        center = torch.where(binp // 8 == 13, binp, 216)
+        for label, codes in (("real maps", binp), ("center tap only", center),
+                             ("no live bin", torch.full_like(binp, 216))):
+            share = bc.live_tile_share(bc.bin_rows_ref(src, codes), 64)
+            split = bwd_split(lambda: bc.binned_conv_grouped_bwd(
+                d, x, src, codes, w), 1)
+            fwd_ms = graph_ms(lambda: bc.binned_conv_grouped_fwd(
+                x, src, codes, w))
+            rows.append(dict(level=level, cin=cin, cout=cout, V=v,
+                             maps=label, live_tile64_share=share,
+                             fwd_graph_ms=fwd_ms, **{f"{k}_ms": t for k, t in
+                                                     split.items()}))
+            log(f"  L{level} {cin}->{cout} V={v} {label:15s}: live (64-voxel "
+                f"tile, tap) {share:.3f}  forward {fwd_ms:.4f} ms (graph)  "
+                f"dX {fmt(split['dx'])}  dW {fmt(split['dw'])}")
+    return rows
 
 
 def phase_k3_e8(hier, gen):
@@ -1085,42 +1239,72 @@ def phase_train_parity(cfg, state, host_batch, caps, conv_names,
                                  "seg_loss_3d")}}
 
 
+def relaunched_equal(fn, call):
+    """Whether ``fn`` launched again on a recorded call's inputs gives its
+    recorded result bit for bit."""
+    import torch
+    args, kw, out = call
+    again = fn(*args, **kw)
+    outs, agains = ((out, again) if isinstance(out, tuple)
+                    else ((out,), (again,)))
+    return all(torch.equal(a, b) for a, b in zip(outs, agains))
+
+
 def bf16_step_calls(trainer, kind, db, caps, convs_per_step):
-    """Every K2 (or K2') call of one bf16 train step of ``trainer`` (the
-    shipped ``trainer.train_step`` on ``db``) against its plain version on
-    the same inputs, within SUM_ORDER_RTOL of the sum of |terms|; then the
-    same with a K2 whose dW misses the first 1/16 of the groups
+    """Every K1 and K2 (or K1', K2') call of one bf16 train step of
+    ``trainer`` (the shipped ``trainer.train_step`` on ``db``) against its
+    plain version on the same inputs, within SUM_ORDER_RTOL of the sum of
+    |terms|, and bitwise equal to itself launched again on them, with the
+    step's tensor-core launches counted (forward and dX on the forward
+    kernel, dW on its own, none on the CUDA-core forward);
+    then the same with a K2 whose dW misses the first 1/16 of the groups
     (``dw_missing_groups``), which that check must catch."""
     import torch
     from fusiontransformer_tpu_torch.ops.kernels import LAUNCHES
     from fusiontransformer_tpu_torch.ops.kernels.binned_conv import (
-        DW_MMA_NAME)
+        DW_MMA_NAME, FWD_CORE_NAME, FWD_MMA_NAME)
     kk = binned_kernels(kind)
-    k2, bname = kk["ids"][1], kk["bwd"].__name__
+    (k1, k2), fname, bname = kk["ids"], kk["fwd"].__name__, kk["bwd"].__name__
+    want = {FWD_MMA_NAME: 2 * convs_per_step, DW_MMA_NAME: convs_per_step,
+            FWD_CORE_NAME: 0}
     out = {}
     for label, fn in (("kernels", kk["bwd"]),
                       ("wrong dW", dw_missing_groups(kind))):
-        calls, before = [], LAUNCHES[DW_MMA_NAME]
-        with replaced(**{bname: recording(fn, calls)}):
+        fcalls, calls = [], []
+        before = {n: LAUNCHES[n] for n in want}
+        with replaced(**{fname: recording(kk["fwd"], fcalls),
+                         bname: recording(fn, calls)}):
             trainer.train_step(db, trainer.generator, caps)
             torch.cuda.synchronize()
-        if len(calls) != convs_per_step or (
-                LAUNCHES[DW_MMA_NAME] - before < convs_per_step):
-            raise AssertionError(f"{label}: {len(calls)} {k2} calls, "
-                                 f"{LAUNCHES[DW_MMA_NAME] - before} "
-                                 f"tensor-core dW launches in one bf16 step, "
-                                 f"expected {convs_per_step}")
+        got = {n: LAUNCHES[n] - before[n] for n in want}
+        if label == "kernels" and got != want:
+            raise AssertionError(f"tensor-core launches in one bf16 step: "
+                                 f"{got}, expected {want}")
+        if len(calls) != convs_per_step or len(fcalls) != convs_per_step:
+            raise AssertionError(f"{label}: {len(fcalls)} {k1} and "
+                                 f"{len(calls)} {k2} calls in one bf16 step, "
+                                 f"expected {convs_per_step} each")
         out[label] = dict(zip(("dx", "dw"), call_shares(calls,
                                                        kk["bwd_ref"])))
-        del calls
+        out[label]["fwd"] = max(call_shares(fcalls, kk["ref"]))
+        if label == "kernels":
+            repeat = [relaunched_equal(kk["fwd"], c) for c in fcalls] + [
+                relaunched_equal(fn, c) for c in calls]
+            if not all(repeat):
+                raise AssertionError(f"{repeat.count(False)} {k1} / {k2} "
+                                     f"calls of the bf16 step differ when "
+                                     f"launched again on their inputs")
+        del calls, fcalls
         torch.cuda.empty_cache()
-    log(f"  {k2} calls of one bf16 train step against their plain versions "
-        f"on the same inputs (worst share of the sum of |terms|, bound "
-        f"{SUM_ORDER_RTOL}): the kernels x{convs_per_step} dX "
-        f"{out['kernels']['dx']:.3g}, dW {out['kernels']['dw']:.3g}; a {k2} "
+    log(f"  {k1} and {k2} calls of one bf16 train step against their plain "
+        f"versions on the same inputs (worst share of the sum of |terms|, "
+        f"bound {SUM_ORDER_RTOL}): the kernels x{convs_per_step} forward "
+        f"{out['kernels']['fwd']:.3g}, dX {out['kernels']['dx']:.3g}, dW "
+        f"{out['kernels']['dw']:.3g}, each bitwise equal when launched "
+        f"again; tensor-core launches {want}; a {k2} "
         f"whose dW misses 1/16 of the groups: dW {out['wrong dW']['dw']:.3g}")
     if not max(out["kernels"].values()) <= SUM_ORDER_RTOL:
-        raise AssertionError(f"bf16 {k2} in the train step: {out}")
+        raise AssertionError(f"bf16 {k1} / {k2} in the train step: {out}")
     if out["wrong dW"]["dw"] <= SUM_ORDER_RTOL:
         raise AssertionError(f"the bf16 per-call check does not catch a "
                              f"wrong {k2} dW: {out}")
@@ -1293,7 +1477,7 @@ def drive_trainer(trainer, cfg, card, kind, convs_per_step, k3_name,
     from fusiontransformer_tpu_torch.ops.kernels import (LAUNCHES,
                                                          reset_launches)
     from fusiontransformer_tpu_torch.ops.kernels.binned_conv import (
-        DW_MMA_NAME)
+        DW_MMA_NAME, FWD_CORE_NAME, FWD_MMA_NAME)
     kk = binned_kernels(kind)
     other = binned_kernels("slots" if kind == "grouped" else "grouped")
     torch.cuda.reset_peak_memory_stats()
@@ -1319,7 +1503,8 @@ def drive_trainer(trainer, cfg, card, kind, convs_per_step, k3_name,
     n_fwd = TRAIN_STEPS + n_val
     want = {kk["fwd"].__name__: convs_per_step * n_fwd,
             kk["bwd"].__name__: convs_per_step * TRAIN_STEPS,
-            DW_MMA_NAME: convs_per_step * TRAIN_STEPS,
+            FWD_MMA_NAME: convs_per_step * (n_fwd + TRAIN_STEPS),
+            FWD_CORE_NAME: 0, DW_MMA_NAME: convs_per_step * TRAIN_STEPS,
             other["fwd"].__name__: 0, other["bwd"].__name__: 0,
             k3_name: 2 * n_fwd, k3e8_name: 2 * TRAIN_STEPS}
     for name, n in want.items():
@@ -1338,8 +1523,10 @@ def drive_trainer(trainer, cfg, card, kind, convs_per_step, k3_name,
         f"scans/s over the whole run, first-step set-up and validation "
         f"included; {card}); launches {launches} = per train step {k1} "
         f"{convs_per_step}, {k2} {convs_per_step} (each with one "
-        f"tensor-core dW), K3 2, K3[E=8] 2, and per "
-        f"eval step {k1} {convs_per_step}, K3 2; overflow {overflow}; mean "
+        f"tensor-core dX and dW), K3 2, K3[E=8] 2, and per "
+        f"eval step {k1} {convs_per_step}, K3 2, every {k1} and dX on the "
+        f"tensor-core forward, none on the CUDA-core one; overflow "
+        f"{overflow}; mean "
         f"losses {losses}; validation {val}; peak device memory "
         f"{peak_gb:.1f} GB")
     tbreak = train_breakdown(trainer)
@@ -1720,7 +1907,7 @@ def main() -> int:
                                                          reset_launches)
     from fusiontransformer_tpu_torch.ops.kernels import build as kbuild
     from fusiontransformer_tpu_torch.ops.kernels.binned_conv import (
-        DW_MMA_NAME)
+        DW_MMA_NAME, FWD_CORE_NAME, FWD_MMA_NAME)
     from fusiontransformer_tpu_torch.ops.kernels.segment_sum import (
         launch_name)
     k3_name, k3e8_name = launch_name(1), launch_name(8)
@@ -1788,6 +1975,7 @@ def main() -> int:
     log("== 4. inference path: InferenceEngine, bf16, batch 1")
     serve = drive_engine(engine, recs, card, {
         "binned_conv_grouped_fwd": k1_per_request * N_REQUESTS,
+        FWD_MMA_NAME: k1_per_request * N_REQUESTS, FWD_CORE_NAME: 0,
         k3_name: 2 * N_REQUESTS})
     phase_end("4")
 
@@ -1846,8 +2034,8 @@ def main() -> int:
     phase_end("5")
 
     # ---- 6. K2 and K3 E=8 on a real training batch
-    log("== 6. K2 binned_conv_grouped_bwd and K3 at E=8 vs plain, on a "
-        "training batch")
+    log("== 6. K1 binned_conv_grouped_fwd, K2 binned_conv_grouped_bwd and "
+        "K3 at E=8 vs plain, on a training batch")
     from fusiontransformer_tpu_torch.data.build import slot_pool_spec
     from fusiontransformer_tpu_torch.data.collate import get_collate
     from fusiontransformer_tpu_torch.modules.SemanticTrainer import (
@@ -1868,7 +2056,10 @@ def main() -> int:
         f"{int(hb['scan_count'].sum())} voxels in {TRAIN_BATCH} scans, "
         f"buffer {len(hb['pt_valid'])}, adaptive level caps {caps}, pool "
         f"sizes {[l.slot_idx[0].shape[1] for l in thier.levels if l.slot_idx]}")
+    k1t_rows, k1t, _ = phase_k1(thier, trainer.model, gen,
+                                per="train step")
     k2_rows, k2 = phase_k2(thier, trainer.model, gen)
+    share_rows = live_share_scaling(thier, gen)
     k3e8_rows, k3e8 = phase_k3_e8(thier, gen)
     gemm_grads = phase_gemm_grads(tcfg)
     convs_per_step = len(slot_convs(trainer.model, thier))
@@ -1926,6 +2117,8 @@ def main() -> int:
     pmodel.load_state_dict(serve_state)
     k1p_rows, k1p, k1p_per_request = phase_k1(shier, pmodel, gen, "slots")
     thier = hier_from_cfg(ptcfg, tdb, caps)
+    k1pt_rows, k1pt, _ = phase_k1(thier, pmodel, gen, "slots",
+                                  per="train step")
     k2p_rows, k2p = phase_k2(thier, pmodel, gen, "slots")
     del shier, thier, pmodel
     torch.cuda.empty_cache()
@@ -1940,6 +2133,7 @@ def main() -> int:
         raise AssertionError("the per-voxel engine builds host slot maps")
     pserve = drive_engine(pengine, recs, card, {
         "binned_conv_slots_fwd": k1p_per_request * N_REQUESTS,
+        FWD_MMA_NAME: k1p_per_request * N_REQUESTS, FWD_CORE_NAME: 0,
         "binned_conv_grouped_fwd": 0, k3_name: 2 * N_REQUESTS})
     # The engine's step routes on the batch: with the host maps it runs K1.
     gdb = device_batch(batch, "cuda")
@@ -2003,16 +2197,37 @@ def main() -> int:
                 "bound_by": max(m["bound_t"], key=m["bound_t"].get),
                 "library_ms": library_ms}
 
+    def fwd_entry(name, m, train_m, launches_of):
+        """K1 / K1' per request, with the device time (``graph_ms``), the
+        CUDA-core kernel on the same operands, the tensor-core forward's
+        launches on the path, and the same per train step (batch 10)."""
+        keys = ("graph_ms", "cuda_core_ms", "cuda_core_graph_ms",
+                "best_tiles_graph_ms")
+        return {**entry(name, K1_SOURCE, K1_REPLACES, m, None, launches_of),
+                **{k: m[k] for k in keys},
+                "mma_launches": launches_of.get(FWD_MMA_NAME, 0),
+                "cuda_core_launches": launches_of.get(FWD_CORE_NAME, 0),
+                "train_step": {k: train_m[k] for k in (
+                    "ms", "plain_ms", "bound_ms", *keys, "live_flops",
+                    "tile_flops")}}
+
     def bwd_entry(name, m, launches_of):
-        """K2 / K2' with their launch split into dX, dW (the tensor-core
-        kernel, launched ``dw_launches`` times on the path) and reduce."""
+        """K2 / K2' with their launch split into row table, dX (the
+        tensor-core forward), dW (the tensor-core kernel, launched
+        ``dw_launches`` times on the path) and reduce, and the CUDA-core
+        route on the same operands."""
         return {**entry(name, K1_SOURCE, K2_REPLACES, m, None, launches_of),
-                **{k: m[k] for k in ("dx_ms", "dw_ms", "reduce_ms",
-                                     "dx_bound_ms", "dw_bound_ms",
-                                     "cuda_core_dw_ms")},
-                "dw_launches": launches_of.get(DW_MMA_NAME, 0)}
+                **{k: m[k] for k in ("rows_ms", "dx_ms", "dw_ms",
+                                     "reduce_ms", "dx_bound_ms",
+                                     "dw_bound_ms", "cuda_core_ms",
+                                     "cuda_core_dx_ms", "cuda_core_dw_ms")},
+                "dw_launches": launches_of.get(DW_MMA_NAME, 0),
+                "fwd_mma_launches": launches_of.get(FWD_MMA_NAME, 0)}
 
     detail = {"card": card, "binned_conv_grouped_fwd": k1_rows,
+              "binned_conv_grouped_fwd_train": k1t_rows,
+              "live_share_scaling": share_rows,
+              "binned_conv_slots_fwd_train": k1pt_rows,
               "sorted_segment_weighted_sum": k3_rows,
               "binned_conv_grouped_bwd": k2_rows,
               "sorted_segment_weighted_sum_e8": k3e8_rows,
@@ -2029,7 +2244,8 @@ def main() -> int:
                         "flash_attention": flash_rows},
               "phase_s": phase_s}
     log("== 13. kernels (ms, plain_ms, bound_ms, library_ms: K1, K1' and K3 "
-        "per inference request at batch 1, K2, K2' and K3[E=8] per train "
+        "per inference request at batch 1 (K1 and K1' also per train step "
+        "under train_step), K2, K2' and K3[E=8] per train "
         f"step at batch {TRAIN_BATCH}; each summed over the path's calls, "
         "bf16; launches from the path each entry is timed on: K1' from "
         "phase 10, K2' from phase 11; T1-T3 one whole-level launch at L0 "
@@ -2038,15 +2254,13 @@ def main() -> int:
     log("detail: " + json.dumps(detail))
     log(f"phase seconds: {phase_s}, total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [
-        entry("binned_conv_grouped_fwd", K1_SOURCE, K1_REPLACES, k1, None,
-              serve["launches"]),
+        fwd_entry("binned_conv_grouped_fwd", k1, k1t, serve["launches"]),
         bwd_entry("binned_conv_grouped_bwd", k2, tlaunches),
         entry(k3_name, K3_SOURCE, K3_REPLACES, k3, k3["library_ms"],
               serve["launches"]),
         entry(k3e8_name, K3_SOURCE, K3_REPLACES, k3e8, k3e8["library_ms"],
               tlaunches),
-        entry("binned_conv_slots_fwd", K1_SOURCE, K1_REPLACES, k1p, None,
-              pserve["launches"]),
+        fwd_entry("binned_conv_slots_fwd", k1p, k1pt, pserve["launches"]),
         bwd_entry("binned_conv_slots_bwd", k2p, ptlaunches),
         *(entry(name, GATHER_SOURCE, TOOL_KERNELS[name], m,
                 m["library_ms"], tools["launches"])

@@ -15,25 +15,29 @@
 // products are 27 MXU matmuls over a VMEM-resident tile.  Here the gather is
 // done in the kernel: a slot's bin id is its address in a 216-entry table.
 //
-// Design: one thread block per 8-voxel group.  The block first scatters its
-// S slots into a bin table in shared memory (row index per bin, -1 if empty).
-// Then, for each tap t that has a live bin, it stages the (up to) 8 rows of
-// that tap in shared memory as xs[c][vo] (zeros for empty bins) and every
-// thread, owning one output channel o (or a few), adds
-// xs[c][vo] * W[t, c, o] into eight f32 accumulators, one per voxel.  Each
-// W panel is read once per live tap and group, for all eight voxels; W is at
-// most a few MB and stays in L2.  Taps are visited in fixed order and the
-// channel sum in fixed order: no atomics, bitwise repeatable.  Operands are
-// bf16 (or f32 for the precise path); products and sums are f32.
-//
 // What bounds it on an H100: the work is 2*Cin*Cout flops per live slot
-// (about 10 live slots per voxel on LiDAR scans) against about
+// (3-6 live bins per voxel on LiDAR scans at L0-L3) against about
 // 2*Cin + 4*Cout bytes per voxel of rows read and written once.  At the
 // 32-channel levels that is below the card's bf16 ridge (bytes bound); from
-// about 96 channels up it is above it (operations bound).  This simple
-// version runs the products on the CUDA cores in f32, eight FMAs per W
-// element it loads, so it is far from the bf16 tensor-core rate at the wide
-// levels; wgmma tiles over the binned rows are the later step.
+// about 96 channels up it is above it (operations bound).
+//
+// Two routes, picked by the wrapper from the operand dtype alone:
+//
+// * bf16 operands, the production path: `binned_conv_fwd_mma_kernel` below,
+//   on the tensor cores (mma.sync bf16 -> f32), over a tap-major row table
+//   built once a call (see its note).
+// * f32 operands, the precise path (JAX's Precision.HIGHEST; the tensor
+//   cores have no true f32): `binned_conv_grouped_fwd_kernel`, f32 FMAs on
+//   the CUDA cores.  One thread block per 8-voxel group scatters its S slots
+//   into a bin table in shared memory (row index per bin, -1 if empty); then,
+//   for each tap t that has a live bin, it stages the (up to) 8 rows of that
+//   tap in shared memory as xs[c][vo] (zeros for empty bins) and every
+//   thread, owning one output channel o (or a few), adds xs[c][vo] *
+//   W[t, c, o] into eight f32 accumulators, one per voxel.
+//
+// Either route visits the taps in a fixed order and sums the channels in a
+// fixed order, and writes each output once: no atomics, bitwise repeatable.
+// Products and sums are f32.
 //
 // Per-voxel K-slot maps (K1', K2').  The same kernels replace
 // `binned_conv_fwd` / `binned_conv_bwd(..., grouped=False)` and the gathers
@@ -166,8 +170,12 @@ __global__ void binned_conv_grouped_fwd_kernel(
 //                                                tap-reversed, transposed W)
 //   dW[26-t]  = sum_u feats[u]^T (x) bd[u, t]
 //
-// dX runs the forward kernel above on (dout, W'), W'[t] = W[26-t]^T built by
-// `flip_transpose_kernel` into scratch.  dW is a reduction over every group:
+// dX is the forward's function on (dout, W'), W'[t] = W[26-t]^T.  With bf16
+// operands it runs `binned_conv_fwd_mma_kernel`, which reads W'[t] straight
+// from W[26-t] (non-transposed ldmatrix on its [Cin, Cout] panel), over the
+// one row table that the dW kernel reads too.  With f32 operands it runs the
+// CUDA-core forward on W' built by `flip_transpose_kernel` into scratch.
+// dW is a reduction over every group:
 // the TPU kernel carries it in VMEM across its sequential grid, which a GPU
 // grid does not have.  Here the groups split into consecutive chunks; each
 // block sums its chunk into a partial dW[chunk] and `reduce_chunks_kernel`
@@ -177,9 +185,8 @@ __global__ void binned_conv_grouped_fwd_kernel(
 // What bounds it on an H100: the same operations as the forward for each of
 // dX and dW (2*Cin*Cout flops per live slot), against rows read once and
 // dX/dW written once: bytes bound at the 32-channel levels, operations bound
-// from about 96 channels up.  dX runs f32 FMAs on the CUDA cores, as the
-// forward does.  dW has two routes, picked by the wrapper from the operand
-// dtype:
+// from about 96 channels up.  dW has two routes, picked by the wrapper from
+// the operand dtype (dX follows the same pick):
 //
 // * bf16 operands, the production path: `binned_conv_dw_mma_kernel` below,
 //   on the tensor cores (see its note).
@@ -354,9 +361,10 @@ constexpr size_t kDwSmem =
 // Design:
 // * `bin_rows_kernel` first bins the maps once per call into a tap-major row
 //   table rows[t, u] (the dout row feeding bin t of voxel u, -1 if none),
-//   with `bin_of`'s rule for either kind of map.  A dW block then reads 4
-//   bytes per voxel of its k-step instead of re-scanning the group's S (or
-//   8K) slot codes for every tap and every (Cin, Cout) tile.
+//   with `bin_of`'s rule for either kind of map (the backward's dX reads
+//   it too).  A dW block then reads 4 bytes per voxel of its k-step
+//   instead of re-scanning the group's S (or 8K) slot codes for every tap
+//   and every (Cin, Cout) tile.
 // * Taps in the grid: a block owns (one (Cin, Cout) tile of 32 or 64 x 32 or
 //   64, one tap t, one chunk of groups).  Looping the 27 taps inside a block
 //   would need 27 accumulator sets in registers; one tap keeps the block's
@@ -433,6 +441,14 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(a));
 }
@@ -668,11 +684,11 @@ int launch_dw_mma(const void* dout, const void* feats, const int* rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_dw_tensor_cores(const void* dout, const void* feats,
-                           const int* src, const int* bins, int* rows,
-                           float* partial, int v, int s, int kslots, int cin,
-                           int cout, int tile_m, int tile_n, int nchunks,
-                           int chunk_groups, cudaStream_t stream) {
+
+// The tap-major row table rows[27, v] of either kind of map: -1, then
+// `bin_rows_kernel`.  Built once a call; a backward's dX and dW both read it.
+int build_rows(const int* src, const int* bins, int* rows, int v, int s,
+               int kslots, cudaStream_t stream) {
   int rc = static_cast<int>(cudaMemsetAsync(
       rows, 0xff, sizeof(int) * (size_t)kTaps * v, stream));
   if (rc != 0) return rc;
@@ -683,10 +699,15 @@ int launch_dw_tensor_cores(const void* dout, const void* feats,
     bin_rows_kernel<<<blocks, 256, 0, stream>>>(src, bins, rows, v, s,
                                                 kslots);
     rc = static_cast<int>(cudaGetLastError());
-    if (rc != 0) return rc;
   }
-  const int tile = tile_m * 100 + tile_n;
-  switch (tile) {
+  return rc;
+}
+
+int launch_dw_tensor_cores(const void* dout, const void* feats,
+                           const int* rows, float* partial, int v, int cin,
+                           int cout, int tile_m, int tile_n, int nchunks,
+                           int chunk_groups, cudaStream_t stream) {
+  switch (tile_m * 100 + tile_n) {
     case 3232:
       return launch_dw_mma<32, 32>(dout, feats, rows, partial, v, cin, cout,
                                    nchunks, chunk_groups, stream);
@@ -704,36 +725,353 @@ int launch_dw_tensor_cores(const void* dout, const void* feats,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core forward (bf16 operands): K1, K1' and the dX of K2 / K2'.
+// Replaces `_fwd_kernel` of fusiontransformer_tpu/ops/pallas/binned_conv.py
+// (`binned_conv_fwd`), which runs a block of voxels x 27 taps as bf16 MXU
+// dots with f32 accumulation.  Over the row table rows[t, u] (the source row
+// of bin t of voxel u, -1 if none):
+//
+//   out[u] = sum_t BX_t[u] @ W[t],   BX_t[u] = x[rows[t, u]]  (0 if -1)
+//
+// with M = voxels, N = Cout and the reduction over (live tap, Cin).  For dX,
+// x is dout and W[t] is W'[t] = W[26 - t]^T, read from W in place (TW).
+//
+// What bounds it on an H100: operations bound from about 96 channels up
+// (bf16 ridge ~295 flops a byte), bytes bound at the 32-channel levels,
+// where the gathered 64-byte rows dominate (PERF.md has the bounds).  The
+// CUDA-core kernel above ran the products as f32 FMAs, at most 67 TFLOP/s.
+//
+// Design:
+// * Output-stationary: a block owns 64 voxels x one Cout tile of 32 or 64,
+//   with f32 accumulators in registers; four warps split it 2 x 2.
+// * The block first fills a [27, 64] row table of its voxels in shared
+//   memory and learns which taps have a live bin among them (~20-45% of
+//   (64-voxel tile, tap) pairs at L0-L3 on LiDAR scans).  The forward bins
+//   the slot codes of its 8 groups itself (`bin_of`), one launch a call and
+//   no scratch; a backward's dX reads the [27, V] row table that its dW
+//   needs anyway, built once by `bin_rows_kernel`.  The block then walks
+//   only the live taps, in tap order, each in k-steps of 32 or 64 channels:
+//   a dead (tile, tap) costs nothing beyond its share of the binning.
+// * Each k-step stages the gathered rows [64, BK] and the W panel
+//   ([BK, BN], or [BN, BK] read from W[26-t] for TW) with 16-byte cp.async
+//   in a 3-stage ring; empty bins, channels past Cin and columns past Cout
+//   are zero-filled by cp.async itself (src-size 0).  Widths that are not
+//   a multiple of 8 (Cin = 4 at the stem) take plain loads with the same
+//   zero fill (`stage8`).  Tiles are XOR-swizzled 16-byte chunks, so the
+//   ldmatrix reads of A (non-transposed), B ([BK, BN]: .trans; [BN, BK]:
+//   non-transposed) are free of bank conflicts.
+// * The tensor cores truncate as they accumulate (PERF.md, the dW kernel):
+//   each k-step's products start from zero in registers of their own and
+//   are added to the accumulator with f32 round-to-nearest adds.
+// * Taps in a fixed order, each output written once with plain stores: the
+//   result is bitwise repeatable.
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdThreads = 128;  // 4 warps, 2 x 2 over (voxels, Cout)
+constexpr int kFwdTileM = 64;     // voxels of a block
+constexpr int kFwdStages = 3;     // cp.async ring depth
+
+template <int BN, int BK, bool TW>
+__global__ void __launch_bounds__(kFwdThreads, 4) binned_conv_fwd_mma_kernel(
+    const __nv_bfloat16* __restrict__ x, const int* __restrict__ src,
+    const int* __restrict__ bins, const int* __restrict__ rows,
+    const __nv_bfloat16* __restrict__ w, float* __restrict__ out, int v,
+    int s, int kslots, int cin, int cout, int vec_x, int vec_w) {
+  constexpr int BM = kFwdTileM;
+  constexpr int MT = BM / 32;  // m16 tiles of a warp's 32 voxels
+  constexpr int NT = BN / 16;  // n8 tiles of a warp's BN/2 columns
+  // A [BM, BK]; B [BK, BN] (n contiguous) or, TW, [BN, BK] (k contiguous).
+  constexpr int B_W = TW ? BK : BN;
+  constexpr int B_ROWS = TW ? BN : BK;
+  constexpr int A_CPR = BK / 8, A_RPP = kFwdThreads / A_CPR;
+  constexpr int B_CPR = B_W / 8, B_RPP = kFwdThreads / B_CPR;
+  constexpr int A_PASSES = BM / A_RPP, B_PASSES = B_ROWS / B_RPP;
+  static_assert(A_PASSES >= 1 && B_PASSES >= 1, "whole tiles per pass");
+  extern __shared__ float4 fwd_smem4[];
+  __nv_bfloat16* sa = reinterpret_cast<__nv_bfloat16*>(fwd_smem4);
+  __nv_bfloat16* sb = sa + kFwdStages * BM * BK;
+  __shared__ int rows_s[kTaps][BM];
+  __shared__ int live_taps[kTaps];
+  __shared__ unsigned live_mask;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int tiles_n = (cout + BN - 1) / BN;
+  const int u0 = (blockIdx.x / tiles_n) * BM;
+  const int o0 = (blockIdx.x % tiles_n) * BN;
+
+  if (tid == 0) live_mask = 0u;
+  unsigned mine = 0u;
+  if (rows != nullptr) {
+    // The row table's 27 x 64 entries of these voxels.
+    for (int i = tid; i < kTaps * BM; i += kFwdThreads) {
+      const int t = i / BM;
+      const int r = i - t * BM;
+      const int row = u0 + r < v ? rows[(int64_t)t * v + u0 + r] : -1;
+      rows_s[t][r] = row;
+      if (row >= 0) mine |= 1u << t;
+    }
+  } else {
+    // No table: bin the slot codes of the tile's 8 groups here (the maps
+    // are [V/8, s], contiguous over the tile; at most one slot a bin).
+    for (int i = tid; i < kTaps * BM; i += kFwdThreads) {
+      rows_s[i / BM][i % BM] = -1;
+    }
+    __syncthreads();
+    const int g0 = u0 / 8;
+    const int ng = min(BM / 8, v / 8 - g0);
+    for (int j = tid; j < ng * s; j += kFwdThreads) {
+      const int gl = j / s;
+      const int slot = j - gl * s;
+      const int64_t idx = (int64_t)(g0 + gl) * s + slot;
+      const int b = bin_of(bins[idx], slot, kslots);
+      const int r = src[idx];
+      if (b >= 0 && b < kBins && r >= 0 && r < v) {
+        rows_s[b >> 3][gl * 8 + (b & 7)] = r;
+        mine |= 1u << (b >> 3);
+      }
+    }
+  }
+  mine = __reduce_or_sync(0xffffffffu, mine);
+  if (lane == 0 && mine) atomicOr(&live_mask, mine);
+  __syncthreads();
+  const unsigned mask = live_mask;
+  if (tid < kTaps && ((mask >> tid) & 1u)) {
+    live_taps[__popc(mask & ((1u << tid) - 1u))] = tid;
+  }
+  __syncthreads();
+  const int nk = (cin + BK - 1) / BK;
+  const int nsteps = __popc(mask) * nk;
+
+  const int a_row = tid / A_CPR, a_ch = tid % A_CPR;
+  const int b_row = tid / B_CPR, b_ch = tid % B_CPR;
+  // Stage k-step `step` (live tap step / nk, channels (step % nk) * BK on)
+  // into its ring slot: one commit group, empty past the end.
+  auto load_step = [&](int step) {
+    if (step < nsteps) {
+      const int slot = step % kFwdStages;
+      const int t = live_taps[step / nk];
+      const int k0 = (step % nk) * BK;
+      __nv_bfloat16* a = sa + slot * BM * BK;
+      __nv_bfloat16* b = sb + slot * BK * BN;
+#pragma unroll
+      for (int p = 0; p < A_PASSES; ++p) {
+        const int r = a_row + p * A_RPP;
+        const int src = rows_s[t][r];
+        const int c = k0 + a_ch * 8;
+        const bool ok = src >= 0 && c < cin;
+        stage8(a + swz<BK>(r, a_ch), ok ? x + (int64_t)src * cin + c : x, ok,
+               cin - c, vec_x);
+      }
+#pragma unroll
+      for (int p = 0; p < B_PASSES; ++p) {
+        const int r = b_row + p * B_RPP;
+        if (TW) {
+          // B[k][n] = W[26 - t][n][k]: W is [27, cout, cin] here.
+          const int n = o0 + r, k = k0 + b_ch * 8;
+          const bool ok = n < cout && k < cin;
+          stage8(b + swz<BK>(r, b_ch),
+                 ok ? w + ((int64_t)(kTaps - 1 - t) * cout + n) * cin + k : w,
+                 ok, cin - k, vec_w);
+        } else {
+          const int k = k0 + r, o = o0 + b_ch * 8;
+          const bool ok = k < cin && o < cout;
+          stage8(b + swz<BN>(r, b_ch),
+                 ok ? w + ((int64_t)t * cin + k) * cout + o : w, ok,
+                 cout - o, vec_w);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int st = 0; st < kFwdStages - 1; ++st) load_step(st);
+
+  const int wm = (warp >> 1) * (BM / 2);  // the warp's voxels of the tile
+  const int wn = (warp & 1) * (BN / 2);   // and its columns
+  for (int step = 0; step < nsteps; ++step) {
+    cp_async_wait<kFwdStages - 2>();
+    // Every thread's copies of this k-step have landed, and every warp is
+    // done with the slot the next copy overwrites.
+    __syncthreads();
+    load_step(step + kFwdStages - 1);
+    const int slot = step % kFwdStages;
+    const __nv_bfloat16* a = sa + slot * BM * BK;
+    const __nv_bfloat16* b = sb + slot * BK * BN;
+    // Fresh registers for this k-step's products (the tensor cores truncate
+    // as they accumulate), two n8 tiles at a time.
+#pragma unroll
+    for (int jp = 0; jp < NT / 2; ++jp) {
+      float part[MT][2][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[i][0][e] = part[i][1][e] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        // A: (m 0-7 | 8-15) x (k 0-7 | 8-15) of the row-major tile.
+        uint32_t af[MT][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          ldsm_x4(af[i], a + swz<BK>(wm + i * 16 + (lane & 15),
+                                     kk * 2 + (lane >> 4)));
+        }
+        // B: (k 0-7, 8-15) of two n8 tiles, in the order b0 b1 of the
+        // first, b0 b1 of the second.
+        uint32_t bf[4];
+        if (TW) {
+          ldsm_x4(bf, b + swz<BK>(wn + jp * 16 + (lane & 7) +
+                                      ((lane >> 4) << 3),
+                                  kk * 2 + ((lane >> 3) & 1)));
+        } else {
+          ldsm_x4_t(bf, b + swz<BN>(kk * 16 + (lane & 7) +
+                                        (((lane >> 3) & 1) << 3),
+                                    (wn + jp * 16) / 8 + (lane >> 4)));
+        }
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          mma16816(part[i][0], af[i], bf[0], bf[1]);
+          mma16816(part[i][1], af[i], bf[2], bf[3]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[i][2 * jp][e] += part[i][0][e];
+          acc[i][2 * jp + 1][e] += part[i][1][e];
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int u = u0 + wm + i * 16 + (lane >> 2) + h * 8;
+        const int o = o0 + wn + j * 8 + 2 * (lane & 3);
+        if (u < v) {
+          if (o < cout) out[(int64_t)u * cout + o] = acc[i][j][2 * h];
+          if (o + 1 < cout) {
+            out[(int64_t)u * cout + o + 1] = acc[i][j][2 * h + 1];
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int BN, int BK, bool TW>
+int launch_fwd_mma_tile(const void* x, const int* src, const int* bins,
+                        int s, int kslots, const int* rows, const void* w,
+                        float* out, int v, int cin, int cout,
+                        cudaStream_t stream) {
+  constexpr int smem = (int)sizeof(__nv_bfloat16) * kFwdStages *
+                       (kFwdTileM * BK + BK * BN);
+  int rc = static_cast<int>(cudaFuncSetAttribute(
+      binned_conv_fwd_mma_kernel<BN, BK, TW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+  if (rc != 0) return rc;
+  const int64_t blocks = (int64_t)((v + kFwdTileM - 1) / kFwdTileM) *
+                         ((cout + BN - 1) / BN);
+  const int vec_x = cin % 8 == 0 && (uintptr_t)x % 16 == 0;
+  const int vec_w = (TW ? cin : cout) % 8 == 0 && (uintptr_t)w % 16 == 0;
+  binned_conv_fwd_mma_kernel<BN, BK, TW><<<(unsigned)blocks, kFwdThreads, smem,
+                                           stream>>>(
+      static_cast<const __nv_bfloat16*>(x), src, bins, rows,
+      static_cast<const __nv_bfloat16*>(w), out, v, s, kslots, cin, cout,
+      vec_x, vec_w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out [v, cout] = the forward's function of x [v, cin] over the row table
+// `rows` or, with rows null, over the maps (src, bins [v/8, s], `bin_of`'s
+// rule); tw: W is [27, cout, cin] and W[26 - t]^T is tap t's panel (dX).
+int launch_fwd_mma(const void* x, const int* src, const int* bins, int s,
+                   int kslots, const int* rows, const void* w, float* out,
+                   int v, int cin, int cout, int tile_n, int tile_k, bool tw,
+                   cudaStream_t stream) {
+#define FTX_FWD_MMA(BN, BK, TW)                                              \
+  launch_fwd_mma_tile<BN, BK, TW>(x, src, bins, s, kslots, rows, w, out, v, \
+                                  cin, cout, stream)
+  switch (tile_n * 1000 + tile_k * 10 + (tw ? 1 : 0)) {
+    case 32320:
+      return FTX_FWD_MMA(32, 32, false);
+    case 32640:
+      return FTX_FWD_MMA(32, 64, false);
+    case 64320:
+      return FTX_FWD_MMA(64, 32, false);
+    case 64640:
+      return FTX_FWD_MMA(64, 64, false);
+    case 32321:
+      return FTX_FWD_MMA(32, 32, true);
+    case 32641:
+      return FTX_FWD_MMA(32, 64, true);
+    case 64321:
+      return FTX_FWD_MMA(64, 32, true);
+    case 64641:
+      return FTX_FWD_MMA(64, 64, true);
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef FTX_FWD_MMA
+}
+
 template <typename T>
 int launch(const void* feats, const int* src, const int* bins, const void* w,
            float* out, int v, int s, int kslots, int cin, int cout,
            cudaStream_t stream);
 
-// route 0: dW on the CUDA cores (`binned_conv_grouped_dw_kernel`, either
-// dtype); route 1: on the tensor cores (bf16 only).  The groups split into
-// nchunks chunks of chunk_groups consecutive groups (the last one shorter).
+// route 0: dX and dW on the CUDA cores (either dtype; `wt` scratch for the
+// flipped, transposed W); route 1: on the tensor cores (bf16 only; `rows`
+// scratch for the row table, which both read; wt unused).  The groups split
+// into nchunks chunks of chunk_groups consecutive groups (the last one
+// shorter).
 template <typename T>
 int launch_bwd(const void* dout, const void* feats, const int* src,
                const int* bins, const void* w, void* wt, int* rows,
                float* partial, float* dx, float* dw, int v, int s, int kslots,
                int cin, int cout, int route, int tile_m, int tile_n,
-               int nchunks, int chunk_groups, cudaStream_t stream) {
+               int nchunks, int chunk_groups, int dx_tile_n, int dx_tile_k,
+               cudaStream_t stream) {
   const int64_t nw = (int64_t)kTaps * cin * cout;
   const int fill_blocks = (int)((nw + 255) / 256 < 1024 ? (nw + 255) / 256
                                                          : 1024);
-  flip_transpose_kernel<T><<<fill_blocks, 256, 0, stream>>>(
-      static_cast<const T*>(w), static_cast<T*>(wt), cin, cout);
-  int rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-  // dX: the forward kernel on dout with W' ([27, Cout, Cin]).
-  rc = launch<T>(dout, src, bins, wt, dx, v, s, kslots, cout, cin, stream);
-  if (rc != 0) return rc;
+  int rc;
   if (route == 1) {
     if (!std::is_same<T, __nv_bfloat16>::value) return cudaErrorInvalidValue;
-    rc = launch_dw_tensor_cores(dout, feats, src, bins, rows, partial, v, s,
-                                kslots, cin, cout, tile_m, tile_n, nchunks,
-                                chunk_groups, stream);
+    rc = build_rows(src, bins, rows, v, s, kslots, stream);
+    if (rc != 0) return rc;
+    // dX: the forward's function on dout with W'[t] = W[26 - t]^T.
+    rc = launch_fwd_mma(dout, src, bins, s, kslots, rows, w, dx, v, cout,
+                        cin, dx_tile_n, dx_tile_k, true, stream);
+    if (rc != 0) return rc;
+    rc = launch_dw_tensor_cores(dout, feats, rows, partial, v, cin, cout,
+                                tile_m, tile_n, nchunks, chunk_groups,
+                                stream);
   } else {
+    flip_transpose_kernel<T><<<fill_blocks, 256, 0, stream>>>(
+        static_cast<const T*>(w), static_cast<T*>(wt), cin, cout);
+    rc = static_cast<int>(cudaGetLastError());
+    if (rc != 0) return rc;
+    // dX: the CUDA-core forward on dout with W' ([27, Cout, Cin]).
+    rc = launch<T>(dout, src, bins, wt, dx, v, s, kslots, cout, cin, stream);
+    if (rc != 0) return rc;
     rc = static_cast<int>(cudaFuncSetAttribute(
         binned_conv_grouped_dw_kernel<T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDwSmem));
@@ -785,15 +1123,29 @@ int launch(const void* feats, const int* src, const int* bins, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
+bool valid_tiles(int tile_n, int tile_k) {
+  return (tile_n == 32 || tile_n == 64) && (tile_k == 32 || tile_k == 64);
+}
+
+// route 0: the CUDA-core kernel (either dtype); route 1: the tensor-core
+// kernel (bf16; tile_n, tile_k each 32 or 64).
 int fwd(const void* feats, const int* src, const int* bins, const void* w,
-        float* out, int v, int s, int kslots, int cin, int cout, int dtype,
-        void* stream) {
+        float* out, int v, int s, int kslots, int cin, int cout, int route,
+        int tile_n, int tile_k, int dtype, void* stream) {
   if (v < 0 || v % 8 != 0 || s < 0 || cin <= 0 || cin > 1024 || cout <= 0 ||
       cout > 1024) {
     return cudaErrorInvalidValue;
   }
+  if (route == 1 && (dtype != 1 || !valid_tiles(tile_n, tile_k))) {
+    return cudaErrorInvalidValue;
+  }
+  if (route != 0 && route != 1) return cudaErrorInvalidValue;
   if (v == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route == 1) {
+    return launch_fwd_mma(feats, src, bins, s, kslots, nullptr, w, out, v,
+                          cin, cout, tile_n, tile_k, false, st);
+  }
   if (dtype == 0) {
     return launch<float>(feats, src, bins, w, out, v, s, kslots, cin, cout,
                          st);
@@ -808,8 +1160,8 @@ int fwd(const void* feats, const int* src, const int* bins, const void* w,
 int bwd(const void* dout, const void* feats, const int* src, const int* bins,
         const void* w, void* wt, int* rows, float* partial, float* dx,
         float* dw, int v, int s, int kslots, int cin, int cout, int route,
-        int tile_m, int tile_n, int nchunks, int chunk_groups, int dtype,
-        void* stream) {
+        int tile_m, int tile_n, int nchunks, int chunk_groups, int dx_tile_n,
+        int dx_tile_k, int dtype, void* stream) {
   if (v <= 0 || v % 8 != 0 || s < 0 || cin <= 0 || cin > 1024 ||
       cout <= 0 || cout > 1024 || nchunks < 1 || nchunks > 65535 ||
       chunk_groups < 1) {
@@ -822,21 +1174,24 @@ int bwd(const void* dout, const void* feats, const int* src, const int* bins,
     return cudaErrorInvalidValue;
   }
   if (route == 1 && (dtype != 1 || rows == nullptr ||
-                     chunk_groups % (kStepVoxels / 8) != 0)) {
+                     chunk_groups % (kStepVoxels / 8) != 0 ||
+                     !valid_tiles(dx_tile_n, dx_tile_k))) {
     return cudaErrorInvalidValue;
   }
+  if (route == 0 && wt == nullptr) return cudaErrorInvalidValue;
   if (route != 0 && route != 1) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     return launch_bwd<float>(dout, feats, src, bins, w, wt, rows, partial, dx,
                              dw, v, s, kslots, cin, cout, route, tile_m,
-                             tile_n, nchunks, chunk_groups, st);
+                             tile_n, nchunks, chunk_groups, dx_tile_n,
+                             dx_tile_k, st);
   }
   if (dtype == 1) {
     return launch_bwd<__nv_bfloat16>(dout, feats, src, bins, w, wt, rows,
                                      partial, dx, dw, v, s, kslots, cin, cout,
                                      route, tile_m, tile_n, nchunks,
-                                     chunk_groups, st);
+                                     chunk_groups, dx_tile_n, dx_tile_k, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -844,30 +1199,39 @@ int bwd(const void* dout, const void* feats, const int* src, const int* bins,
 }  // namespace
 
 // dtype: 0 = float32 operands, 1 = bfloat16 operands.  Output is float32.
-// Group-pooled maps: src and bins [V/8, s], bins holding bin ids.
+// Group-pooled maps: src and bins [V/8, s], bins holding bin ids.  route 0:
+// the CUDA-core kernel (either dtype; tile_n, tile_k unused); route 1: the
+// tensor-core kernel (bf16; (Cout, Cin) tile tile_n x tile_k, each 32 or
+// 64).
 extern "C" int ftx_binned_conv_grouped_fwd(const void* feats, const int* src,
                                            const int* bins, const void* w,
                                            float* out, int v, int s, int cin,
-                                           int cout, int dtype, void* stream) {
-  return fwd(feats, src, bins, w, out, v, s, 0, cin, cout, dtype, stream);
+                                           int cout, int route, int tile_n,
+                                           int tile_k, int dtype,
+                                           void* stream) {
+  return fwd(feats, src, bins, w, out, v, s, 0, cin, cout, route, tile_n,
+             tile_k, dtype, stream);
 }
 
 // Backward: dx [V, Cin] and dw [27, Cin, Cout], float32.  dout [V, Cout],
 // feats [V, Cin] and w [27, Cin, Cout] share one operand dtype (0 = float32,
-// 1 = bfloat16).  dW route: 0 = CUDA cores (either dtype; tile_m, tile_n
-// unused), 1 = tensor cores (bf16; tile_m, tile_n each 32 or 64;
-// chunk_groups a multiple of 8).  The groups split into nchunks consecutive
-// chunks of chunk_groups groups, the last one shorter, none empty.  Scratch
-// from the caller: wt (27*Cin*Cout operands), partial (nchunks*27*Cin*Cout
-// float32) and, for route 1, rows (27*V int32).
+// 1 = bfloat16).  route 0: dX and dW on the CUDA cores (either dtype; the
+// tile arguments unused; wt scratch of 27*Cin*Cout operands); route 1: on
+// the tensor cores (bf16; dW tiles tile_m, tile_n each 32 or 64,
+// chunk_groups a multiple of 8; dX tiles dx_tile_n (of Cin) x dx_tile_k (of
+// Cout), each 32 or 64; rows scratch of 27*V int32, the one row table dX and
+// dW read; wt unused).  The groups split into nchunks consecutive chunks of
+// chunk_groups groups, the last one shorter, none empty.  partial: scratch
+// of nchunks*27*Cin*Cout float32.
 extern "C" int ftx_binned_conv_grouped_bwd(
     const void* dout, const void* feats, const int* src, const int* bins,
     const void* w, void* wt, int* rows, float* partial, float* dx, float* dw,
     int v, int s, int cin, int cout, int route, int tile_m, int tile_n,
-    int nchunks, int chunk_groups, int dtype, void* stream) {
+    int nchunks, int chunk_groups, int dx_tile_n, int dx_tile_k, int dtype,
+    void* stream) {
   return bwd(dout, feats, src, bins, w, wt, rows, partial, dx, dw, v, s, 0,
-             cin, cout, route, tile_m, tile_n, nchunks, chunk_groups, dtype,
-             stream);
+             cin, cout, route, tile_m, tile_n, nchunks, chunk_groups,
+             dx_tile_n, dx_tile_k, dtype, stream);
 }
 
 // Per-voxel K-slot maps (K1' and K2'): src and tap [V, K] int32, read as the
@@ -876,18 +1240,22 @@ extern "C" int ftx_binned_conv_grouped_bwd(
 extern "C" int ftx_binned_conv_slots_fwd(const void* feats, const int* src,
                                          const int* tap, const void* w,
                                          float* out, int v, int k, int cin,
-                                         int cout, int dtype, void* stream) {
+                                         int cout, int route, int tile_n,
+                                         int tile_k, int dtype,
+                                         void* stream) {
   if (k < 1 || k > kTaps) return cudaErrorInvalidValue;
-  return fwd(feats, src, tap, w, out, v, 8 * k, k, cin, cout, dtype, stream);
+  return fwd(feats, src, tap, w, out, v, 8 * k, k, cin, cout, route, tile_n,
+             tile_k, dtype, stream);
 }
 
 extern "C" int ftx_binned_conv_slots_bwd(
     const void* dout, const void* feats, const int* src, const int* tap,
     const void* w, void* wt, int* rows, float* partial, float* dx, float* dw,
     int v, int k, int cin, int cout, int route, int tile_m, int tile_n,
-    int nchunks, int chunk_groups, int dtype, void* stream) {
+    int nchunks, int chunk_groups, int dx_tile_n, int dx_tile_k, int dtype,
+    void* stream) {
   if (k < 1 || k > kTaps) return cudaErrorInvalidValue;
   return bwd(dout, feats, src, tap, w, wt, rows, partial, dx, dw, v, 8 * k,
              k, cin, cout, route, tile_m, tile_n, nchunks, chunk_groups,
-             dtype, stream);
+             dx_tile_n, dx_tile_k, dtype, stream);
 }

@@ -11,9 +11,12 @@ and checkpoint on it.  A non-finite loss stops the run with
 queues the next step before it waits for the card.
 
 Runs on the card unless it is given ``device="cpu"``; with no CUDA device
-and no explicit CPU it raises.  Not ported (ROADMAP.md, Queue 1): wandb and
-TensorBoard, gradient histograms (``make_grads_fn``), asynchronous
-checkpoints, the preemption handler.
+and no explicit CPU it raises.  ``MODEL.IMAGE_PRETRAINED_PATH`` loads a
+DeiT / SimCLR checkpoint into the ViT (``utils/torch_checkpoint.py``).  Not
+ported (ROADMAP.md, Queue 1): wandb and TensorBoard, gradient histograms
+(``make_grads_fn``), asynchronous checkpoints, the preemption handler, and
+more than one device; the keys that would ask for them raise
+(``check_ported_keys``).
 """
 
 from __future__ import annotations
@@ -40,12 +43,39 @@ from fusiontransformer_tpu_torch.solver.build import (build_optimizer,
 from fusiontransformer_tpu_torch.utils.checkpoint import Checkpointer
 from fusiontransformer_tpu_torch.utils.device import resolve_device
 from fusiontransformer_tpu_torch.utils.metric_logger import MetricLogger
+from fusiontransformer_tpu_torch.utils.torch_checkpoint import (
+    load_pretrained_image)
 
 MODALITIES = ("2d", "3d")
+# Keys the port does not honour yet, the test that a key is set away from
+# its default, and the ROADMAP.md item that will port it.
+UNPORTED_KEYS = (
+    ("TRAIN.SUMMARY_PERIOD", lambda v: v > 0,
+     "Queue 1 item 6 (TensorBoard scalars)"),
+    ("TRAIN.LOG_HISTOGRAM", bool,
+     "Queue 1 item 6 (weight/grad histograms)"),
+    ("TPU.NUM_DEVICES", lambda v: v > 1, "Queue 1 item 9 (data parallelism)"),
+    ("TPU.MODEL_PARALLEL", lambda v: v > 1,
+     "Queue 1 item 10 (tensor parallelism)"),
+    ("TPU.ZERO_OPTIMIZER", bool, "Queue 1 item 10 (ZeRO)"),
+)
+
+
+def check_ported_keys(cfg):
+    """Raise ``NotImplementedError`` for a key of UNPORTED_KEYS that ``cfg``
+    sets away from its default: the port would ignore it."""
+    for key, is_set, item in UNPORTED_KEYS:
+        node = cfg
+        for part in key.split("."):
+            node = node[part]
+        if is_set(node):
+            raise NotImplementedError(f"{key} = {node} is not ported yet "
+                                      f"(ROADMAP.md, {item})")
 
 
 class SemanticTrainer:
     def __init__(self, cfg, output_dir="", run_name="", device=None):
+        check_ported_keys(cfg)
         self.cfg = cfg
         self.output_dir = output_dir
         self.run_name = run_name
@@ -54,6 +84,10 @@ class SemanticTrainer:
             f"FusionTransformer.{cfg.MODEL.TYPE}.train")
 
         self.model = build_model(cfg, self.device, seed=cfg.RNG_SEED)
+        if cfg.MODEL.IMAGE_PRETRAINED_PATH:
+            self.logger.info("Loaded %d pretrained image tensors from %s",
+                             load_pretrained_image(cfg, self.model),
+                             cfg.MODEL.IMAGE_PRETRAINED_PATH)
         n = cfg.MODEL.NUM_CLASSES
         self.train_3d_metric = SegIoU(n, name="seg_iou_3d")
         self.train_2d_metric = SegIoU(n, name="seg_iou_2d")

@@ -20,9 +20,17 @@ gathers their callers run first, for both kinds of slot map:
 
 ``w`` is ``[27, Cin, Cout]`` in the JAX tap order (x-slowest).  Operands are
 bf16 (the production path) or f32; products and sums are f32; the results
-are float32.  The backward's dW routes on the operand dtype
-(``dw_schedule``): bf16 on the tensor cores, f32 (the precise path) on the
-CUDA cores.
+are float32.  Each launch routes on the operand dtype alone:
+
+* bf16 runs the tensor cores: the forward kernel (K1, K1', and the dX of
+  K2 / K2') and the dW kernel, tiled by ``fwd_schedule`` and
+  ``dw_schedule``.  A forward bins each tile's slot codes itself; a
+  backward bins the maps once into a tap-major row table ``rows[27, V]``
+  (``bin_rows_ref`` is its plain version), which its dX and dW both read.
+* f32, the precise path, runs the CUDA cores (the forward kernel on the
+  slot codes, the dW kernel per 32x32 tile).
+
+There is no fallback between the routes: a failed build or launch raises.
 """
 
 from __future__ import annotations
@@ -39,8 +47,12 @@ NAME = "binned_conv_grouped_fwd"
 BWD_NAME = "binned_conv_grouped_bwd"
 SLOTS_NAME = "binned_conv_slots_fwd"
 SLOTS_BWD_NAME = "binned_conv_slots_bwd"
-# The tensor-core dW kernel inside K2 / K2' (bf16 operands): counted beside
-# the backward's own count, once per backward launch that runs it.
+# The kernels inside those launches, each counted beside the wrapper's own
+# count, once per launch that runs it: the tensor-core forward (bf16: K1,
+# K1', and the dX of K2 / K2'), the CUDA-core forward (f32: the same
+# callers) and the tensor-core dW of K2 / K2' (bf16).
+FWD_MMA_NAME = "binned_conv_fwd_mma"
+FWD_CORE_NAME = "binned_conv_fwd_cuda_core"
 DW_MMA_NAME = "binned_conv_dw_mma"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -90,6 +102,44 @@ def _tap_major(x, src_pack, bin_pack):
     b[flat.reshape(-1)] = g
     return b[:ng * 216].reshape(ng, 27, 8, c).transpose(1, 2).reshape(
         v, 27, c)
+
+
+def bin_rows_ref(src, codes, per_voxel=False):
+    """The tap-major row table ``rows[27, V]`` int32 that the tensor-core
+    kernels read: ``rows[t, u]`` is the source row feeding bin ``t*8 + u%8``
+    of voxel ``u``'s group, -1 if none.  Group-pooled maps (``src``,
+    ``codes`` [V/8, S], codes the bin ids) or, ``per_voxel``, per-voxel
+    maps (``[V, K]``, codes the tap ids; slot k of voxel u feeds bin
+    ``tap*8 + u%8``).  Sentinel codes and source rows outside [0, V) feed
+    no bin (``bin_of`` and ``bin_rows_kernel`` in ``csrc/binned_conv.cu``).
+    """
+    dev = src.device
+    code, row = codes.long(), src.long()
+    if per_voxel:
+        v = src.shape[0]
+        u = torch.arange(v, device=dev)[:, None]
+        live = (code >= 0) & (code < 27)
+        flat = code * v + u
+    else:
+        v = src.shape[0] * 8
+        g = torch.arange(src.shape[0], device=dev)[:, None]
+        live = (code >= 0) & (code < 216)
+        flat = (code // 8) * v + g * 8 + code % 8
+    live &= (row >= 0) & (row < v)
+    rows = torch.full((27 * v + 1,), -1, dtype=torch.int32, device=dev)
+    rows[torch.where(live, flat, 27 * v).reshape(-1)] = src.reshape(-1)
+    return rows[:27 * v].reshape(27, v)
+
+
+def live_tile_share(rows, tile):
+    """The share of (``tile``-voxel tile, tap) pairs of a row table that
+    hold a live bin: the pairs the tensor-core forward (tile 64) runs, or a
+    kernel with ``tile`` voxels on its MMA axis would run."""
+    t, v = rows.shape
+    n = -(-v // tile)
+    pad = rows.new_full((t, n * tile - v), -1)
+    return (torch.cat([rows, pad], 1).view(t, n, tile) >= 0).any(-1).float() \
+        .mean().item()
 
 
 def binned_conv_grouped_ref(feats, src_pack, bin_pack, w):
@@ -188,24 +238,33 @@ def _check_dout(dout, feats, w):
                          f"{tuple(dout.shape)} on {dout.device}")
 
 
-def _launch_fwd(name, symbol, feats, src, codes, w):
-    """One forward kernel launch; the maps' second dimension (S or K) is the
-    C function's width argument."""
+def _launch_fwd(name, symbol, feats, src, codes, w, sched=None):
+    """One forward launch; the maps' second dimension (S or K) is the C
+    function's width argument.  ``sched`` defaults to ``fwd_schedule`` for
+    the operands' dtype."""
     _check_cuda(feats, src, codes, w)
+    stream = torch.cuda.current_stream(feats.device).cuda_stream
+    return _run_fwd(name, symbol, feats, src, codes, w, stream, sched)
+
+
+def _run_fwd(name, symbol, feats, src, codes, w, stream, sched=None):
     v, cin = feats.shape
     cout = w.shape[2]
+    if sched is None:
+        sched = fwd_schedule(v, cin, cout, feats.dtype)
     out = torch.empty((v, cout), dtype=torch.float32, device=feats.device)
     fn = getattr(load("binned_conv"), symbol)
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(feats.device).cuda_stream
     rc = fn(feats.data_ptr(), src.data_ptr(), codes.data_ptr(),
             w.data_ptr(), out.data_ptr(), v, src.shape[1], cin, cout,
-            _DTYPES[feats.dtype], stream)
+            sched.route, sched.tile_n, sched.tile_k, _DTYPES[feats.dtype],
+            stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
+    LAUNCHES[FWD_MMA_NAME if sched.route == 1 else FWD_CORE_NAME] += 1
     return out
 
 
@@ -219,6 +278,41 @@ DW_STEP = 64
 DW_STAGES = 3
 DW_WAVES = 4            # waves the chunk count aims at
 DW_SCRATCH = 64 << 20   # partials + row table, bytes
+# The tensor-core forward: blocks of FWD_THREADS threads own FWD_TILE_M
+# voxels x one Cout tile; a Cout tile of 64 halves to 32 where the grid
+# would give fewer than FWD_MIN_BLOCKS blocks.
+FWD_THREADS = 128
+FWD_TILE_M = 64
+FWD_MIN_BLOCKS = 2 * SMS
+
+
+class FwdSchedule(NamedTuple):
+    """How one forward launch runs (``fwd_schedule``)."""
+    route: int          # 0 CUDA cores (f32 operands), 1 tensor cores (bf16)
+    tile_m: int         # voxels of a block
+    tile_n: int         # output channels of a block
+    tile_k: int         # input channels of a k-step
+    tiles_m: int        # blocks along V (the last one ragged)
+    tiles_n: int        # blocks along Cout
+
+
+def fwd_schedule(v: int, cin: int, cout: int, dtype) -> FwdSchedule:
+    """The route and tiles of one forward launch (K1, K1', or the dX of K2
+    / K2' with Cin and Cout swapped).
+
+    bf16 operands take the tensor-core kernel (route 1): 64 voxels x a Cout
+    tile of 32 or 64 (whichever pads Cout less, 32 where 64 leaves fewer
+    than FWD_MIN_BLOCKS blocks), k-steps of 32 or 64 channels (whichever
+    pads Cin less).  f32 operands (the precise path) keep the CUDA-core
+    kernel (route 0): one block per 8-voxel group, all of Cout, all of Cin.
+    """
+    if dtype != torch.bfloat16:
+        return FwdSchedule(0, 8, cout, cin, v // 8, 1)
+    tiles_m = -(-v // FWD_TILE_M)
+    tn = _tile(cout)
+    if tn == 64 and tiles_m * -(-cout // 64) < FWD_MIN_BLOCKS:
+        tn = 32
+    return FwdSchedule(1, FWD_TILE_M, tn, _tile(cin), tiles_m, -(-cout // tn))
 
 
 class DwSchedule(NamedTuple):
@@ -290,29 +384,39 @@ def _run_bwd(name, symbol, dout, feats, src, codes, w, stream, sched=None):
     cout = w.shape[2]
     if sched is None:
         sched = dw_schedule(v, cin, cout, feats.dtype)
+    # dX is the forward's function with Cin and Cout swapped; it runs on the
+    # dW's route (the tiles matter on route 1 only).
+    dxs = fwd_schedule(v, cout, cin, torch.bfloat16)
     dev = feats.device
     dx = torch.empty((v, cin), dtype=torch.float32, device=dev)
     dw = torch.empty((27, cin, cout), dtype=torch.float32, device=dev)
-    wt = torch.empty_like(w)
     partial = torch.empty((sched.nchunks, 27, cin, cout),
                           dtype=torch.float32, device=dev)
-    rows = (torch.empty((27, v), dtype=torch.int32, device=dev)
-            if sched.route == 1 else None)
+    # Route 1: one row table, which dX and dW both read.  Route 0: the
+    # flipped, transposed W of the CUDA-core dX.
+    mma = sched.route == 1
+    rows = torch.empty((27, v), dtype=torch.int32, device=dev) if mma else None
+    wt = None if mma else torch.empty_like(w)
     fn = getattr(load("binned_conv"), symbol)
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 12 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     rc = fn(dout.data_ptr(), feats.data_ptr(), src.data_ptr(),
-            codes.data_ptr(), w.data_ptr(), wt.data_ptr(),
+            codes.data_ptr(), w.data_ptr(),
+            None if wt is None else wt.data_ptr(),
             None if rows is None else rows.data_ptr(), partial.data_ptr(),
             dx.data_ptr(), dw.data_ptr(), v, src.shape[1], cin, cout,
             sched.route, sched.tile_m, sched.tile_n, sched.nchunks,
-            sched.chunk_groups, _DTYPES[feats.dtype], stream)
+            sched.chunk_groups, dxs.tile_n, dxs.tile_k,
+            _DTYPES[feats.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
-    if sched.route == 1:
+    if mma:
+        LAUNCHES[FWD_MMA_NAME] += 1
         LAUNCHES[DW_MMA_NAME] += 1
+    else:
+        LAUNCHES[FWD_CORE_NAME] += 1
     return dx, dw
 
 
@@ -320,9 +424,10 @@ def binned_conv_grouped_fwd(feats, src_pack, bin_pack, w):
     """[V, Cout] float32 from group-pooled maps (K1; see the module
     docstring).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel,
-    which needs feats and w of one dtype (bf16 or f32), int32 maps, all
-    contiguous, Cin and Cout at most 1024.
+    CPU tensors take the plain version; CUDA tensors launch the kernel of
+    their dtype (bf16 the tensor-core one, f32 the CUDA-core one), which
+    needs feats and w of one dtype, int32 maps, all contiguous, Cin and Cout
+    at most 1024.
     """
     _check(feats, src_pack, bin_pack, w)
     if feats.device.type == "cpu":
@@ -335,10 +440,11 @@ def binned_conv_grouped_bwd(dout, feats, src_pack, bin_pack, w):
     """Backward of ``binned_conv_grouped_fwd``: ``(dX [V, Cin], dW [27, Cin,
     Cout])``, float32 (K2; see ``binned_conv_grouped_bwd_ref`` for the math).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel, which
-    needs dout, feats and w of one dtype (bf16 or f32), int32 maps, all
-    contiguous.  dW is summed over chunks of groups in a fixed order, with
-    no atomics, so it is bitwise repeatable.
+    CPU tensors take the plain version; CUDA tensors launch the kernels of
+    their dtype (bf16 on the tensor cores, f32 on the CUDA cores), which
+    need dout, feats and w of one dtype, int32 maps, all contiguous.  dW is
+    summed over chunks of groups in a fixed order, with no atomics: dX and
+    dW are bitwise repeatable.
     """
     _check(feats, src_pack, bin_pack, w)
     _check_dout(dout, feats, w)
@@ -352,9 +458,10 @@ def binned_conv_slots_fwd(feats, src, tap, w):
     """[V, Cout] float32 from per-voxel K-slot maps src, tap [V, K] int32
     (K1'; see ``binned_conv_slots_ref`` for the math).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel,
-    which reads the maps as [V/8, 8K] and so needs V % 8 == 0, feats and w
-    of one dtype (bf16 or f32), all contiguous, Cin and Cout at most 1024.
+    CPU tensors take the plain version; CUDA tensors launch the kernel of
+    their dtype (as ``binned_conv_grouped_fwd``), which reads the maps as
+    [V/8, 8K] and so needs V % 8 == 0, feats and w of one dtype, all
+    contiguous, Cin and Cout at most 1024.
     """
     _check_slots(feats, src, tap, w)
     if feats.device.type == "cpu":
@@ -367,7 +474,8 @@ def binned_conv_slots_bwd(dout, feats, src, tap, w):
     """Backward of ``binned_conv_slots_fwd`` as the JAX package computes it:
     ``(dX [V, Cin], dW [27, Cin, Cout])``, float32 (K2'; see
     ``binned_conv_slots_bwd_ref``).  Takes what ``binned_conv_slots_fwd``
-    takes, dout in the operands' dtype; dW is bitwise repeatable."""
+    takes, dout in the operands' dtype; dX and dW are bitwise
+    repeatable."""
     _check_slots(feats, src, tap, w)
     _check_dout(dout, feats, w)
     if feats.device.type == "cpu":

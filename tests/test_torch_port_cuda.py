@@ -28,27 +28,48 @@ def cuda():
     return torch.device("cuda")
 
 
+def _check_fwd(fwd, ref, name, x, src, codes, w):
+    """One forward launch against its plain version (2e-5 of the sum of
+    |terms|), bitwise equal across two launches, on the route of its dtype:
+    bf16 on the tensor-core kernel, f32 on the CUDA-core one."""
+    from fusiontransformer_tpu_torch.ops.kernels.binned_conv import (
+        FWD_CORE_NAME, FWD_MMA_NAME)
+    mma = int(x.dtype == torch.bfloat16)
+    before = (LAUNCHES[name], LAUNCHES[FWD_MMA_NAME], LAUNCHES[FWD_CORE_NAME])
+    out = fwd(x, src, codes, w)
+    assert (LAUNCHES[name], LAUNCHES[FWD_MMA_NAME],
+            LAUNCHES[FWD_CORE_NAME]) == (before[0] + 1, before[1] + mma,
+                                         before[2] + 1 - mma)
+    want = ref(x, src, codes, w)
+    scale = ref(x.abs(), src, codes, w.abs()).max()
+    torch.cuda.synchronize()
+    assert (out - want).abs().max().item() <= 2e-5 * scale.item()
+    assert torch.equal(out, fwd(x, src, codes, w))
+    return out
+
+
+@pytest.mark.parametrize("maps", ["full", "ragged", "empty"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("cin,cout", [(4, 32), (96, 96), (384, 256)])
-def test_binned_conv_kernel_matches_plain(cuda, dtype, cin, cout):
-    from fusiontransformer_tpu_torch.data.synthetic import SyntheticSCN
-    ds = SyntheticSCN(num_scans=2, num_points=3000, image_height=37,
-                      image_width=61)
-    coords = [np.asarray(ds[i]["coords"]) for i in range(2)]
-    cap = 6144
-    maps, overflow = build_batch_slot_maps(coords, (cap,) * 5, [1])
-    assert overflow == 0
-    src, binp = (torch.as_tensor(m, device=cuda) for m in maps[1])
+@pytest.mark.parametrize("cin,cout", [(4, 32), (20, 36), (96, 96),
+                                      (384, 256)])
+def test_binned_conv_kernel_matches_plain(cuda, dtype, cin, cout, maps):
+    """K1 against its plain version on the card at the flagship's widths
+    and a ragged one (20, 36: plain loads, not 16-byte copies), bitwise
+    repeatable.  ``maps``: two scans' group-pooled maps; their first 397
+    groups with tap 0 empty (V not a multiple of the 64-voxel tile); every
+    bin empty (a zero output)."""
+    src, binp = _grouped_maps(cuda)
+    if maps == "ragged":
+        src, binp = _ragged_without_tap0(src, binp, "grouped")
+    elif maps == "empty":
+        binp = torch.full_like(binp, 216)
+    cap = src.shape[0] * 8
     gen = torch.Generator().manual_seed(cin)
     x = torch.randn(cap, cin, generator=gen).to(cuda, dtype)
     w = torch.randn(27, cin, cout, generator=gen).to(cuda, dtype)
-    before = LAUNCHES["binned_conv_grouped_fwd"]
-    out = binned_conv_grouped_fwd(x, src, binp, w)
-    assert LAUNCHES["binned_conv_grouped_fwd"] == before + 1
-    ref = binned_conv_grouped_ref(x, src, binp, w)
-    scale = binned_conv_grouped_ref(x.abs(), src, binp, w.abs()).max()
-    torch.cuda.synchronize()
-    assert (out - ref).abs().max().item() <= 2e-5 * scale.item()
+    out = _check_fwd(binned_conv_grouped_fwd, binned_conv_grouped_ref,
+                     "binned_conv_grouped_fwd", x, src, binp, w)
+    assert out.any() == (maps != "empty")
 
 
 @pytest.mark.parametrize("precise", [False, True])
@@ -137,36 +158,38 @@ def _ragged_without_tap0(src, codes, kind, groups=397):
 
 def _check_bwd(bwd, bwd_ref, name, dout, x, src, codes, w, tap0_empty):
     """One backward launch against its plain version: dX and dW within 2e-5
-    of the sum of |terms|, dW bitwise equal across two launches, bf16 dW on
-    the tensor-core kernel, dW[26] zero where tap 0 is empty."""
+    of the sum of |terms|, both bitwise equal across two launches, bf16 dX
+    and dW on the tensor-core kernels (f32 on the CUDA-core ones), dW[26]
+    zero where tap 0 is empty."""
     from fusiontransformer_tpu_torch.ops.kernels.binned_conv import (
-        DW_MMA_NAME)
-    before = (LAUNCHES[name], LAUNCHES[DW_MMA_NAME])
+        DW_MMA_NAME, FWD_CORE_NAME, FWD_MMA_NAME)
+    names = (name, DW_MMA_NAME, FWD_MMA_NAME, FWD_CORE_NAME)
+    before = [LAUNCHES[n] for n in names]
     dx, dw = bwd(dout, x, src, codes, w)
     mma = int(x.dtype == torch.bfloat16)
-    assert (LAUNCHES[name], LAUNCHES[DW_MMA_NAME]) == (before[0] + 1,
-                                                       before[1] + mma)
+    assert [LAUNCHES[n] for n in names] == [
+        before[0] + 1, before[1] + mma, before[2] + mma, before[3] + 1 - mma]
     rdx, rdw = bwd_ref(dout, x, src, codes, w)
     sdx, sdw = bwd_ref(dout.abs(), x.abs(), src, codes, w.abs())
     torch.cuda.synchronize()
     assert (dx - rdx).abs().max().item() <= 2e-5 * sdx.max().item()
     assert (dw - rdw).abs().max().item() <= 2e-5 * sdw.max().item()
-    _, dw2 = bwd(dout, x, src, codes, w)
-    assert torch.equal(dw, dw2)
+    dx2, dw2 = bwd(dout, x, src, codes, w)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
     if tap0_empty:
         assert not dw[26].any() and not rdw[26].any()
 
 
 @pytest.mark.parametrize("ragged", [False, True])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("cin,cout", [(4, 32), (32, 64), (128, 96),
+@pytest.mark.parametrize("cin,cout", [(4, 32), (20, 36), (32, 64), (128, 96),
                                       (192, 128), (384, 256)])
 def test_binned_conv_bwd_kernel_matches_plain(cuda, dtype, cin, cout, ragged):
     """K2 (dX and dW) against its plain version on the card, at the widths
-    of the flagship's grouped levels; both sum the same f32 products in
-    another order (2e-5 of the sum of |terms|).  dW is bitwise repeatable;
-    bf16 takes the tensor-core dW, f32 the CUDA-core one.  ``ragged``: 397
-    groups with tap 0 empty everywhere."""
+    of the flagship's grouped levels and a ragged one; both sum the same f32
+    products in another order (2e-5 of the sum of |terms|).  dX and dW are
+    bitwise repeatable; bf16 takes the tensor-core kernels, f32 the
+    CUDA-core ones.  ``ragged``: 397 groups with tap 0 empty everywhere."""
     from fusiontransformer_tpu_torch.ops.kernels.binned_conv import (
         BWD_NAME, binned_conv_grouped_bwd, binned_conv_grouped_bwd_ref)
     src, binp = _grouped_maps(cuda)
@@ -200,13 +223,14 @@ def _per_voxel_maps(cuda, k, level=1):
 @pytest.mark.parametrize("k,cin,cout,ragged", [
     (16, 4, 32, False), (16, 128, 96, False), (5, 32, 64, False),
     (16, 384, 256, False), (1, 32, 64, False), (27, 192, 128, False),
-    (27, 64, 128, True), (1, 128, 96, True), (5, 384, 256, True)])
+    (27, 64, 128, True), (1, 128, 96, True), (5, 384, 256, True),
+    (16, 20, 36, False), (16, 96, 96, True)])
 def test_binned_conv_slots_kernels_match_plain(cuda, dtype, k, cin, cout,
                                                ragged):
     """K1' and K2' (dX, dW) against their plain versions on the card, on
     per-voxel maps the hierarchy built there (K < 27 drops live taps), 2e-5
-    of the sum of |terms|; dW bitwise repeatable across two launches, bf16
-    on the tensor-core dW.  ``ragged``: 397 groups with tap 0 empty."""
+    of the sum of |terms|; bitwise repeatable across two launches, bf16 on
+    the tensor-core kernels.  ``ragged``: 397 groups with tap 0 empty."""
     from fusiontransformer_tpu_torch.ops.kernels.binned_conv import (
         SLOTS_BWD_NAME, SLOTS_NAME, binned_conv_slots_bwd,
         binned_conv_slots_bwd_ref, binned_conv_slots_fwd,
@@ -219,13 +243,8 @@ def test_binned_conv_slots_kernels_match_plain(cuda, dtype, k, cin, cout,
     x = torch.randn(v, cin, generator=gen).to(cuda, dtype)
     w = torch.randn(27, cin, cout, generator=gen).to(cuda, dtype)
     dout = torch.randn(v, cout, generator=gen).to(cuda, dtype)
-    before = LAUNCHES[SLOTS_NAME]
-    out = binned_conv_slots_fwd(x, src, tap, w)
-    assert LAUNCHES[SLOTS_NAME] == before + 1
-    ref = binned_conv_slots_ref(x, src, tap, w)
-    scale = binned_conv_slots_ref(x.abs(), src, tap, w.abs()).max()
-    torch.cuda.synchronize()
-    assert (out - ref).abs().max().item() <= 2e-5 * scale.item()
+    _check_fwd(binned_conv_slots_fwd, binned_conv_slots_ref, SLOTS_NAME, x,
+               src, tap, w)
     _check_bwd(binned_conv_slots_bwd, binned_conv_slots_bwd_ref,
                SLOTS_BWD_NAME, dout, x, src, tap, w, ragged)
 

@@ -139,27 +139,32 @@ def _operands(dtype, kind, v=8 * 40, cin=32, cout=64, k=5):
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_dtype_picks_the_dw_kernel(monkeypatch, dtype, kind):
     """bf16 operands launch the tensor-core dW (route 1, with its row table
-    and its own launch count), f32 operands the CUDA-core one (route 0)."""
+    and its own launch count; dX on the tensor-core forward), f32 operands
+    the CUDA-core one (route 0, with the flipped W of the CUDA-core dX)."""
     lib = _StubLib()
     monkeypatch.setattr(bc, "load", lambda name: lib)
     symbol, name, dout, feats, src, codes, w = _operands(dtype, kind)
-    before = (LAUNCHES[name], LAUNCHES[bc.DW_MMA_NAME])
+    counts = (name, bc.DW_MMA_NAME, bc.FWD_MMA_NAME, bc.FWD_CORE_NAME)
+    before = [LAUNCHES[n] for n in counts]
     dx, dw = bc._run_bwd(name, symbol, dout, feats, src, codes, w, stream=0)
     assert dx.shape == feats.shape and dw.shape == w.shape
     assert dx.dtype == dw.dtype == torch.float32
     (called, args), = lib.calls
     assert called == symbol
-    ptrs, ints, stream = args[:10], args[10:20], args[20]
+    ptrs, ints, stream = args[:10], args[10:22], args[22]
     v, cin = feats.shape
-    sched = bc.dw_schedule(v, cin, w.shape[2], dtype)
-    assert ints == (v, src.shape[1], cin, w.shape[2], *sched[:5],
-                    0 if dtype == torch.float32 else 1)
+    cout = w.shape[2]
+    sched = bc.dw_schedule(v, cin, cout, dtype)
+    dxs = bc.fwd_schedule(v, cout, cin, torch.bfloat16)
+    assert ints == (v, src.shape[1], cin, cout, *sched[:5], dxs.tile_n,
+                    dxs.tile_k, 0 if dtype == torch.float32 else 1)
     assert stream == 0
     mma = dtype == torch.bfloat16
     assert sched.route == int(mma)
     assert (ptrs[6] is not None) == mma                  # the row table
-    assert LAUNCHES[name] == before[0] + 1
-    assert LAUNCHES[bc.DW_MMA_NAME] == before[1] + int(mma)
+    assert (ptrs[5] is None) == mma                      # the flipped W
+    assert [LAUNCHES[n] for n in counts] == [
+        before[0] + 1, before[1] + mma, before[2] + mma, before[3] + 1 - mma]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
