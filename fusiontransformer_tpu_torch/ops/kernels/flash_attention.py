@@ -15,12 +15,15 @@ probabilities and 2^-7 of it through the outputs' own rounding:
 ``ATTN_TOL`` (2^-6 and a margin for the f32 sums) times
 ``attention_error_scale``.  Any sequence length is taken, where the TPU
 kernel needs a multiple of 128.  The head dim is 64 and the type bf16 on
-both devices.
+both devices.  The kernel runs both products on ``wgmma``, fed by TMA, with
+the softmax of each key tile under the tensor cores' PV product of the tile
+before (design in its source note).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -68,6 +71,15 @@ def _check(q, k, v):
         raise ValueError(f"unsupported device {q.device}")
 
 
+@functools.cache
+def _kernel():
+    fn = load("flash_attention").ftx_flash_attention
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def flash_attention(q, k, v, sm_scale: float):
     """``[B, H, Nq, 64]`` bf16 (see the module docstring); k and v are
     ``[B, H, Nk, 64]``.  CPU tensors take the plain version; CUDA tensors
@@ -80,13 +92,10 @@ def flash_attention(q, k, v, sm_scale: float):
     b, h, nq, d = q.shape
     nk = k.shape[2]
     out = torch.empty_like(q)
-    fn = load("flash_attention").ftx_flash_attention
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h,
-            nq, nk, d, float(sm_scale) * math.log2(math.e), stream)
+    rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   b * h, nq, nk, d, float(sm_scale) * math.log2(math.e),
+                   stream)
     if rc != 0:
         raise RuntimeError(f"{NAME} launch failed: CUDA error {rc}")
     LAUNCHES[NAME] += 1

@@ -9,12 +9,17 @@ stream is sorted: ids are nondecreasing over the whole array, gapless on
 point reaches come back 0.  Unless ``precise``, each product ``w * g`` is
 rounded to bf16 before the f32 sum, as on the TPU.  The TPU wrapper pads N
 to its block size and ``E*C`` to a multiple of 128 for Mosaic; the CUDA
-kernel needs neither.
+kernel needs neither.  It splits the point stream into chunks of
+``points_per_chunk`` points, which the blocks of one cooperative launch
+take in turn; a row that crosses a chunk's edge is summed in pieces that
+the same launch adds in chunk order after a grid barrier, so the result is
+the same bits on every launch (design in ``csrc/segment_sum.cu``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -70,17 +75,36 @@ def sorted_segment_weighted_sum(g, w, ids, num_out: int, precise=False):
     n, c = g.shape
     e = w.shape[1]
     out = torch.empty((num_out, e * c), dtype=torch.float32, device=g.device)
-    fn = load("segment_sum").ftx_sorted_segment_weighted_sum
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    chunk = points_per_chunk(n)
+    nchunks = -(-n // chunk)
+    # Header (the live row count) and each chunk's share of a row begun in
+    # an earlier chunk.
+    scratch = torch.empty(4 + nchunks * e * c, dtype=torch.float32,
+                          device=g.device)
     stream = torch.cuda.current_stream(g.device).cuda_stream
-    rc = fn(g.data_ptr(), w.data_ptr(), ids.data_ptr(), out.data_ptr(),
-            n, c, e, num_out, int(bool(precise)), stream)
+    rc = _kernel()(g.data_ptr(), w.data_ptr(), ids.data_ptr(),
+                   out.data_ptr(), scratch.data_ptr(), n, c, e, num_out,
+                   chunk, int(bool(precise)), stream)
     if rc != 0:
         raise RuntimeError(f"{NAME} launch failed: CUDA error {rc}")
     LAUNCHES[launch_name(e)] += 1
     return out
+
+
+@functools.cache
+def _kernel():
+    fn = load("segment_sum").ftx_sorted_segment_weighted_sum
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def points_per_chunk(n: int) -> int:
+    """Points each block of the kernel owns: a power of two in [32, 128],
+    about n / 1024, so that a batch-1 stream (~20k points) still spreads over
+    ~600 blocks and a batch-10 one (~200k) keeps its blocks long."""
+    return max(32, min(128, 1 << max(n // 1024, 1).bit_length() - 1))
 
 
 def launch_name(e: int) -> str:

@@ -13,6 +13,10 @@ Variants:
                  with f32 products (``cdt_matmul``), x D^-0.5, an f32
                  softmax, ``cdt_matmul`` with v, the result in bf16
   flash          the hand-written flash attention kernel (T4)
+  sdpa           ``F.scaled_dot_product_attention`` with scale D^-0.5, the
+                 counterpart of the JAX tool's ``dot_product_attention``
+                 variant (``jax.nn.dot_product_attention``): PyTorch's own
+                 fused attention, a yardstick for T4
 
 It prints ms per DEPTH calls and us per call for each variant and batch, and
 flash's largest difference from einsum_f32sm on one call over its stated
@@ -26,6 +30,7 @@ import argparse
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from fusiontransformer_tpu_torch.ops.kernels.flash_attention import (
     ATTN_TOL, attention_error_scale, flash_attention)
@@ -48,7 +53,11 @@ def flash(q, k, v):
     return flash_attention(q, k, v, D ** -0.5)
 
 
-VARIANTS = {"einsum_f32sm": einsum_f32sm, "flash": flash}
+def sdpa(q, k, v):
+    return F.scaled_dot_product_attention(q, k, v, scale=D ** -0.5)
+
+
+VARIANTS = {"einsum_f32sm": einsum_f32sm, "flash": flash, "sdpa": sdpa}
 
 
 def inputs(b, heads, tokens, device):

@@ -1,6 +1,7 @@
 """Step times of two checkouts of this repository on one card, in turns.
 
     python -m fusiontransformer_tpu_torch.tools.step_ab ROOT_A ROOT_B
+    python -m fusiontransformer_tpu_torch.tools.step_ab --k3 ROOT_A ROOT_B
 
 Runs A, B, B, A, each in a process of its own that imports the port from
 that checkout (two commits, or a commit and its parent unpacked with
@@ -8,8 +9,13 @@ that checkout (two commits, or a commit and its parent unpacked with
 batch 10 of SyntheticSCN scans of 18,000 rays, adaptive caps; the
 group-pooled and the per-voxel configuration) and the per-voxel predict
 step at batch 1.  Each time is the median of CUDA-event windows around one
-step after warm-up steps on the same batch.  Prints one JSON line per run
-and the card's name and power limit; needs a CUDA device.
+step after warm-up steps on the same batch.  With ``--k3`` it times the
+segment sum (K3) instead, on the streams of the same batches: the two
+``voxelize_mean`` calls (L4, L2) of a request, and of a train step those
+and the two devoxelize adjoints (E = 8), bf16-rounding, each summed over
+its calls, eagerly (the host's launch included) and over CUDA-graph
+replays (the device).  Prints one JSON line per run and the card's name
+and power limit; needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -43,17 +49,15 @@ def _events(fn, n, warm=3):
     return statistics.median(out)
 
 
-def one(root, steps):
+def one(root, steps, k3=False):
     """The step times of the checkout at ``root`` (run in its own process)."""
     sys.path.insert(0, root)
     os.chdir(root)
-    import numpy as np
     import torch
     import fusiontransformer_tpu_torch as pkg
     if not pkg.__file__.startswith(root):
         raise RuntimeError(f"imported {pkg.__file__}, not from {root}")
     from fusiontransformer_tpu_torch.config.defaults import get_default_cfg
-    from fusiontransformer_tpu_torch.data.synthetic import SyntheticSCN
     from fusiontransformer_tpu_torch.modules.SemanticTrainer import (
         SemanticTrainer)
     from fusiontransformer_tpu_torch.modules.steps import device_batch
@@ -73,6 +77,8 @@ def one(root, steps):
         return cfg
 
     res = {"root": root}
+    if k3:
+        return k3_times(res, cfg_of, steps)
     for label, slot_pool in (("group-pooled", True), ("per-voxel", False)):
         tr = SemanticTrainer(cfg_of(True, slot_pool))
         ds = tr.train_dataloader.dataset
@@ -84,22 +90,81 @@ def one(root, steps):
         del tr, db
         torch.cuda.empty_cache()
     eng = InferenceEngine(cfg_of(False, False), batch_size=1, seed=0)
+    db = device_batch(eng.collate([eng.preprocess(_request(eng))]),
+                      eng.device)
+    with torch.inference_mode():
+        res["predict_step_ms per-voxel"] = _events(lambda: eng._step(db),
+                                                   2 * steps)
+    return res
+
+
+def k3_times(res, cfg_of, reps):
+    """K3's times per request and per train step (see the module
+    docstring) on the checkout already imported."""
+    import torch
+    from fusiontransformer_tpu_torch.modules.SemanticTrainer import (
+        SemanticTrainer)
+    from fusiontransformer_tpu_torch.modules.steps import (device_batch,
+                                                           hier_from_cfg)
+    from fusiontransformer_tpu_torch.ops import sparse_conv as sc
+    from fusiontransformer_tpu_torch.ops.kernels.segment_sum import (
+        sorted_segment_weighted_sum)
+    from fusiontransformer_tpu_torch.serving.engine import InferenceEngine
+    from fusiontransformer_tpu_torch.utils.profiler import time_cuda
+    gen = torch.Generator().manual_seed(0)
+
+    def streams(hier, adjoint):
+        n = hier.pt_valid.shape[0]
+        for level, width in ((4, 256), (2, 128)):
+            plan = sc.devox_plan(hier, level)
+            num_out = hier.levels[level].valid.shape[0]
+            feats = torch.randn(n, width, generator=gen).to(
+                hier.pt_valid.device)
+            yield (*sc.voxmean_stream(feats, hier.pt_valid, plan), num_out)
+            if adjoint:
+                yield (*sc.devox_adjoint_stream(
+                    feats, hier.pt_corner_w[level], plan), num_out)
+
+    def timed(label, hier, adjoint):
+        calls = [(lambda a=a: sorted_segment_weighted_sum(*a))
+                 for a in streams(hier, adjoint)]
+
+        def all_calls():
+            for c in calls:
+                c()
+        for key, graph in (("eager", False), ("device", True)):
+            res[f"k3_ms {label} {key}"] = time_cuda(
+                all_calls, iters=reps, warmup=3, graph=graph)[0]
+
+    eng = InferenceEngine(cfg_of(False, True), batch_size=1, seed=0)
+    rec = _request(eng)
+    timed("request", hier_from_cfg(
+        eng.cfg, device_batch(eng.collate([eng.preprocess(rec)]),
+                              eng.device)), False)
+    del eng
+    tr = SemanticTrainer(cfg_of(True, True))
+    ds = tr.train_dataloader.dataset
+    hb = tr.train_dataloader.collate_fn([ds[i] for i in range(BATCH)])
+    timed("train step", hier_from_cfg(
+        tr.cfg, device_batch(hb, tr.device), tr.level_caps(hb)), True)
+    return res
+
+
+def _request(eng):
+    """The batch-1 request record: one SyntheticSCN scan, a random image."""
+    import numpy as np
+    from fusiontransformer_tpu_torch.data.synthetic import SyntheticSCN
     gen = SyntheticSCN(split=("test",), num_scans=1, num_points=N_POINTS,
                        image_height=eng.image_height,
                        image_width=eng.image_width)
     rng = np.random.RandomState(100)
     points, _, _ = gen._make_scan(rng)
-    rec = {"points": points,
-           "feats": np.concatenate(
-               [points, rng.rand(len(points), 1).astype(np.float32)], 1),
-           "img": rng.rand(eng.image_height, eng.image_width,
-                           3).astype(np.float32),
-           "points_img": gen._project(points)}
-    db = device_batch(eng.collate([eng.preprocess(rec)]), eng.device)
-    with torch.inference_mode():
-        res["predict_step_ms per-voxel"] = _events(lambda: eng._step(db),
-                                                   2 * steps)
-    return res
+    return {"points": points,
+            "feats": np.concatenate(
+                [points, rng.rand(len(points), 1).astype(np.float32)], 1),
+            "img": rng.rand(eng.image_height, eng.image_width,
+                            3).astype(np.float32),
+            "points_img": gen._project(points)}
 
 
 def main(argv=None) -> int:
@@ -107,11 +172,13 @@ def main(argv=None) -> int:
     p.add_argument("roots", nargs="*", help="two checkouts: A B")
     p.add_argument("--steps", type=int, default=12,
                    help="timed steps per configuration and run")
+    p.add_argument("--k3", action="store_true",
+                   help="time the segment sum (K3), not the steps")
     p.add_argument("--one", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.one:
         print("STEP_AB " + json.dumps(one(os.path.abspath(args.one),
-                                          args.steps)), flush=True)
+                                          args.steps, args.k3)), flush=True)
         return 0
     import torch
     if len(args.roots) != 2:
@@ -125,7 +192,8 @@ def main(argv=None) -> int:
     for root in (a, b, b, a):
         out = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--one", root,
-             "--steps", str(args.steps)], capture_output=True, text=True)
+             "--steps", str(args.steps)] + ["--k3"] * args.k3,
+            capture_output=True, text=True)
         line = [x for x in out.stdout.splitlines()
                 if x.startswith("STEP_AB ")]
         if out.returncode or not line:

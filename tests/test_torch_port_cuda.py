@@ -72,6 +72,76 @@ def test_binned_conv_kernel_matches_plain(cuda, dtype, cin, cout, maps):
     assert out.any() == (maps != "empty")
 
 
+def edge_stream(case):
+    """(ids, num_out) of a sorted stream that stresses K3's split of the
+    point stream into chunks: rows spanning many chunks, empty rows, no
+    live point."""
+    if case == "one segment":            # every point in row 0 of 5
+        return np.zeros(3000, np.int32), 5
+    if case == "long among short":       # 5000 points of row 100
+        return np.concatenate([np.arange(100), np.full(5000, 100),
+                               np.arange(101, 400)]).astype(np.int32), 400
+    if case == "gaps":                   # rows 0-3, 6-8 and 300-349 empty
+        return np.concatenate([
+            np.full(3, 4), np.full(7, 5), np.full(2, 9),
+            np.arange(10, 300).repeat(2), np.full(50, 400)]).astype(
+                np.int32), 350
+    if case == "only sentinels":
+        return np.full(500, 77, np.int32), 77
+    if case == "devox plan":
+        return devox_plan_stream()
+    assert case == "no points"
+    return np.zeros(0, np.int32), 40
+
+
+def devox_plan_stream(level=4):
+    """(ids, num_out) of the port's DevoxPlan at L4 for two synthetic scans
+    (the plan JAX's DevoxPlan matches, ``test_torch_port_sparse_ops``)."""
+    from fusiontransformer_tpu_torch.data.collate import collate_padded
+    from fusiontransformer_tpu_torch.data.synthetic import SyntheticSCN
+    from fusiontransformer_tpu_torch.ops import sparse_conv as sc
+    from fusiontransformer_tpu_torch.ops.hierarchy import build_hierarchy
+    ds = SyntheticSCN(num_scans=2, num_points=3000, image_height=37,
+                      image_width=61)
+    b = collate_padded([ds[0], ds[1]], 2, 3072, 37, 61)
+    caps = (6144, 6144, 4096, 3072, 2048)
+    hier = build_hierarchy(*(torch.as_tensor(b[k]) for k in (
+        "coords", "pt_batch", "pt_valid")), caps)
+    ids = sc.devox_plan(hier, level).ids_sorted.numpy().astype(np.int32)
+    return ids, caps[level]
+
+
+@pytest.mark.parametrize("precise", [False, True])
+@pytest.mark.parametrize("e", [1, 8])
+@pytest.mark.parametrize("c", [4, 129, 257])
+@pytest.mark.parametrize("case", ["one segment", "long among short", "gaps",
+                                  "only sentinels", "no points",
+                                  "devox plan"])
+def test_segment_sum_kernel_on_edge_streams(cuda, case, c, e, precise):
+    """K3 against its plain version on streams that split rows across
+    chunks, leave rows empty at the start, the middle and the end, or hold
+    no live point, and on a DevoxPlan's stream; every row written (empty
+    ones 0), bitwise repeatable."""
+    ids, v = edge_stream(case)
+    rs = np.random.RandomState(c + e)
+    g = torch.as_tensor(rs.randn(len(ids), c).astype(np.float32),
+                        device=cuda)
+    w_np = rs.rand(len(ids), e).astype(np.float32)
+    w_np[ids >= v] = 0
+    w = torch.as_tensor(w_np, device=cuda)
+    ids_t = torch.as_tensor(ids, device=cuda)
+    out = sorted_segment_weighted_sum(g, w, ids_t, v, precise)
+    again = sorted_segment_weighted_sum(g, w, ids_t, v, precise)
+    ref = sorted_segment_weighted_sum_ref(g, w, ids_t, v, precise)
+    scale = sorted_segment_weighted_sum_ref(g.abs(), w, ids_t, v, True)
+    torch.cuda.synchronize()
+    assert out.shape == (v, e * c) and torch.equal(out, again)
+    assert ((out - ref).abs() <= 2e-5 * scale.max() + 0.0).all()
+    assert torch.equal(out[ref.abs().sum(1) == 0] != 0,
+                       torch.zeros_like(out[ref.abs().sum(1) == 0],
+                                        dtype=torch.bool))
+
+
 @pytest.mark.parametrize("precise", [False, True])
 @pytest.mark.parametrize("e,c", [(1, 257), (8, 128)])
 def test_segment_sum_kernel_matches_plain(cuda, precise, e, c):
@@ -480,7 +550,7 @@ def _attention_held(out, q, k, v):
 
 
 @pytest.mark.parametrize("n", [1, 63, 65, 578])
-@pytest.mark.parametrize("b,h", [(1, 1), (2, 3)])
+@pytest.mark.parametrize("b,h", [(1, 1), (2, 3), (1, 12)])
 def test_flash_attention_kernel_matches_plain(cuda, n, b, h):
     """T4 against its plain version, three calls chained (each output the
     next query), on unit-normal inputs and on the two inputs of
@@ -502,6 +572,28 @@ def test_flash_attention_kernel_matches_plain(cuda, n, b, h):
     for make in (tail_heavy, negative_scores):
         q, k, v = make(b, h, n)
         assert _attention_held(flash_attention(q, k, v, 0.125), q, k, v)
+
+
+LENGTHS = (1, 63, 64, 65, 127, 128, 129, 578, 1000)
+
+
+@pytest.mark.parametrize("nq", LENGTHS)
+@pytest.mark.parametrize("b,h", [(1, 1), (12, 12)])
+def test_flash_attention_kernel_at_tile_edges(cuda, nq, b, h):
+    """T4 for every key length of LENGTHS against each query length, B*H =
+    1 and 144 (more than the H100's 132 SMs): within the bound of the plain
+    version, and the same bits when launched again."""
+    from fusiontransformer_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention)
+    rs = np.random.RandomState(nq + b)
+    for nk in LENGTHS:
+        q = torch.as_tensor(rs.randn(b, h, nq, 64).astype(np.float32)).to(
+            cuda, torch.bfloat16)
+        k, v = (torch.as_tensor(rs.randn(b, h, nk, 64).astype(
+            np.float32)).to(cuda, torch.bfloat16) for _ in range(2))
+        out = flash_attention(q, k, v, 0.125)
+        assert torch.equal(out, flash_attention(q, k, v, 0.125))
+        assert _attention_held(out, q, k, v), nk
 
 
 def test_flash_attention_kernel_keeps_the_ragged_tail(cuda):

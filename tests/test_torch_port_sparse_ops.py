@@ -13,6 +13,8 @@ import torch
 
 from fusiontransformer_tpu.ops import sparse_conv as jsc
 from fusiontransformer_tpu.ops.hierarchy import build_hierarchy as j_build
+from fusiontransformer_tpu.ops.pallas.segment_sum import (
+    sorted_segment_weighted_sum as j_segsum)
 from fusiontransformer_tpu_torch.data.collate import collate_padded
 from fusiontransformer_tpu_torch.data.synthetic import SyntheticSCN
 from fusiontransformer_tpu_torch.ops import sparse_conv as tsc
@@ -138,3 +140,58 @@ def test_conv1x1_and_gather_rows_match_jax(hiers):
     np.testing.assert_array_equal(
         np.asarray(jsc.gather_rows(jx, jh.pt_sorted_pos)),
         tsc.gather_rows(tx, th.pt_sorted_pos).numpy())
+
+
+@pytest.mark.parametrize("n,chunk", [(0, 32), (1, 32), (2200, 32),
+                                     (19072, 32), (40000, 32), (80000, 64),
+                                     (178048, 128), (10 ** 7, 128)])
+def test_points_per_chunk(n, chunk):
+    """The chunk K3's blocks take: a power of two in [32, 128], about n /
+    1024 (a batch-1 scan of ~19k points in ~600 chunks, a batch-10 batch of
+    ~178k in ~1400)."""
+    from fusiontransformer_tpu_torch.ops.kernels.segment_sum import (
+        points_per_chunk)
+    assert points_per_chunk(n) == chunk
+
+
+@pytest.mark.parametrize("level", [2, 4])
+def test_segment_sum_on_jax_devox_plan(hiers, level):
+    """The port's segment sum (its CPU route) on the sorted ids of JAX's own
+    DevoxPlan, E = 8, against JAX's segment sum; the card tests hold the
+    kernel against this route."""
+    from fusiontransformer_tpu_torch.ops.kernels.segment_sum import (
+        sorted_segment_weighted_sum)
+    jh, _, _ = hiers
+    ids = np.asarray(jsc.devox_plan(jh, level).ids_sorted)
+    rs = np.random.RandomState(level)
+    v = CAPS[level]
+    g = rs.randn(len(ids), 5).astype(np.float32)
+    w = rs.rand(len(ids), 8).astype(np.float32)
+    w[ids >= v] = 0.0
+    want = np.asarray(j_segsum(jnp.asarray(g), jnp.asarray(w),
+                               jnp.asarray(ids), v, precise=True))
+    got = sorted_segment_weighted_sum(torch.as_tensor(g), torch.as_tensor(w),
+                                      torch.as_tensor(ids), v, True)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("case", ["one segment", "long among short", "gaps",
+                                  "only sentinels", "no points"])
+def test_segment_sum_on_edge_streams(case):
+    """The port's segment sum (its CPU route) on the card tests' edge
+    streams against numpy's ``add.at``: rows no point reaches are 0."""
+    from fusiontransformer_tpu_torch.ops.kernels.segment_sum import (
+        sorted_segment_weighted_sum)
+    from test_torch_port_cuda import edge_stream
+    ids, v = edge_stream(case)
+    rs = np.random.RandomState(len(ids))
+    g = rs.randn(len(ids), 3).astype(np.float32)
+    w = rs.rand(len(ids), 2).astype(np.float32)
+    w[ids >= v] = 0.0
+    want = np.zeros((v + 1, 6), np.float32)
+    np.add.at(want, np.minimum(ids, v),
+              (w[:, :, None] * g[:, None, :]).reshape(len(ids), 6))
+    got = sorted_segment_weighted_sum(torch.as_tensor(g), torch.as_tensor(w),
+                                      torch.as_tensor(ids), v, True)
+    assert got.shape == (v, 6)
+    np.testing.assert_allclose(got.numpy(), want[:v], **TOL)

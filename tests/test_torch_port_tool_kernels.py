@@ -167,6 +167,25 @@ def test_flash_attention_ref_matches_the_einsum_formulation(n):
     assert got.dtype == torch.bfloat16 and got.shape == (2, 3, n, 64)
 
 
+@pytest.mark.parametrize("b,h,n", [(1, 2, 70), (2, 3, 33), (1, 1, 1),
+                                   (2, 2, 129)])
+def test_sdpa_variant_matches_jax_dot_product_attention(b, h, n):
+    """The microbench's ``sdpa`` against the JAX tool's
+    ``dot_product_attention`` (``jax.nn.dot_product_attention``, [b, n, h, d]
+    layout) on the same bf16 inputs, within ATTN_TOL of sum_j p_ij |v_j|."""
+    q, k, v = _qkv(b, h, n, n)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16).swapaxes(1, 2)
+                  for x in (q, k, v))
+    want = jax.nn.dot_product_attention(jq, jk, jv, scale=64 ** -0.5)
+    want = torch.as_tensor(np.asarray(want.swapaxes(1, 2).astype(
+        jnp.float32)))
+    tq, tk, tv = (torch.as_tensor(x).to(torch.bfloat16) for x in (q, k, v))
+    got = microbench_attention.sdpa(tq, tk, tv)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, h, n, 64)
+    scale = attention_error_scale(tq, tk, tv, 64 ** -0.5)
+    assert ((got.float() - want).abs() <= ATTN_TOL * scale).all()
+
+
 def test_wrappers_on_the_cpu_run_the_plain_versions_and_check_arguments():
     rs = np.random.RandomState(0)
     feats = torch.as_tensor(rs.randn(R, 32).astype(np.float32)).to(
@@ -250,6 +269,8 @@ def test_tools_run_on_the_cpu(tool, capsys):
         shares = [r["flash_vs_einsum_share_of_bound"] for r in rows
                   if "flash_vs_einsum_share_of_bound" in r]
         assert len(shares) == 2 and max(shares) <= 1.0
+        assert {r["variant"] for r in rows if "variant" in r} == {
+            "einsum_f32sm", "flash", "sdpa"}
 
 
 @pytest.mark.parametrize("tool", sorted(TOOL_RUNS))
