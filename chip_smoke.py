@@ -88,7 +88,9 @@ kernels:
     T2 ``gather_rows_sum_pipelined`` and T3 ``gather_rows_sum_smem`` on the
     flagship's own L0 and L2 per-voxel maps (T1 bit for bit, T2/T3 within
     SUM_ORDER_RTOL of the sum of |rows| and bitwise repeatable; per 16384
-    indices and for the whole level in one launch), and T4
+    indices and for the whole level in one launch; T2/T3 timed over
+    CUDA-graph replays and eagerly, with the gathered GB/s and the bound,
+    beside the previous design's times in ``EARLIER``), and T4
     ``flash_attention`` at DeiT-B/384 shapes, B = 1, 2, 8, 12 chained calls,
     plus a tail-heavy and a negative-score input, each within ATTN_TOL of
     its plain version, with SDPA timed beside it;
@@ -147,17 +149,27 @@ TOOL_KERNELS = {
     "gather_rows_sum_smem": "tools/microbench_dma_gather.py:190",
     "flash_attention": "tools/microbench_attention.py:42"}
 ATTN_BATCHES = (1, 2, 8)
-# Times of T4, K3 and K3' in their designs before wgmma / TMA and the
-# point-balanced chunks: earlier runs of this script on an NVIDIA H100 80GB
-# HBM3 at 700 W (PERF.md section 6; T4 per 12 chained calls, K3 per request
-# at batch 1, K3' per train step at batch 10).
+# Times of the redesigned kernels in their designs before, on an NVIDIA
+# H100 80GB HBM3 at 700 W (PERF.md section 6): T4, K3 and K3' before wgmma /
+# TMA and the point-balanced chunks (earlier runs of this script; T4 per 12
+# chained calls, K3 per request at batch 1, K3' per train step at batch 10);
+# T2 and T3 before the staged indices, the cluster-resident table and the
+# single launch (tools/step_ab.py --gather on that design beside this one:
+# one whole-level call at L0 and at L2 over CUDA-graph replays, the mean of
+# the design's two runs, and the levels' sum).
 EARLIER_FROM = "earlier runs of this script, the previous kernel designs"
+GATHER_FROM = "tools/step_ab.py --gather, the previous kernel design"
 EARLIER = {"flash_attention": {"b1_ms": 0.162, "b2_ms": 0.211,
                                "b8_ms": 0.645, "from": EARLIER_FROM},
            "sorted_segment_weighted_sum": {"ms": 0.0467,
                                            "from": EARLIER_FROM},
            "sorted_segment_weighted_sum[E=8]": {"ms": 0.850,
-                                                "from": EARLIER_FROM}}
+                                                "from": EARLIER_FROM},
+           "gather_rows_sum_pipelined": {"ms": 0.0892, "L0_ms": 0.0456,
+                                         "L2_ms": 0.0437,
+                                         "from": GATHER_FROM},
+           "gather_rows_sum_smem": {"ms": 0.0586, "L0_ms": 0.0298,
+                                    "L2_ms": 0.0288, "from": GATHER_FROM}}
 # The training path: the flagship's model and training settings
 # (middlefusion.yaml) on SyntheticSCN scans, 3 steps of batch 10 and one
 # validation over the same number of scans; then a steady window of
@@ -1763,6 +1775,8 @@ def phase_gather_kernels():
     main = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                 "library_ms": 0.0, "max_abs_err": 0.0, "bound_t": {}}
             for k in kernels}
+    for k in (rg.PIPELINED, rg.SMEM):
+        main[k].update(eager_ms=0.0, gathered_bytes=0, levels={})
     for level, c in mdg.LEVELS:
         feats = mdg.level_table(level, c, "cuda")
         r = feats.shape[0]
@@ -1800,22 +1814,26 @@ def phase_gather_kernels():
                         ix_bag, feats, mode="sum")
                     b_ms, b_by = bound(bytes_sum, n * c, "float32")
                 ms = graph_ms(lambda: fn(feats, ix, check=False))
+                eager = cuda_ms(lambda: fn(feats, ix, check=False))
                 plain_ms = cuda_ms(lambda: ref_fn(feats, ix), iters=5,
                                    reps=3)
                 lib_ms = graph_ms(lib)
                 rate = n / (ms * 1e-3) / 1e6
                 lib_rate = n / (lib_ms * 1e-3) / 1e6
+                gbps = n * 2 * c / (ms * 1e6)
                 rows.append(dict(kernel=name, level=level, C=c, rows=r,
                                  case=label, n=n, max_abs_err=err, ms=ms,
-                                 plain_ms=plain_ms, bound_ms=b_ms,
-                                 bound_by=b_by, library_ms=lib_ms,
-                                 M_rows_per_s=rate,
+                                 eager_ms=eager, plain_ms=plain_ms,
+                                 bound_ms=b_ms, bound_by=b_by,
+                                 library_ms=lib_ms, M_rows_per_s=rate,
+                                 gathered_GB_per_s=gbps,
                                  library_M_rows_per_s=lib_rate))
                 log(f"  {name:26s} L{level} C={c:3d} {label:5s} n={n:6d}: "
-                    f"err {err:.3g}  kernel {ms:.4f} ms "
-                    f"({rate:.0f} M rows/s)  plain {plain_ms:.4f} ms  "
-                    f"library {lib_ms:.4f} ms ({lib_rate:.0f} M rows/s)  "
-                    f"bound {b_ms:.4f} ms ({b_by})")
+                    f"err {err:.3g}  kernel {ms:.4f} ms (eager "
+                    f"{eager:.4f}; {rate:.0f} M rows/s, {gbps:.0f} GB/s "
+                    f"gathered)  plain {plain_ms:.4f} ms  library "
+                    f"{lib_ms:.4f} ms ({lib_rate:.0f} M rows/s)  bound "
+                    f"{b_ms:.4f} ms ({b_by})")
                 m = main[name]
                 m["max_abs_err"] = max(m["max_abs_err"], err)
                 if label == "whole":
@@ -1824,6 +1842,19 @@ def phase_gather_kernels():
                     m["library_ms"] += lib_ms
                     m["bound_ms"] += b_ms
                     m["bound_t"][b_by] = m["bound_t"].get(b_by, 0) + b_ms
+                    if name != rg.BLOCKS8:
+                        m["eager_ms"] += eager
+                        m["gathered_bytes"] += n * 2 * c
+                        m["levels"][f"L{level}"] = {
+                            "ms": ms, "eager_ms": eager, "bound_ms": b_ms,
+                            "gathered_GB_per_s": gbps}
+    for k in (rg.PIPELINED, rg.SMEM):
+        m = main[k]
+        m["gathered_GB_per_s"] = m.pop("gathered_bytes") / (m["ms"] * 1e6)
+        log(f"  {k}: whole L0 + L2 {m['ms']:.4f} ms on the device, "
+            f"{m['eager_ms']:.4f} eager, {m['gathered_GB_per_s']:.0f} GB/s "
+            f"gathered, bound {m['bound_ms']:.4f} ms; the design before: "
+            f"{EARLIER[k]['ms']} ms ({EARLIER[k]['from']})")
     return rows, main
 
 
@@ -2320,8 +2351,10 @@ def main() -> int:
                  tlaunches), "graph_ms": k3e8["graph_ms"]},
         fwd_entry("binned_conv_slots_fwd", k1p, k1pt, pserve["launches"]),
         bwd_entry("binned_conv_slots_bwd", k2p, ptlaunches),
-        *(entry(name, GATHER_SOURCE, TOOL_KERNELS[name], m,
-                m["library_ms"], tools["launches"])
+        *({**entry(name, GATHER_SOURCE, TOOL_KERNELS[name], m,
+                   m["library_ms"], tools["launches"]),
+           **{k: m[k] for k in ("eager_ms", "gathered_GB_per_s", "levels")
+              if k in m}}
           for name, m in gather_main.items()),
         {**entry("flash_attention", FLASH_SOURCE,
                  TOOL_KERNELS["flash_attention"], flash_main,

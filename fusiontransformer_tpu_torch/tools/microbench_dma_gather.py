@@ -8,7 +8,9 @@ flagship's slot-map indices?
 Port of ``tools/microbench_dma_gather.py``.  The indices are the flattened
 per-voxel ``src`` maps (K = 16 slots per voxel, sentinel = the pad row) of
 one SyntheticSCN scan of 18,000 points through ``build_hierarchy``, at L0
-(C = 32) and L2 (C = 128), gathered from a bf16 table ``[cap + 1, C]``.
+(C = 32) and L2 (C = 128), gathered from a bf16 table ``[cap + 1, C]``; it
+prints the share of the indices that name the pad row (most of them: every
+empty slot does).
 Variants, per ``CHUNK`` indices and for the whole level's list in one
 launch:
 
@@ -16,7 +18,8 @@ launch:
   T1 gather_blocks8          8-row-aligned blocks, one per index (the first
                              n/8 indices)
   T2 gather_rows_sum_pipelined  a ring of cp.async row copies, summed in f32
-  T3 gather_rows_sum_smem    the table resident in shared memory, summed
+  T3 gather_rows_sum_smem    the table resident in a cluster's shared memory,
+                             summed
 
 On the card each time is a CUDA-event median over CUDA-graph replays of
 ``CALLS`` calls (a call of ``CHUNK`` rows is shorter than a launch from
@@ -126,7 +129,9 @@ def run_level(level, c, src_flat, device, chunk=CHUNK, iters=5):
     fns = variant_fns(feats)
     err_whole = errors(feats, whole)
     res = {"level": level, "cap": CAPS[level], "C": c, "chunk": chunk,
-           "whole_rows": int(whole.shape[0]), "ms": {}, "ms_whole": {},
+           "whole_rows": int(whole.shape[0]),
+           "pad_row_share": float((whole == CAPS[level]).float().mean()),
+           "ms": {}, "ms_whole": {},
            "err": {**errors(feats, chunks[0]),
                    **{f"{k} whole": v for k, v in err_whole.items()}}}
     for name, fn in fns.items():
@@ -146,6 +151,8 @@ def run_level(level, c, src_flat, device, chunk=CHUNK, iters=5):
                            for name in fns)
         print(f"L{level} cap={CAPS[level]} C={c} ({2 * c} B rows), {label} "
               f"| {cells}", flush=True)
+    print(f"L{level}: {res['pad_row_share']:.4f} of the indices name the "
+          f"pad row ({CAPS[level]})", flush=True)
     print(f"L{level} errors: " + ", ".join(
         f"{k} {v:.3g}" for k, v in res["err"].items()), flush=True)
     return res

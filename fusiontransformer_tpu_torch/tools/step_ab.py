@@ -2,6 +2,7 @@
 
     python -m fusiontransformer_tpu_torch.tools.step_ab ROOT_A ROOT_B
     python -m fusiontransformer_tpu_torch.tools.step_ab --k3 ROOT_A ROOT_B
+    python -m fusiontransformer_tpu_torch.tools.step_ab --gather ROOT_A ROOT_B
 
 Runs A, B, B, A, each in a process of its own that imports the port from
 that checkout (two commits, or a commit and its parent unpacked with
@@ -14,8 +15,12 @@ segment sum (K3) instead, on the streams of the same batches: the two
 ``voxelize_mean`` calls (L4, L2) of a request, and of a train step those
 and the two devoxelize adjoints (E = 8), bf16-rounding, each summed over
 its calls, eagerly (the host's launch included) and over CUDA-graph
-replays (the device).  Prints one JSON line per run and the card's name
-and power limit; needs a CUDA device.
+replays (the device).  With ``--gather`` it times the row-gather sums T2
+(``gather_rows_sum_pipelined``) and T3 (``gather_rows_sum_smem``) on the
+microbench's inputs (one scan's per-voxel L0 and L2 slot maps, one call over
+the whole level's list), eagerly and over CUDA-graph replays, with each
+call's kernels by name from the profiler.  Prints one JSON line per run and
+the card's name and power limit; needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -49,7 +54,7 @@ def _events(fn, n, warm=3):
     return statistics.median(out)
 
 
-def one(root, steps, k3=False):
+def one(root, steps, k3=False, gather=False):
     """The step times of the checkout at ``root`` (run in its own process)."""
     sys.path.insert(0, root)
     os.chdir(root)
@@ -79,6 +84,8 @@ def one(root, steps, k3=False):
     res = {"root": root}
     if k3:
         return k3_times(res, cfg_of, steps)
+    if gather:
+        return gather_times(res, steps)
     for label, slot_pool in (("group-pooled", True), ("per-voxel", False)):
         tr = SemanticTrainer(cfg_of(True, slot_pool))
         ds = tr.train_dataloader.dataset
@@ -150,6 +157,56 @@ def k3_times(res, cfg_of, reps):
     return res
 
 
+def kernels_by_name(fn, calls=10):
+    """``{kernel: [records per call, median ms]}`` of the device kernels
+    that ``calls`` calls of ``fn`` ran, from a profiler trace (the
+    template arguments kept, the parameter list dropped)."""
+    import re
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            m = re.search(r"(\w+_kernel(<[^()]*>)?)", e.name)
+            times.setdefault(m.group(1) if m else e.name, []).append(
+                e.time_range.elapsed_us() / 1e3)
+    return {k: [len(v) / calls, statistics.median(v)]
+            for k, v in times.items()}
+
+
+def gather_times(res, reps):
+    """T2's and T3's times at L0 and L2 (see the module docstring) on the
+    checkout already imported."""
+    from fusiontransformer_tpu_torch.ops.kernels import row_gather as rg
+    from fusiontransformer_tpu_torch.tools import microbench_dma_gather as mdg
+    from fusiontransformer_tpu_torch.utils.profiler import time_cuda
+    idx = mdg.level_indices("cuda")
+    for level, c in mdg.LEVELS:
+        feats = mdg.level_table(level, c, "cuda")
+        ix = idx[level][:idx[level].shape[0] // 8 * 8]
+        for name, fn in ((rg.PIPELINED, rg.gather_rows_sum_pipelined),
+                         (rg.SMEM, rg.gather_rows_sum_smem)):
+            def call(fn=fn):
+                return fn(feats, ix, check=False)
+            key = f"{name} L{level}"
+            res[f"{key} n"] = int(ix.shape[0])
+            for label, graph in (("eager", False), ("graph", True)):
+                res[f"{key} {label}_ms"] = time_cuda(
+                    call, iters=reps, warmup=3, calls=20, graph=graph)[0]
+            res[f"{key} GB/s"] = (ix.shape[0] * 2 * c
+                                  / (res[f"{key} graph_ms"] * 1e6))
+            res[f"{key} kernels"] = kernels_by_name(call)
+    return res
+
+
 def _request(eng):
     """The batch-1 request record: one SyntheticSCN scan, a random image."""
     import numpy as np
@@ -174,11 +231,16 @@ def main(argv=None) -> int:
                    help="timed steps per configuration and run")
     p.add_argument("--k3", action="store_true",
                    help="time the segment sum (K3), not the steps")
+    p.add_argument("--gather", action="store_true",
+                   help="time the row-gather sums (T2, T3), not the steps")
     p.add_argument("--one", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
+    if args.k3 and args.gather:
+        p.error("--k3 and --gather exclude each other")
     if args.one:
         print("STEP_AB " + json.dumps(one(os.path.abspath(args.one),
-                                          args.steps, args.k3)), flush=True)
+                                          args.steps, args.k3, args.gather)),
+              flush=True)
         return 0
     import torch
     if len(args.roots) != 2:
@@ -192,7 +254,8 @@ def main(argv=None) -> int:
     for root in (a, b, b, a):
         out = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--one", root,
-             "--steps", str(args.steps)] + ["--k3"] * args.k3,
+             "--steps", str(args.steps)] + ["--k3"] * args.k3
+            + ["--gather"] * args.gather,
             capture_output=True, text=True)
         line = [x for x in out.stdout.splitlines()
                 if x.startswith("STEP_AB ")]

@@ -484,10 +484,23 @@ def test_gather_blocks8_kernel_matches_plain(cuda, r, c, n):
     assert torch.equal(out[8:], gather_blocks8_ref(feats, idx)[8:])
 
 
+# Around the kernels' edges: a T2 stage is 256 / (C / 8) indices (64 at
+# C = 32, 16 at C = 128), T3's 512 / (C / 8), an index tile 2048, a block's
+# least slice 1024 (8192 a cluster of 8); 600001 indices give T2's blocks
+# several tiles, 278528 T3's; 56048 x 32 is the largest table a cluster of
+# 16 holds.
+GATHER_EDGES = [(17409, 32, n) for n in (63, 64, 65, 127, 128, 129, 1023,
+                                         1024, 1025, 2047, 2048, 2049, 8191,
+                                         8192, 8193, 278528)] + [
+    (7809, 128, n) for n in (15, 16, 17, 31, 32, 33)] + [
+    (1001, 8, 600001), (56048, 32, 278528)]
+
+
 @pytest.mark.parametrize("kind", ["pipelined", "smem"])
 @pytest.mark.parametrize("r,c,n", [(1001, 8, 1), (1001, 32, 0),
                                    (1001, 32, 1003), (17409, 32, 16389),
-                                   (7809, 128, 124931), (50, 24, 7)])
+                                   (7809, 128, 124931), (50, 24, 7)]
+                         + GATHER_EDGES)
 def test_gather_rows_sum_kernels_match_plain(cuda, kind, r, c, n):
     """T2 and T3 against the plain f32 sum within 2e-5 of the sum of
     |rows|, equal bit for bit across two launches; an index out of range
@@ -515,6 +528,55 @@ def test_gather_rows_sum_kernels_match_plain(cuda, kind, r, c, n):
         assert (got - want).abs().max().item() <= 2e-5 * scale
 
 
+@pytest.mark.parametrize("r,c,n", [(17409, 6, 16389), (1001, 12, 1003),
+                                   (50, 1, 7), (1001, 4, 2049),
+                                   (300, 4100, 2049), (60, 9000, 1000)])
+def test_gather_rows_sum_smem_takes_any_width(cuda, r, c, n):
+    """T3 at widths T2 does not take: C % 8 != 0 (a row's last 16-byte chunk
+    zero past C) and rows of more than 512 chunks (summed in column
+    windows), against the plain sum within 2e-5 of the sum of |rows|,
+    bitwise repeatable; an index out of range raises."""
+    from fusiontransformer_tpu_torch.ops.kernels import row_gather as rg
+    feats, idx = _gather_inputs(cuda, r, c, n, r + c + n)
+    a = rg.gather_rows_sum_smem(feats, idx)
+    b = rg.gather_rows_sum_smem(feats, idx)
+    assert a.shape == (1, c) and a.dtype == torch.float32
+    assert torch.equal(a, b)
+    ref = rg.gather_rows_sum_ref(feats, idx)
+    scale = rg.gather_rows_sum_ref(feats.abs(), idx).max().item()
+    assert (a - ref).abs().max().item() <= 2e-5 * scale
+    bad = idx.clone()
+    bad[-1] = r
+    with pytest.raises(IndexError):
+        rg.gather_rows_sum_smem(feats, bad)
+
+
+@pytest.mark.parametrize("kind", ["pipelined", "smem"])
+def test_gather_rows_sum_calls_on_two_streams(cuda, kind):
+    """Calls on two streams may overlap on the card; each stream has a
+    ticket of its own, so every call's sum is whole and bit for bit the
+    same."""
+    from fusiontransformer_tpu_torch.ops.kernels import row_gather as rg
+    fn = {"pipelined": rg.gather_rows_sum_pipelined,
+          "smem": rg.gather_rows_sum_smem}[kind]
+    feats, idx = _gather_inputs(cuda, 17409, 32, 278528, 5)
+    want = fn(feats, idx)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for k in range(40):
+        with torch.cuda.stream(streams[k % 2]):
+            outs.append(fn(feats, idx, check=False))
+    for s in streams:
+        torch.cuda.current_stream().wait_stream(s)
+    torch.cuda.synchronize()
+    assert all(torch.equal(out, want) for out in outs)
+    dev = feats.device.index
+    assert (rg.ticket_slot(dev, streams[0].cuda_stream)
+            != rg.ticket_slot(dev, streams[1].cuda_stream))
+
+
 def test_gather_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     from fusiontransformer_tpu_torch.ops.kernels import row_gather as rg
     feats, idx = _gather_inputs(cuda, 1001, 32, 64, 0)
@@ -536,9 +598,60 @@ def test_gather_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         rg.gather_rows_sum_pipelined(feats[:, :4].contiguous(), idx)
     with pytest.raises(ValueError, match="aligned"):
         rg.gather_rows_sum_smem(feats[:, :4].contiguous()[1:], idx)
-    with pytest.raises(ValueError, match="even one column"):
+    with pytest.raises(ValueError, match="cluster of 16"):
         rg.gather_rows_sum_smem(
-            torch.zeros(120_000, 8, dtype=torch.bfloat16, device=cuda), idx)
+            torch.zeros(120_000, 32, dtype=torch.bfloat16, device=cuda), idx)
+    with pytest.raises(ValueError, match="cluster of 16"):
+        rg.gather_rows_sum_smem(
+            torch.zeros(56049, 32, dtype=torch.bfloat16, device=cuda), idx)
+
+
+@pytest.mark.parametrize("kind", ["pipelined", "smem"])
+@pytest.mark.parametrize("level", [0, 2])
+def test_gather_rows_sum_one_kernel_a_call_and_graph_replays(cuda, kind,
+                                                             level):
+    """On the flagship's L0 / L2 slot maps: each call runs exactly one
+    kernel (by the profiler's kernel names), and three replays of a CUDA
+    graph of one call give the eager result bit for bit (the last block's
+    ticket is back at 0 after every launch)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from fusiontransformer_tpu_torch.ops.kernels import row_gather as rg
+    from fusiontransformer_tpu_torch.tools import microbench_dma_gather as mdg
+    fn = {"pipelined": rg.gather_rows_sum_pipelined,
+          "smem": rg.gather_rows_sum_smem}[kind]
+    name = {"pipelined": rg.PIPELINED, "smem": rg.SMEM}[kind]
+    c = dict(mdg.LEVELS)[level]
+    ix = mdg.level_indices(cuda)[level]
+    feats = mdg.level_table(level, c, cuda)
+    want = fn(feats, ix)
+    calls, counts = 3, []
+    for _ in range(4):      # the profiler may drop a kernel record: retrace
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn(feats, ix, check=False)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        assert kernels and all(f"{name}_kernel" in k for k in kernels)
+        counts.append(len(kernels))
+        if counts[-1] == calls:
+            break
+    assert max(counts) == calls
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(feats, ix, check=False)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(feats, ix, check=False)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
 
 
 def _attention_held(out, q, k, v):

@@ -17,6 +17,7 @@ wrappers run for CPU tensors) are held against them on numpy-made inputs:
 """
 
 import importlib.util
+import itertools
 import pathlib
 
 import jax
@@ -29,12 +30,13 @@ from jax.experimental.pallas import tpu as pltpu
 from fusiontransformer_tpu_torch.data.collate import collate_padded
 from fusiontransformer_tpu_torch.data.synthetic import SyntheticSCN
 from fusiontransformer_tpu_torch.ops.hierarchy import build_hierarchy
-from fusiontransformer_tpu_torch.ops.kernels import LAUNCHES
+from fusiontransformer_tpu_torch.ops.kernels import LAUNCHES, row_gather
 from fusiontransformer_tpu_torch.ops.kernels.flash_attention import (
     ATTN_TOL, attention_error_scale, flash_attention, flash_attention_ref)
 from fusiontransformer_tpu_torch.ops.kernels.row_gather import (
     gather_blocks8, gather_blocks8_ref, gather_rows_sum_pipelined,
-    gather_rows_sum_ref, gather_rows_sum_smem, smem_column_slice)
+    MIN_SLICE, gather_rows_sum_ref, gather_rows_sum_smem, grid_plan,
+    smem_plan)
 from fusiontransformer_tpu_torch.tools import (microbench_attention,
                                                microbench_dma_gather,
                                                microbench_gather)
@@ -227,17 +229,79 @@ def test_wrappers_on_the_cpu_run_the_plain_versions_and_check_arguments():
         flash_attention(q, q[:, :1], q[:, :1], 0.125)
 
 
-def test_smem_column_slice_fits_the_flagship_tables():
-    # L0 at C = 32 (17409 rows): 4 columns, 139 KB; L2 at C = 128 (7809
-    # rows): 8 columns, 125 KB.
-    assert smem_column_slice(17409, 32) == 4
-    assert smem_column_slice(7809, 128) == 8
-    assert smem_column_slice(17409, 6) == 2
-    with pytest.raises(ValueError, match="even one column"):
-        smem_column_slice(120_000, 32)
-    feats = torch.zeros(120_000, 8, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="even one column"):
+def test_smem_plan_fits_the_flagship_tables_and_its_limits():
+    """T3 holds the whole table in one cluster, row r in block r % S: L0
+    (17409 x 32, 1.11 MB) in 8 blocks of 2177 rows (139 KB each), L2 (7809
+    x 128, 2.0 MB) in 16 of 489 (125 KB); the largest table a cluster of 16
+    holds at C = 32 is 56048 rows, and one row more raises before any
+    launch.  Any C: a row is ceil(C / 8) 16-byte chunks (C = 6 as C = 8),
+    rows of more than 512 chunks keep their block sum beside the table."""
+    assert smem_plan(17409, 32) == (8, 2177)
+    assert smem_plan(7809, 128) == (16, 489)
+    assert smem_plan(1001, 32) == (1, 1001)
+    assert smem_plan(50, 24) == (1, 50)
+    assert smem_plan(56048, 32) == (16, 3503)
+    assert smem_plan(17409, 6) == smem_plan(17409, 8) == (2, 8705)
+    assert smem_plan(50, 1) == (1, 50)
+    assert smem_plan(300, 4100) == (16, 19)
+    assert smem_plan(60, 9000) == (8, 8)
+    for rows, c in ((56049, 32), (120_000, 32), (14011, 128), (1000, 2048),
+                    (224_241, 6), (2, 60_000)):
+        with pytest.raises(ValueError, match="cluster of 16"):
+            smem_plan(rows, c)
+    for rows, c in ((17409, 32), (7809, 128), (56048, 32)):
+        size, rpb = smem_plan(rows, c)
+        assert size * rpb >= rows > (size // 2) * rpb or size == 1
+    feats = torch.zeros(56049, 32, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="cluster of 16"):
         gather_rows_sum_smem(feats, torch.zeros(8, dtype=torch.int32))
+    rs = np.random.RandomState(6)
+    feats = torch.as_tensor(rs.randn(17409, 6).astype(np.float32)).to(
+        torch.bfloat16)
+    idx = torch.as_tensor(rs.randint(0, 17409, 1000).astype(np.int32))
+    assert torch.equal(gather_rows_sum_smem(feats, idx),
+                       gather_rows_sum_ref(feats, idx))
+
+
+def test_ticket_slot_is_one_per_device_and_stream(monkeypatch):
+    """T2 / T3 calls on one (device, stream) share a ticket; another stream
+    or card gets another; past TICKET_SLOTS the wrapper raises."""
+    monkeypatch.setattr(row_gather, "_ticket_slots", {})
+    monkeypatch.setattr(row_gather, "_next_slot", itertools.count())
+    a = row_gather.ticket_slot(0, 0)
+    assert row_gather.ticket_slot(0, 0) == a
+    others = {row_gather.ticket_slot(0, 7), row_gather.ticket_slot(1, 0),
+              row_gather.ticket_slot(1, 7)}
+    assert len(others | {a}) == 4
+    monkeypatch.setattr(row_gather, "_next_slot",
+                        itertools.count(row_gather.TICKET_SLOTS))
+    with pytest.raises(RuntimeError, match="streams"):
+        row_gather.ticket_slot(0, 9)
+
+
+@pytest.mark.parametrize("n", [0, 1, 4, 1023, 1024, 1025, 2047, 2048, 2049,
+                               8191, 8192, 8193, 16384, 124931, 278528])
+@pytest.mark.parametrize("size,cap", [(8, 33), (8, 1), (8, 15), (16, 7),
+                                      (1, 264)])
+def test_grid_plan_covers_every_index_once_in_block_order(n, size, cap):
+    """Block b takes [b * slice, (b + 1) * slice) of [0, n), as the kernels
+    cut it: every index once, in block order, a multiple of 4 a slice, no
+    more clusters than the card holds (cap) or than give each block
+    MIN_SLICE indices.  H100 caps: T2 33 clusters of 8; T3 15 clusters of 8
+    at L0, 7 of 16 at L2."""
+    clusters, slice_ = grid_plan(n, size, cap)
+    blocks = clusters * size
+    assert 1 <= clusters <= cap and slice_ > 0 and slice_ % 4 == 0
+    ranges = [(min(n, b * slice_), min(n, (b + 1) * slice_))
+              for b in range(blocks)]
+    covered = np.concatenate([np.arange(*r) for r in ranges] + [[]])
+    np.testing.assert_array_equal(covered, np.arange(n))
+    assert clusters == 1 or (clusters - 1) * size * MIN_SLICE < n
+    if clusters < cap:      # not cut by the card: MIN_SLICE or more a block
+        assert n <= blocks * MIN_SLICE
+    # no cluster is left without indices
+    assert n == 0 or ranges[(clusters - 1) * size][1] > \
+        ranges[(clusters - 1) * size][0]
 
 
 TOOL_RUNS = {
