@@ -23,9 +23,14 @@ the card, in phases; any failure raises and the exit code is non-zero:
    fail;
 4. the inference path — ``InferenceEngine`` for
    ``configs/semantic_kitti/middlefusion.yaml`` (DeiT-B/384 + SPVCNN cr 1.0,
-   20 classes, random weights from a seed): warmup, then requests of
-   SyntheticSCN scans of about 18,000 points at batch 1, with the kernels'
-   launch counts read around them (every K1 on the tensor-core forward);
+   20 classes, random weights from a seed): warmup (one CUDA-graph capture
+   per bucket), then requests of SyntheticSCN scans of about 18,000 points
+   at batch 1 (graph replays), with the kernels' launch counts read around
+   them (the wrappers launch while a graph is captured, exactly
+   ``RUNS_PER_CAPTURE`` step runs a capture; every K1 on the tensor-core
+   forward); then the same requests under the profiler, each replay's K1
+   and K3 kernels counted exactly by name; the eager step's split and the
+   replay's kernels and busy share;
 5. the inference path against the plain path — the same weights and records
    in f32 on the card (TF32 off) and through the port on the CPU; and the
    bf16 path's drift from the f32 one on the card (reported);
@@ -70,9 +75,9 @@ maps; the hierarchy builds per-voxel K-slot maps on the card):
    repeatable, K2' split as K2 in phase 6; what the maps cost inside the
    hierarchy build;
 10. ``InferenceEngine`` on the per-voxel path, 8 requests at batch 1 as in
-    phase 4; its f32 logits on the card against the CPU's and against the
-    group-pooled path's on the card; its predict step side by side with
-    the group-pooled one;
+    phase 4 (graphs, launches held exactly as there); its f32 logits on
+    the card against the CPU's and against the group-pooled path's on the
+    card; its eager predict step side by side with the group-pooled one;
 11. one f32 train step on the per-voxel path as in phase 7 (with a K2'
     whose dW misses 1/16 of the groups), then ``SemanticTrainer`` as in
     phase 8, with its bf16 per-call K1' / K2' check; its train step side by
@@ -94,11 +99,31 @@ kernels:
     ``flash_attention`` at DeiT-B/384 shapes, B = 1, 2, 8, 12 chained calls,
     plus a tail-heavy and a negative-score input, each within ATTN_TOL of
     its plain version, with SDPA timed beside it;
-13. a ``{"kernels": [...]}`` line: launches, errors and times of each
-    kernel; K1 and K1' also carry their device time over CUDA-graph
-    replays, the CUDA-core kernel's times on the same operands, the
-    tensor-core forward's launches on the path and the same numbers per
-    train step; K2 and K2' their row table / dX / dW / reduce times, the dX
+14. the native host code (``native/ftx_host.cpp``): its g++ build time;
+    the native quantize and slot triples bit for bit against their numpy
+    versions on every call of phase 4's 8 requests and of one batch-10
+    training batch, every ``gslot_*`` array equal both ways, and the host
+    ms of each side per request and per batch of 10;
+15. the engine's CUDA graphs, in both configurations: per bucket (and the
+    serving scan) the capture's seconds and the graph pool's bytes, the
+    replay bit for bit against the eager step in bf16 and f32; three
+    batches dispatched before any completes, each equal to its serial
+    result; ``TPU.STEP_CACHE_SIZE 1`` evicting and recapturing; the 8
+    requests eager against graph, A B B A (p50, scans/s), the predict step
+    side by side on CUDA events, the replay's kernels and busy share;
+16. the server: ``fusiontransformer_tpu_torch.tools.serve --selftest 32
+    --clients 4`` at full width, over HTTP on the loopback: p50 / p99
+    latency and scans/s of each of its two passes (the first captures the
+    graphs of new slot-pool sizes), each response equal to the engine's
+    serial prediction, ``/stats`` and ``/healthz``;
+
+13. (printed after 14-16) a ``{"kernels": [...]}`` line: launches, errors
+    and times of each kernel; K1 and K1' also carry their device time over
+    CUDA-graph replays, the CUDA-core kernel's times on the same operands,
+    the tensor-core forward's launches on the path, the engine's captures
+    and the kernel's launches in the 8 requests' replays
+    (``replay_launches``, as K3 does), and the same numbers per train
+    step; K2 and K2' their row table / dX / dW / reduce times, the dX
     and dW bounds, the CUDA-core route's times on the same bf16 operands,
     and the tensor-core launches on the path (``dw_launches``,
     ``fwd_mma_launches``).
@@ -127,6 +152,8 @@ import time
 CONFIG = "configs/semantic_kitti/middlefusion.yaml"
 N_REQUESTS = 8
 N_POINTS = 18000
+SERVER_REQUESTS = 32
+SERVER_CLIENTS = 4
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # Exponentials: the special-function units give 16 results a clock per SM
@@ -678,14 +705,13 @@ def phase_k1(hier, model, gen, kind="grouped", per="request"):
 
 
 def step_breakdown(engine, db, top=12):
-    """Where one predict step's time goes.  CUDA events recorded between the
-    hierarchy build, the image stream and the lidar stream + heads of the
-    same step split it (medians of 7 steps; the parts of one step add up to
-    its time); ``torch.profiler`` sums the kernels of one step by name.  The
-    device busy share is that kernel time over the unprofiled step time."""
+    """Where one eager predict step's time goes.  CUDA events recorded
+    between the hierarchy build, the image stream and the lidar stream +
+    heads of the same step split it (medians of 7 steps; the parts of one
+    step add up to its time); ``torch.profiler`` sums the kernels of one
+    step by name.  The device busy share is that kernel time over the
+    unprofiled step time."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from fusiontransformer_tpu_torch.modules.steps import hier_from_cfg
     model = engine.model
 
@@ -709,16 +735,7 @@ def step_breakdown(engine, db, top=12):
     hier_ms, image_ms, lidar_ms = (statistics.median(p[i] for p in parts)
                                    for i in range(3))
     step_ms = cuda_ms(lambda: engine._step(db), iters=3, reps=5)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        engine._step(db)
-        torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and not getattr(
-                e, "is_user_annotation", False):
-            n, ms = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    by_name = device_kernels(lambda: engine._step(db))
     kernel_ms = sum(ms for _, ms in by_name.values())
     n_kernels = sum(n for n, _ in by_name.values())
     busy = f"{kernel_ms / step_ms:.3f}" if n_kernels else "not measured"
@@ -737,19 +754,90 @@ def step_breakdown(engine, db, top=12):
                     for k, (n, ms) in ranked]}
 
 
-def drive_engine(engine, recs, card, want):
-    """The inference main path: warmup, then one ``predict`` per record at
-    batch 1 with every launch count set to 0 just before and read just
-    after (``want``: the exact launches of each kernel of the path); labels
-    checked, zero overflow and dropped points; then where a request's time
-    goes (``step_breakdown``)."""
+# Every capture runs the step twice through the kernels' wrappers: eagerly
+# on a side stream (which builds the kernels), then into the graph.  A
+# replay runs no wrapper, so its kernels are read from the profiler.
+RUNS_PER_CAPTURE = 2
+
+
+def device_kernels(fn):
+    """{name: (count, ms)} of the device activities (kernels, copies) that
+    ``torch.profiler`` records while ``fn`` runs, synchronised at the end."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False):
+            n, ms = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    return by_name
+
+
+def count_of(by_name, part):
+    """Activities whose name holds ``part``."""
+    return sum(n for name, (n, _) in by_name.items() if part in name)
+
+
+def kernels_only(by_name):
+    return {k: v for k, v in by_name.items()
+            if not k.startswith(("Memcpy", "Memset"))}
+
+
+def replay_breakdown(engine, batch, top=8):
+    """One graph replay of ``batch``'s signature: its device time on CUDA
+    events (median), and by the profiler its kernels by name and their
+    time, whose share of the replay is the busy share."""
+    from fusiontransformer_tpu_torch.modules.steps import batch_signature
+    graph = engine.graphs.get(batch_signature(batch))
+    replay_ms = cuda_ms(graph.graph.replay, iters=5, reps=5)
+    by_name = kernels_only(device_kernels(graph.graph.replay))
+    n = sum(c for c, _ in by_name.values())
+    kernel_ms = sum(ms for _, ms in by_name.values())
+    log(f"  graph replay {replay_ms:.2f} ms (CUDA events); profiler: {n} "
+        f"kernels, {kernel_ms:.2f} ms, busy share "
+        f"{kernel_ms / replay_ms:.3f}")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    for name, (c, ms) in ranked:
+        log(f"  {ms:8.3f} ms  x{c:<5d} {name[:100]}")
+    return {"replay_ms": replay_ms, "kernels": n, "kernel_ms": kernel_ms,
+            "busy_share": kernel_ms / replay_ms,
+            "top": [{"name": k, "count": c, "ms": ms}
+                    for k, (c, ms) in ranked]}
+
+
+def replay_kernels(k1_per_request):
+    """The kernels of one replay of the bf16 predict step, by the name the
+    profiler gives them: K1 (or K1') on the tensor cores, none on the CUDA
+    cores, K3 at L4 and L2."""
+    return {"binned_conv_fwd_mma_kernel": k1_per_request,
+            "binned_conv_grouped_fwd_kernel": 0,
+            "sorted_segment_weighted_sum_kernel": 2}
+
+
+def drive_engine(engine, recs, card, per_run, per_replay):
+    """The inference main path: warmup (one graph capture per bucket), then
+    one ``predict`` per record at batch 1, with every launch count set to 0
+    just before and read just after.  The wrappers launch while a graph is
+    captured, ``RUNS_PER_CAPTURE`` runs of the step each: ``per_run`` (each
+    wrapper's launches per run of the step) is held exactly against the
+    engine's captures.  Then the same records again under the profiler,
+    every one a replay: ``per_replay`` (kernels by name per replay) held
+    exactly.  Labels checked, zero overflow and dropped points; then where
+    a request's time goes (``step_breakdown`` of the eager step,
+    ``replay_breakdown`` of the graph)."""
     import torch
     from fusiontransformer_tpu_torch.modules.steps import device_batch
     from fusiontransformer_tpu_torch.ops.kernels import (LAUNCHES,
                                                          reset_launches)
-    warm = engine.warmup()
-    log(f"warmup (s per bucket): {warm}")
     reset_launches()
+    warm = engine.warmup()
+    log(f"warmup (s per bucket, one capture each): {warm}")
     lat, outs = [], []
     for rec in recs:
         t0 = time.perf_counter()
@@ -757,6 +845,7 @@ def drive_engine(engine, recs, card, want):
         lat.append(time.perf_counter() - t0)
     launches = dict(LAUNCHES)
     stats = engine.stats()
+    captures = stats["captures"]
     for rec, out in zip(recs, outs):
         n = len(rec["points"])
         for key in ("labels", "labels_2d", "labels_3d"):
@@ -766,10 +855,27 @@ def drive_engine(engine, recs, card, want):
                                      f"[{lab.min()}, {lab.max()}]")
     if stats["voxel_overflow"] != 0 or stats["collate_dropped_points"] != 0:
         raise AssertionError(f"lossy request path: {stats}")
-    for name, n in want.items():
-        if launches.get(name, 0) != n:
+    if not captures >= len(engine.buckets):
+        raise AssertionError(f"{captures} captures for buckets "
+                             f"{engine.buckets}")
+    for name, n in per_run.items():
+        want = n * RUNS_PER_CAPTURE * captures
+        if launches.get(name, 0) != want:
             raise AssertionError(f"{name}: {launches.get(name, 0)} launches "
-                                 f"on the main path, expected {n}")
+                                 f"on the main path, expected {want} ({n} "
+                                 f"a run, {captures} captures)")
+    by_name = device_kernels(lambda: [engine.predict(r) for r in recs])
+    if engine.stats()["captures"] != captures:
+        raise AssertionError("a request under the profiler captured a graph")
+    replay_launches = {}
+    for name, n in per_replay.items():
+        replay_launches[name] = count_of(by_name, name)
+        if replay_launches[name] != n * len(recs):
+            raise AssertionError(f"{name}: {replay_launches[name]} kernels in "
+                                 f"{len(recs)} replays, expected "
+                                 f"{n * len(recs)}")
+    kernels = kernels_only(by_name)
+    per_request = sum(c for c, _ in kernels.values()) / len(recs)
     _, logits = engine.forward([engine.preprocess(recs[0])])
     for k, v in logits.items():
         if not bool(torch.isfinite(v).all()):
@@ -777,18 +883,22 @@ def drive_engine(engine, recs, card, want):
     p50 = statistics.median(lat)
     log(f"requests {len(recs)}: points {[len(r['points']) for r in recs]}, "
         f"p50 latency {p50 * 1e3:.1f} ms, {1 / statistics.mean(lat):.2f} "
-        f"scans/s ({card}); launches {launches}; stats {stats}")
+        f"scans/s ({card}); {captures} captures; wrapper launches "
+        f"{launches}; kernels of the {len(recs)} replays (profiler) "
+        f"{replay_launches}, {per_request:.0f} kernels a request; stats "
+        f"{stats}")
     # Where a request's time goes: its parts one after another, per record
-    # (host clock; the device part ends in a synchronize).
-    split = {"preprocess": [], "collate": [], "step": [], "complete": []}
+    # (host clock; the replay's part ends when its output is on the host).
+    split = {"preprocess": [], "collate": [], "replay": [], "complete": []}
     for rec in recs:
         t = [time.perf_counter()]
         sample = engine.preprocess(rec)
         t.append(time.perf_counter())
         host_batch = engine.collate([sample])
         t.append(time.perf_counter())
-        packed = engine._step(device_batch(host_batch, engine.device))
-        torch.cuda.synchronize()
+        with engine._device_lock:
+            packed = engine.graph_for(host_batch).replay(host_batch)
+        packed.numpy()
         t.append(time.perf_counter())
         engine.complete(([sample], host_batch, packed), count_stats=False)
         t.append(time.perf_counter())
@@ -797,14 +907,18 @@ def drive_engine(engine, recs, card, want):
     split_ms = {k: statistics.median(v) for k, v in split.items()}
     log(f"request split (host clock, medians of {len(recs)}): preprocess "
         f"{split_ms['preprocess']:.1f} ms, collate (+ host slot maps) "
-        f"{split_ms['collate']:.1f} ms, copy + predict step "
-        f"{split_ms['step']:.1f} ms, complete {split_ms['complete']:.1f} ms")
-    db = device_batch(engine.collate([engine.preprocess(recs[0])]),
-                      engine.device)
+        f"{split_ms['collate']:.1f} ms, copy in + replay + copy out "
+        f"{split_ms['replay']:.1f} ms, complete {split_ms['complete']:.1f} ms")
+    host_batch = engine.collate([engine.preprocess(recs[0])])
     return {"p50_ms": p50 * 1e3, "scans_per_s": 1 / statistics.mean(lat),
             "latencies_ms": [x * 1e3 for x in lat], "launches": launches,
+            "captures": captures, "warmup_s": warm,
+            "replay_launches": replay_launches,
+            "kernels_per_request": per_request,
             "request_split_ms": split_ms,
-            "step_breakdown": step_breakdown(engine, db)}
+            "step_breakdown": step_breakdown(
+                engine, device_batch(host_batch, engine.device)),
+            "replay_breakdown": replay_breakdown(engine, host_batch)}
 
 
 # --------------------------------------------------------------------------- #
@@ -1069,18 +1183,23 @@ LOSS_KEYS = ("total_loss", "seg_loss_2d", "seg_loss_3d", "xm_loss_2d",
 
 
 @contextlib.contextmanager
+def patched(module, **fns):
+    """Swap names in ``module`` for the duration."""
+    old = {k: getattr(module, k) for k in fns}
+    for k, v in fns.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(module, k, v)
+
+
 def replaced(**fns):
     """Swap functions that ``ops.sparse_conv`` calls by name (the kernel
     wrappers) for the duration of the block."""
     from fusiontransformer_tpu_torch.ops import sparse_conv as sc
-    old = {k: getattr(sc, k) for k in fns}
-    for k, f in fns.items():
-        setattr(sc, k, f)
-    try:
-        yield
-    finally:
-        for k, f in old.items():
-            setattr(sc, k, f)
+    return patched(sc, **fns)
 
 
 def recording(fn, calls):
@@ -1979,6 +2098,292 @@ def phase_flash():
 
 
 # --------------------------------------------------------------------------- #
+# --------------------------------------------------------------------------- #
+# Phases 14-16: the native host code, the engine's CUDA graphs, the server.
+
+def phase_native(engine, recs, ds, tcfg):
+    """The native host code: its g++ build time; the native quantize and
+    slot triples against their numpy versions (``*_ref``) bit for bit on
+    every call that the 8 requests' preprocess and collate and one batch-10
+    training batch (its items and its collate) make, and every ``gslot_*``
+    array of those batches equal both ways; host ms of each side (medians),
+    per request and per training batch."""
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    from fusiontransformer_tpu_torch import native
+    from fusiontransformer_tpu_torch.data import collate as collate_mod
+    from fusiontransformer_tpu_torch.data import synthetic as synthetic_mod
+    from fusiontransformer_tpu_torch.data.build import slot_pool_spec
+    from fusiontransformer_tpu_torch.data.collate import get_collate
+    from fusiontransformer_tpu_torch.data.quantize import (
+        sparse_quantize, sparse_quantize_ref)
+    from fusiontransformer_tpu_torch.ops.host_slots import (
+        scan_slot_triples, scan_slot_triples_ref)
+    from fusiontransformer_tpu_torch.serving import engine as engine_mod
+
+    os.makedirs(native.BUILD_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=native.BUILD_DIR)
+    try:
+        t0 = time.perf_counter()
+        native.build(tmp)
+        build_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp)
+
+    ms = {"quantize": ([], []), "triples": ([], [])}
+    calls = {"quantize": 0, "triples": 0}
+
+    def timed(key, native_fn, ref_fn, *args):
+        t0 = time.perf_counter()
+        got = native_fn(*args)
+        t1 = time.perf_counter()
+        want = ref_fn(*args)
+        ms[key][0].append((t1 - t0) * 1e3)
+        ms[key][1].append((time.perf_counter() - t1) * 1e3)
+        calls[key] += 1
+        return got, want
+
+    def quantize(coords):
+        got, want = timed("quantize", sparse_quantize, sparse_quantize_ref,
+                          coords)
+        for g, w in zip(got, want):
+            if not np.array_equal(g, w):
+                raise AssertionError("native quantize differs from numpy")
+        return got
+
+    def triples(levels, slot_levels):
+        got, want = timed("triples", scan_slot_triples,
+                          scan_slot_triples_ref, levels, slot_levels)
+        for l in slot_levels:
+            for g, w in zip(got[l], want[l]):
+                if not np.array_equal(g, w):
+                    raise AssertionError(f"native slot triples differ from "
+                                         f"numpy at L{l}")
+        return got
+
+    collate10 = get_collate(
+        TRAIN_BATCH, tcfg.TPU.POINT_CAPACITY,
+        tcfg.DATASET.SyntheticSCN.image_height,
+        tcfg.DATASET.SyntheticSCN.image_width,
+        tuple(tcfg.TPU.CAPACITY_BUCKETS),
+        level_counts=1 + len(tcfg.TPU.LEVEL_CAPACITY_FRACTIONS),
+        slot_pool=slot_pool_spec(tcfg, adaptive=True))
+    with patched(engine_mod, sparse_quantize=quantize), \
+            patched(synthetic_mod, sparse_quantize=quantize), \
+            patched(collate_mod, scan_slot_triples=triples):
+        samples = [engine.preprocess(r) for r in recs]
+        items = [ds[i] for i in range(TRAIN_BATCH)]
+        for s in samples:
+            engine.collate([s])
+        collate10(items)
+    log(f"  g++ build {build_s:.2f} s; native == numpy, bit for bit: "
+        f"{calls['quantize']} quantize calls ({len(recs)} requests, "
+        f"{TRAIN_BATCH} training items), {calls['triples']} slot-triple "
+        f"joins (L0-L3 of every scan)")
+
+    def maps_equal(collate, samples):
+        """The batch and its host time through native triples, then through
+        numpy; every gslot_* array equal."""
+        t0 = time.perf_counter()
+        got = collate(samples)
+        t1 = time.perf_counter()
+        with patched(collate_mod, scan_slot_triples=scan_slot_triples_ref):
+            want = collate(samples)
+        t2 = time.perf_counter()
+        keys = [k for k in want if k.startswith("gslot_")]
+        if len(keys) != 9:
+            raise AssertionError(f"slot maps {keys}")
+        for k in keys:
+            if not np.array_equal(got[k], want[k]):
+                raise AssertionError(f"{k}: native and numpy maps differ")
+        return (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+    per_request = [maps_equal(engine.collate, [s]) for s in samples]
+    per_batch = [maps_equal(collate10, items) for _ in range(3)]
+    med = statistics.median
+    q_n, q_p = ms["quantize"]
+    res = {
+        "build_s": build_s, "calls": calls,
+        "quantize_ms_request": {"native": med(q_n[:len(recs)]),
+                                "numpy": med(q_p[:len(recs)])},
+        "quantize_ms_batch10": {"native": sum(q_n[len(recs):]),
+                                "numpy": sum(q_p[len(recs):])},
+        "collate_maps_ms_request": {"native": med(a for a, _ in per_request),
+                                    "numpy": med(b for _, b in per_request)},
+        "collate_maps_ms_batch10": {"native": med(a for a, _ in per_batch),
+                                    "numpy": med(b for _, b in per_batch)}}
+    log("  host ms (medians; quantize of a batch of 10 summed over its "
+        "items), native / numpy: " + "; ".join(
+            f"{k} {v['native']:.2f} / {v['numpy']:.2f}"
+            for k, v in res.items() if k.endswith(("request", "batch10"))))
+    return res
+
+
+def pool_bytes(engine):
+    """Bytes of the segments of the engine's graph memory pool, or None
+    where the allocator's snapshot names no segment of it."""
+    import torch
+    pool = tuple(engine._pool)
+    segs = [sg["total_size"] for sg in torch.cuda.memory_snapshot()
+            if tuple(sg.get("segment_pool_id", ())) == pool]
+    return sum(segs) if segs else None
+
+
+def replay_equals_eager(engine, batch):
+    """The graph of ``batch``'s signature (captured now on a miss) replayed
+    on it, bit for bit against the eager step on the same batch."""
+    import numpy as np
+    from fusiontransformer_tpu_torch.modules.steps import device_batch
+    with engine._device_lock:
+        graph = engine.graph_for(batch)
+        got = graph.replay(batch).numpy()
+    want = engine._step(device_batch(batch, engine.device)).cpu().numpy()
+    rows = int((got != want).any(1).sum())
+    if rows:
+        raise AssertionError(f"replay differs from the eager step in {rows} "
+                             f"of {len(got)} rows")
+    return graph
+
+
+def eager_request(engine, rec):
+    """A request through the eager step (what the engine ran before it kept
+    graphs), for the side-by-side reading."""
+    from fusiontransformer_tpu_torch.modules.steps import device_batch
+    sample = engine.preprocess(rec)
+    batch = engine.collate([sample])
+    packed = engine._step(device_batch(batch, engine.device))
+    return engine.complete(([sample], batch, packed), count_stats=False)[0]
+
+
+def phase_graphs(label, cfg, cfg32, state, recs):
+    """The engine's CUDA graphs in one configuration: for each bucket (a
+    dense grid filling it, the warmup's batch) and for the serving scan,
+    the capture's seconds and the graph pool's bytes, and the replay bit
+    for bit against the eager step, bf16 and f32 (TF32 off); three batches
+    dispatched before any completes, each equal to its serial result; a
+    cache of one graph that evicts and recaptures; then the 8 requests
+    eagerly and through the graphs, A B B A, with the predict step side by
+    side on CUDA events and the replay's kernels from the profiler."""
+    import numpy as np
+    import torch
+    from fusiontransformer_tpu_torch.models.build import build_model
+    from fusiontransformer_tpu_torch.modules.steps import (batch_signature,
+                                                           device_batch)
+    from fusiontransformer_tpu_torch.serving.engine import InferenceEngine
+    res = {"captures": {}}
+    engines = {}
+    for dtype, c in (("bf16", cfg), ("f32", cfg32)):
+        model = build_model(c, "cuda")
+        model.load_state_dict(state)
+        eng = engines[dtype] = InferenceEngine(c, model=model)
+        batches = {f"bucket {b}": eng.collate([eng._dummy_sample(b)])
+                   for b in eng.buckets}
+        batches["scan"] = eng.collate([eng.preprocess(recs[0])])
+        for name, batch in batches.items():
+            graph = replay_equals_eager(eng, batch)
+            s_sizes = [batch[k].shape[1] for k in sorted(batch)
+                       if k.startswith("gslot_src_")]
+            res["captures"][f"{dtype} {name}"] = {
+                "capture_s": graph.capture_s, "pool_bytes": pool_bytes(eng),
+                "pool_sizes": s_sizes}
+        log(f"  {label} {dtype}: replay == eager bit for bit at "
+            f"{list(batches)}; captures (s, pool bytes after it, S): "
+            + ", ".join(f"{k.split(' ', 1)[1]} {v['capture_s']:.2f} "
+                        f"{v['pool_bytes']} {v['pool_sizes']}"
+                        for k, v in res["captures"].items()
+                        if k.startswith(dtype)))
+    del engines["f32"]
+    torch.cuda.empty_cache()
+    eng = engines["bf16"]
+
+    samples = [eng.preprocess(r) for r in recs[:3]]
+    serial = [eng.run_samples([s], count_stats=False)[0] for s in samples]
+    handles = [eng.dispatch_samples([s]) for s in samples]
+    for i, (h, want) in enumerate(zip(handles, serial)):
+        got = eng.complete(h, count_stats=False)[0]
+        for key in ("labels", "labels_2d", "labels_3d"):
+            if not np.array_equal(got[key], want[key]):
+                raise AssertionError(f"pipelined batch {i}: {key} differs "
+                                     f"from its serial result")
+
+    one = cfg.clone()
+    one.TPU.STEP_CACHE_SIZE = 1
+    one.freeze()
+    small = InferenceEngine(one, model=eng.model)
+    scan = small.collate([samples[0]])           # the smallest bucket
+    grid = small.collate([small._dummy_sample(small.buckets[-1])])
+    lengths = []
+    for batch in (scan, grid, scan, scan):
+        replay_equals_eager(small, batch)
+        lengths.append(len(small.graphs))
+    if lengths != [1, 1, 1, 1] or small.stats()["captures"] != 3:
+        raise AssertionError(f"a cache of one: lengths {lengths}, "
+                             f"{small.stats()['captures']} captures")
+    del small
+    log(f"  {label}: 3 pipelined batches each equal to their serial "
+        f"results; STEP_CACHE_SIZE 1: lengths {lengths}, 3 captures for "
+        f"scan, grid, scan, scan")
+
+    for rec in recs:
+        eng.predict(rec)                # every signature captured
+    lat = {"eager": [], "graph": []}
+    fns = {"eager": lambda r: eager_request(eng, r),
+           "graph": lambda r: eng.predict(r)}
+    for side in ("eager", "graph", "graph", "eager"):
+        for rec in recs:
+            t0 = time.perf_counter()
+            fns[side](rec)
+            lat[side].append((time.perf_counter() - t0) * 1e3)
+    reqs = {side: {"p50_ms": statistics.median(v),
+                   "scans_per_s": 1e3 / statistics.mean(v)}
+            for side, v in lat.items()}
+    db_batch = eng.collate([samples[0]])
+    db = device_batch(db_batch, "cuda")
+    graph = eng.graphs.get(batch_signature(db_batch))
+    step = side_by_side(f"{label} predict step", {
+        "eager": lambda: eng._step(db), "graph": graph.graph.replay})
+    log(f"  {label}: {len(recs)} requests x 2 each side, A B B A (host "
+        "clock): " + ", ".join(f"{k} p50 {v['p50_ms']:.1f} ms, "
+                               f"{v['scans_per_s']:.2f} scans/s"
+                               for k, v in reqs.items()))
+    res.update(requests=reqs, step_ms=step,
+               replay=replay_breakdown(eng, db_batch))
+    del eng, engines
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_server():
+    """The port's ``tools/serve.py --selftest`` at full width on the card:
+    the flagship behind its HTTP front end, 32 SyntheticSCN requests of
+    ``N_POINTS`` rays from 4 client threads, twice (the first pass meets
+    new slot-pool sizes and captures their graphs, the second finds them
+    captured), each response held against the engine's serial prediction;
+    /stats and /healthz answer."""
+    from fusiontransformer_tpu_torch.tools import serve
+    report = serve.main(["--cfg", CONFIG, "--selftest", str(SERVER_REQUESTS),
+                         "--clients", str(SERVER_CLIENTS), "--points",
+                         str(N_POINTS), "--port", "0"])
+    st = report["stats"]
+    if not report["matches_serial"] or st["voxel_overflow"] \
+            or st["collate_dropped_points"] \
+            or st["requests_completed"] != len(report["passes"]) \
+            * SERVER_REQUESTS:
+        raise AssertionError(f"server self-test: {report}")
+    for i, run in enumerate(report["passes"]):
+        lat = run["client_latency_ms"]
+        log(f"  pass {i + 1}: {SERVER_REQUESTS} requests from "
+            f"{SERVER_CLIENTS} clients over HTTP: p50 {lat['p50']:.1f} ms, "
+            f"p99 {lat['p99']:.1f} ms, {run['scans_per_s']:.2f} scans/s, "
+            f"{run['captures']} captures during it")
+    log(f"  server stats: p50 {st['latency_ms']['p50']} ms over both "
+        f"passes, {st['captures']} captures, bucket hits "
+        f"{st['bucket_hits']}; responses equal the serial predictions")
+    return report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2060,9 +2465,9 @@ def main() -> int:
     # ---- 4. main path
     log("== 4. inference path: InferenceEngine, bf16, batch 1")
     serve = drive_engine(engine, recs, card, {
-        "binned_conv_grouped_fwd": k1_per_request * N_REQUESTS,
-        FWD_MMA_NAME: k1_per_request * N_REQUESTS, FWD_CORE_NAME: 0,
-        k3_name: 2 * N_REQUESTS})
+        "binned_conv_grouped_fwd": k1_per_request,
+        FWD_MMA_NAME: k1_per_request, FWD_CORE_NAME: 0, k3_name: 2},
+        replay_kernels(k1_per_request))
     phase_end("4")
 
     # ---- 5. main path against the plain path (f32, card vs CPU)
@@ -2218,9 +2623,10 @@ def main() -> int:
     if pengine._slot_pool is not None:
         raise AssertionError("the per-voxel engine builds host slot maps")
     pserve = drive_engine(pengine, recs, card, {
-        "binned_conv_slots_fwd": k1p_per_request * N_REQUESTS,
-        FWD_MMA_NAME: k1p_per_request * N_REQUESTS, FWD_CORE_NAME: 0,
-        "binned_conv_grouped_fwd": 0, k3_name: 2 * N_REQUESTS})
+        "binned_conv_slots_fwd": k1p_per_request,
+        FWD_MMA_NAME: k1p_per_request, FWD_CORE_NAME: 0,
+        "binned_conv_grouped_fwd": 0, k3_name: 2},
+        replay_kernels(k1p_per_request))
     # The engine's step routes on the batch: with the host maps it runs K1.
     gdb = device_batch(batch, "cuda")
     pserve["step_side_by_side_ms"] = side_by_side("predict step", {
@@ -2274,7 +2680,30 @@ def main() -> int:
     flash_rows, flash_main = phase_flash()
     phase_end("12")
 
-    # ---- 13. kernels line
+    # ---- 14. native host code
+    log("== 14. native host code: g++ build, native vs numpy quantize and "
+        "slot triples bit for bit, host ms side by side")
+    nengine = InferenceEngine(cfg, model=build_model(cfg, "cuda"))
+    native_host = phase_native(nengine, recs, ds, tcfg)
+    del nengine
+    torch.cuda.empty_cache()
+    phase_end("14")
+
+    # ---- 15. the engine's CUDA graphs, both configurations
+    log("== 15. CUDA graphs: one per input signature, both configurations")
+    graphs = {"group-pooled": phase_graphs("group-pooled", cfg, cfg32,
+                                           serve_state, recs),
+              "per-voxel": phase_graphs("per-voxel", pcfg, per_voxel(cfg32),
+                                        serve_state, recs)}
+    phase_end("15")
+
+    # ---- 16. the request server over HTTP
+    log(f"== 16. server: tools/serve.py --selftest {SERVER_REQUESTS} "
+        f"--clients {SERVER_CLIENTS} at full width over HTTP")
+    server = phase_server()
+    phase_end("16")
+
+    # ---- 13. kernels line (printed after phases 14-16)
     def entry(name, source, replaces, m, library_ms, launches_of):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches_of.get(name, 0),
@@ -2283,14 +2712,21 @@ def main() -> int:
                 "bound_by": max(m["bound_t"], key=m["bound_t"].get),
                 "library_ms": library_ms}
 
-    def fwd_entry(name, m, train_m, launches_of):
+    def fwd_entry(name, m, train_m, path):
         """K1 / K1' per request, with the device time (``graph_ms``), the
         CUDA-core kernel on the same operands, the tensor-core forward's
-        launches on the path, and the same per train step (batch 10)."""
+        launches on the path (the wrappers', while the graphs are
+        captured; ``replay_launches``: the kernel's in the 8 requests'
+        replays, from the profiler), and the same per train step (batch
+        10)."""
         keys = ("graph_ms", "cuda_core_ms", "cuda_core_graph_ms",
                 "best_tiles_graph_ms")
+        launches_of = path["launches"]
         return {**entry(name, K1_SOURCE, K1_REPLACES, m, None, launches_of),
                 **{k: m[k] for k in keys},
+                "captures": path["captures"],
+                "replay_launches": path["replay_launches"][
+                    "binned_conv_fwd_mma_kernel"],
                 "mma_launches": launches_of.get(FWD_MMA_NAME, 0),
                 "cuda_core_launches": launches_of.get(FWD_CORE_NAME, 0),
                 "train_step": {k: train_m[k] for k in (
@@ -2329,7 +2765,8 @@ def main() -> int:
                             "train": {**ptrain, "card_vs_cpu": pparity}},
               "tools": {"runs": tools, "row_gather": gather_rows,
                         "flash_attention": flash_rows},
-              "phase_s": phase_s}
+              "native_host": native_host, "graphs": graphs,
+              "server": server, "phase_s": phase_s}
     log("== 13. kernels (ms, plain_ms, bound_ms, library_ms: K1, K1' and K3 "
         "per inference request at batch 1 (K1 and K1' also per train step "
         "under train_step), K2, K2' and K3[E=8] per train "
@@ -2341,15 +2778,17 @@ def main() -> int:
     log("detail: " + json.dumps(detail))
     log(f"phase seconds: {phase_s}, total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [
-        fwd_entry("binned_conv_grouped_fwd", k1, k1t, serve["launches"]),
+        fwd_entry("binned_conv_grouped_fwd", k1, k1t, serve),
         bwd_entry("binned_conv_grouped_bwd", k2, tlaunches),
         {**entry(k3_name, K3_SOURCE, K3_REPLACES, k3, k3["library_ms"],
                  serve["launches"]), "graph_ms": k3["graph_ms"],
+         "replay_launches": serve["replay_launches"][
+             "sorted_segment_weighted_sum_kernel"],
          "train_step": {k: k3t[k] for k in (
              "ms", "graph_ms", "plain_ms", "bound_ms", "library_ms")}},
         {**entry(k3e8_name, K3_SOURCE, K3_REPLACES, k3e8, k3e8["library_ms"],
                  tlaunches), "graph_ms": k3e8["graph_ms"]},
-        fwd_entry("binned_conv_slots_fwd", k1p, k1pt, pserve["launches"]),
+        fwd_entry("binned_conv_slots_fwd", k1p, k1pt, pserve),
         bwd_entry("binned_conv_slots_bwd", k2p, ptlaunches),
         *({**entry(name, GATHER_SOURCE, TOOL_KERNELS[name], m,
                    m["library_ms"], tools["launches"]),

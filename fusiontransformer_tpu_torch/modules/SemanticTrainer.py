@@ -51,13 +51,13 @@ MODALITIES = ("2d", "3d")
 # its default, and the ROADMAP.md item that will port it.
 UNPORTED_KEYS = (
     ("TRAIN.SUMMARY_PERIOD", lambda v: v > 0,
-     "Queue 1 item 6 (TensorBoard scalars)"),
+     "Queue 1 item 4 (TensorBoard scalars)"),
     ("TRAIN.LOG_HISTOGRAM", bool,
-     "Queue 1 item 6 (weight/grad histograms)"),
-    ("TPU.NUM_DEVICES", lambda v: v > 1, "Queue 1 item 9 (data parallelism)"),
+     "Queue 1 item 4 (weight/grad histograms)"),
+    ("TPU.NUM_DEVICES", lambda v: v > 1, "Queue 1 item 6 (data parallelism)"),
     ("TPU.MODEL_PARALLEL", lambda v: v > 1,
-     "Queue 1 item 10 (tensor parallelism)"),
-    ("TPU.ZERO_OPTIMIZER", bool, "Queue 1 item 10 (ZeRO)"),
+     "Queue 1 item 7 (tensor parallelism)"),
+    ("TPU.ZERO_OPTIMIZER", bool, "Queue 1 item 7 (ZeRO)"),
 )
 
 

@@ -22,13 +22,16 @@ Port of ``fusiontransformer_tpu/modules/steps.py``:
 * ``make_eval_step``: per-point predictions of each stream and of the sum
   of the 2D and 3D softmaxes, with the per-stream CE.
 
-PyTorch runs eagerly, so the JAX package's cache of compiled steps
-(``StepCache``) has no counterpart here (ROADMAP.md, Queue 1).
+* ``StepCache``: the LRU cache of captured steps (``TPU.STEP_CACHE_SIZE``);
+  the inference engine keeps one CUDA graph of its predict step per
+  ``batch_signature`` in it, as the JAX package keeps one compiled program
+  per input shape.
 """
 
 from __future__ import annotations
 
 import re
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -127,15 +130,60 @@ _ARRAY_KEYS = ("coords", "feats", "seg_label", "pt_batch", "pt_valid", "img",
                "img_indices")
 
 
-def device_batch(batch, device):
-    """Array-only view of a collated batch on ``device`` (host lists
+def device_arrays(batch):
+    """The arrays of a collated batch that a step reads, by name (host lists
     stripped; group-pooled slot maps ride along)."""
-    out = {}
-    for k, v in batch.items():
-        if k in _ARRAY_KEYS or k.startswith(("gslot_src_", "gslot_bin_")):
-            out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(
-                device, non_blocking=True)
-    return out
+    return {k: v for k, v in batch.items()
+            if k in _ARRAY_KEYS or k.startswith(("gslot_src_", "gslot_bin_"))}
+
+
+def device_batch(batch, device):
+    """``device_arrays`` of a collated batch on ``device``."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+        device, non_blocking=True) for k, v in device_arrays(batch).items()}
+
+
+def batch_signature(batch):
+    """The input signature of a step over ``batch``: (name, shape, dtype) of
+    every array ``device_batch`` hands it, which fixes the capacity bucket,
+    the batch size and the pool size S of each ``gslot_*`` level."""
+    return tuple((k, tuple(v.shape), np.dtype(v.dtype).str)
+                 for k, v in sorted(device_arrays(batch).items()))
+
+
+class StepCache:
+    """LRU cache of captured steps by signature (``TPU.STEP_CACHE_SIZE``),
+    the port of ``fusiontransformer_tpu/modules/steps.py::StepCache``.
+
+    Each entry holds a captured graph with its static inputs and output;
+    the group-pooled maps' pool-size ladder mints new signatures over a long
+    run, so the cache is bounded.  Setting an entry refreshes its recency,
+    as ``get`` does; past ``maxsize`` the least recently used goes.
+    ``maxsize <= 0`` never evicts.
+    """
+
+    def __init__(self, maxsize=16):
+        self.maxsize = int(maxsize)
+        self._d = OrderedDict()
+
+    def get(self, key):
+        fn = self._d.get(key)
+        if fn is not None:
+            self._d.move_to_end(key)
+        return fn
+
+    def __setitem__(self, key, fn):
+        self._d[key] = fn
+        self._d.move_to_end(key)
+        if self.maxsize > 0:
+            while len(self._d) > self.maxsize:
+                self._d.popitem(last=False)
+
+    def __len__(self):
+        return len(self._d)
+
+    def __iter__(self):
+        return iter(self._d)
 
 
 def frozen_params(model, patterns):

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from fusiontransformer_tpu_torch.ops import keys as K
+from fusiontransformer_tpu_torch.utils.device import device_constant
 
 
 class Level(NamedTuple):
@@ -100,14 +101,23 @@ def _nbr_descent_tables():
 
 
 _NBR_COLSEL, _NBR_SEL64 = _nbr_descent_tables()
-# Per-level corners: ks3 columns for the per-dim offsets {0, +1}.
-_CORNER_TOP_COLS = [(bx + 1) * 9 + (by + 1) * 3 + (bz + 1)
-                    for (bx, by, bz) in _KS2_OFFSETS]
+_TABLES = {
+    "colsel": _NBR_COLSEL,
+    "sel64": _NBR_SEL64,
+    # Per-level corners: ks3 columns for the per-dim offsets {0, +1}.
+    "corner_top_cols": np.array([(bx + 1) * 9 + (by + 1) * 3 + (bz + 1)
+                                 for (bx, by, bz) in _KS2_OFFSETS], np.int64),
+    "ks3_offsets": np.array(_KS3_OFFSETS, np.int32),
+}
 
 
-def _select(rows, table, which):
+def _table(name, device):
+    return device_constant(f"hierarchy.{name}", _TABLES[name], device)
+
+
+def _select(rows, name, which):
     """out[v, j] = rows[v, table[which[v], j]] (exact integer select)."""
-    idx = torch.as_tensor(table, device=rows.device)[which.long()]
+    idx = _table(name, rows.device)[which.long()]
     return torch.gather(rows, 1, idx)
 
 
@@ -119,11 +129,11 @@ def _pad_rows(arr, fill):
 def _nbr_queries(level: Level, coord_limit: int):
     """Query keys for the 26 non-center ks=3 offsets: ([V, 26], [V, 26])."""
     q_hi, q_lo = [], []
-    for (dx, dy, dz) in _KS3_OFFSETS:
-        if (dx, dy, dz) == (0, 0, 0):
+    offsets = _table("ks3_offsets", level.coords.device)
+    for k in range(27):
+        if k == 13:                       # the center
             continue
-        qc = level.coords + torch.tensor([dx, dy, dz], dtype=torch.int32,
-                                         device=level.coords.device)
+        qc = level.coords + offsets[k]
         in_bounds = ((qc >= 0) & (qc < coord_limit)).all(dim=-1)
         hi, lo = K.pack_keys(level.batch, qc, level.valid & in_bounds)
         q_hi.append(hi)
@@ -269,10 +279,10 @@ def build_hierarchy(coords, batch_idx, valid,
         cap, cap_next = level_caps[l], level_caps[l + 1]
         p_idx, c_kidx = parent_links[l]
         pnbr = _pad_rows(nbr_by_level[l + 1], cap_next)[p_idx.long()]  # [V, 27]
-        brick8 = _select(pnbr, _NBR_COLSEL, c_kidx)                    # [V, 8]
+        brick8 = _select(pnbr, "colsel", c_kidx)                        # [V, 8]
         child2d = _pad_rows(levels[l + 1].child_idx, cap)
         childs = child2d[brick8.long()]                                # [V, 8, 8]
-        nbr_by_level[l] = _select(childs.reshape(-1, 64), _NBR_SEL64, c_kidx)
+        nbr_by_level[l] = _select(childs.reshape(-1, 64), "sel64", c_kidx)
 
     if tap_slots and len(tap_slots) != num_levels:
         raise ValueError(f"tap_slots {tap_slots} has not one entry per level "
@@ -300,7 +310,7 @@ def build_hierarchy(coords, batch_idx, valid,
             anc[l + 1] = _pad_rows(p_idx, level_caps[l + 1])[anc[l].long()]
         for l in need_pt:
             cap = level_caps[l]
-            nbr8 = nbr_by_level[l][:, _CORNER_TOP_COLS]
+            nbr8 = nbr_by_level[l][:, _table("corner_top_cols", dev)]
             idx8 = _pad_rows(nbr8, cap)[anc[l].long()]                # [N, 8]
             idx8 = torch.where(valid[:, None], idx8, cap)
             w8 = _corner_weights(coords.to(torch.int32), l)

@@ -1,10 +1,11 @@
-"""Host-built group-pooled conv slot maps (numpy, built per batch on the host).
+"""Host-built group-pooled conv slot maps (built per batch on the host).
 
-A copy of ``fusiontransformer_tpu/ops/host_slots.py`` on its numpy path: the
-C++ triple join of ``fusiontransformer_tpu/native`` is not carried over, so
-``scan_slot_triples`` always runs the vectorized ``searchsorted`` join (its
-output is the same set of triples, voxel-major after the stable sort in
-``assemble_grouped_slots``).
+A copy of ``fusiontransformer_tpu/ops/host_slots.py``: ``scan_slot_triples``
+joins each level's ks3 neighbours in the port's native C++
+(``native.slot_triples``), as the JAX package does in its own;
+``scan_slot_triples_ref`` is the vectorized numpy ``searchsorted`` join, the
+plain reference.  Both emit the triples voxel-major with taps ascending, so
+the assembled maps are equal slot for slot.
 
 The ks3 conv kernel (K1, ``ops/kernels/binned_conv.py``) works on groups of
 8 consecutive Morton-order voxels.  Pooling the live neighbor slots of each
@@ -33,6 +34,8 @@ Morton-ordered levels; per-scan triples assemble with scan offsets
 from __future__ import annotations
 
 import numpy as np
+
+from fusiontransformer_tpu_torch import native
 
 FULL_SCALE_LOG2 = 12          # voxel coords lie in [0, 4096)
 POOL_FLOOR, POOL_CEIL = 32, 216
@@ -95,9 +98,16 @@ def scan_slot_triples(levels, slot_levels):
     Returns:
       dict level -> (dst [m] int32, tap [m] int32, src [m] int32), indices
       local to the scan's Morton-ordered level array, voxel-major with taps
-      ascending (the order of the JAX package's native C++ join, so the
-      assembled maps are equal slot for slot).
+      ascending (the native join's order).
     """
+    return {l: native.slot_triples(levels[l]["key"],
+                                   1 << (FULL_SCALE_LOG2 - l))
+            for l in slot_levels}
+
+
+def scan_slot_triples_ref(levels, slot_levels):
+    """The numpy version of ``scan_slot_triples``: the same triples in the
+    same order."""
     out = {}
     for l in slot_levels:
         key = levels[l]["key"]

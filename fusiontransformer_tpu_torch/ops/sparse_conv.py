@@ -55,6 +55,7 @@ from fusiontransformer_tpu_torch.ops.kernels.binned_conv import (
     binned_conv_slots_fwd)
 from fusiontransformer_tpu_torch.ops.kernels.segment_sum import (
     sorted_segment_weighted_sum)
+from fusiontransformer_tpu_torch.utils.device import device_constant
 
 
 def cdt_matmul(a, b, cdt):
@@ -324,7 +325,9 @@ def devox_plan(hier, level):
     ids_sorted = torch.cat([ids, ids.new_full((1,), cap)])[
         hier.vox0_point_idx.long()]
     return DevoxPlan(hier.vox0_point_idx, ids_sorted,
-                     lvl.nbr_idx[:, _NEG_CORNER_TAPS])
+                     lvl.nbr_idx[:, device_constant(
+                         "sparse_conv.neg_corner_taps", _NEG_CORNER_TAPS,
+                         lvl.nbr_idx.device)])
 
 
 class _VoxMeanSum(torch.autograd.Function):

@@ -4,7 +4,7 @@ Port of ``fusiontransformer_tpu/serving/engine.py`` for one device:
 
 * ``preprocess`` — the dataloader's eval-time voxelisation of a raw record
   (``points`` [N, 3], ``feats`` [N, <=4], ``img`` HWC, ``points_img``
-  [N, 2] row/col);
+  [N, 2] row/col), with the native quantize;
 * ``dispatch_samples`` — ``collate_padded`` into the smallest capacity
   bucket, with host-built group-pooled slot maps when ``TPU.CONV_SLOT_POOL``
   is on, then the predict step on the device;
@@ -18,6 +18,16 @@ Port of ``fusiontransformer_tpu/serving/engine.py`` for one device:
 * ``complete`` — de-voxelise the predictions back to every raw point
   (out-of-frustum and capacity-dropped points get class 0, the ignore id).
 
+On the card the step runs as CUDA graphs, the role ``jax.jit`` plays in the
+JAX engine: one ``StepGraph`` per input signature (``batch_signature``: the
+bucket, the batch size and each level's slot-pool size S), kept in a
+``StepCache`` of ``TPU.STEP_CACHE_SIZE``.  A miss runs the eager step once
+and captures it; a hit copies the batch into the graph's static inputs,
+replays it and copies the packed output into pinned host memory of the
+request's own.  There is no switch to run the card eagerly, and a capture
+that fails raises.  ``device="cpu"`` runs the step eagerly (no graphs on
+the CPU); ``forward`` is eager on either device.
+
 The engine runs on the card unless it is given ``device="cpu"``; with no
 CUDA device and no explicit CPU it raises.
 """
@@ -26,7 +36,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -38,9 +48,13 @@ from fusiontransformer_tpu_torch.data.utils.augmentation_3d import (
     augment_and_scale_3d)
 from fusiontransformer_tpu_torch.data.utils.validate import map_sparse_to_org
 from fusiontransformer_tpu_torch.models.build import build_model
-from fusiontransformer_tpu_torch.modules.steps import (device_batch,
+from fusiontransformer_tpu_torch.modules.steps import (StepCache,
+                                                       batch_signature,
+                                                       device_arrays,
+                                                       device_batch,
                                                        hier_from_cfg,
                                                        overflow_metrics)
+from fusiontransformer_tpu_torch.utils.checkpoint import Checkpointer
 from fusiontransformer_tpu_torch.utils.device import resolve_device
 
 PRED_KEYS = ("pred", "pred_2d", "pred_3d", "voxel_overflow")
@@ -67,23 +81,115 @@ def make_predict_step(cfg, model):
     return step, list(PRED_KEYS)
 
 
+class Readback(NamedTuple):
+    """A dispatched batch's packed output on its way to the host: ``host``
+    (pinned, the request's own) holds it once ``done`` has passed."""
+    host: torch.Tensor
+    done: torch.cuda.Event
+    graph: "StepGraph"      # kept alive until the copy has run
+
+    def numpy(self) -> np.ndarray:
+        self.done.synchronize()
+        return self.host.numpy()
+
+
+def _close_failed_capture(device, pool, stream):
+    """Undo what a capture that raised leaves behind in ``torch.cuda.graph``:
+    its exit stops at the failed end of the capture, so the capture stream
+    stays current and the allocator keeps routing that stream's allocations
+    to ``pool`` (the next capture into it then fails)."""
+    torch.cuda.set_stream(stream)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    try:
+        torch._C._cuda_endAllocateToPool(index, pool)
+    except RuntimeError:
+        pass        # the capture ended its allocation before it failed
+
+
+class StepGraph:
+    """The predict step captured in one CUDA graph at one input signature.
+
+    ``inputs`` are the graph's static input tensors (allocated outside the
+    graph's memory pool), ``out`` its static packed output.  The step runs
+    eagerly once on a side stream before the capture (that run builds the
+    kernels and warms cuBLAS), then is captured with the memory ``pool``
+    all of the engine's graphs share: they replay one at a time on one
+    stream, and each replay's output is copied out before the next one is
+    enqueued.
+    """
+
+    def __init__(self, step, batch, device, pool):
+        self.inputs = {k: torch.empty(v.shape, device=device,
+                                      dtype=torch.from_numpy(v[:0]).dtype)
+                       for k, v in device_arrays(batch).items()}
+        t0 = time.perf_counter()
+        self.load(batch)
+        stream = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            step(self.inputs)
+        stream.wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            # Only this thread's calls are checked against the capture: the
+            # server's other threads never touch its stream.
+            with torch.cuda.graph(self.graph, pool=pool,
+                                  capture_error_mode="thread_local"):
+                self.out = step(self.inputs)
+        except BaseException:
+            _close_failed_capture(device, pool, stream)
+            raise
+        torch.cuda.synchronize(device)
+        self.capture_s = time.perf_counter() - t0
+
+    def load(self, batch):
+        """Copy a host batch into the static inputs, stream-ordered, from
+        pinned staging buffers (the caching host allocator holds each one
+        until its copy has run)."""
+        for k, dst in self.inputs.items():
+            src = torch.from_numpy(np.ascontiguousarray(batch[k]))
+            dst.copy_(src.pin_memory(), non_blocking=True)
+
+    def replay(self, batch) -> Readback:
+        self.load(batch)
+        self.graph.replay()
+        host = torch.empty(self.out.shape, dtype=self.out.dtype,
+                           pin_memory=True)
+        host.copy_(self.out, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return Readback(host, done, self)
+
+
 class InferenceEngine:
     """Owns the model and answers requests, one batch at a time.
 
     ``model``: a built model (e.g. with weights loaded by
-    ``utils.convert_jax.load_jax_variables``); by default one is built from
-    ``cfg`` with random weights from ``seed``.  Thread-safe for concurrent
-    ``predict`` calls: the device step runs under a lock, host
-    preprocessing outside it.
+    ``utils.convert_jax.load_jax_variables``); or ``checkpoint_path``, a
+    checkpoint of the port's trainer (``utils/checkpoint.py``) whose
+    ``model`` state dict is loaded; by default one is built from ``cfg``
+    with random weights from ``seed``.  Thread-safe for concurrent
+    ``predict`` calls: captures and replays run under a lock, host
+    preprocessing and the wait for a result outside it.
     """
 
     def __init__(self, cfg, model=None, batch_size: int = 1, device=None,
-                 seed: int = 0):
+                 seed: int = 0, checkpoint_path: str = ""):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.batch_size = int(batch_size)
+        if model is not None and checkpoint_path:
+            raise ValueError("pass a model or a checkpoint_path, not both")
         if model is None:
             model = build_model(cfg, self.device, seed)
+            if checkpoint_path:
+                payload = Checkpointer().load(checkpoint_path, resume=False)
+                if "model" not in payload:
+                    raise ValueError(f"no model state in checkpoint "
+                                     f"{checkpoint_path}")
+                model.load_state_dict(payload["model"])
         self.model = model.to(self.device).eval()
 
         ds = cfg.DATASET.get(cfg.DATASET.TYPE, {})
@@ -96,6 +202,9 @@ class InferenceEngine:
             cfg.TPU.POINT_CAPACITY,)
         self.point_capacity = max(self.buckets)
         self._step, self._pred_keys = make_predict_step(cfg, self.model)
+        # One captured step per input signature, on the card.
+        self.graphs = StepCache(cfg.TPU.STEP_CACHE_SIZE)
+        self._pool = None
 
         # Host-built group-pooled slot maps at the levels CONV_TAP_SLOTS
         # names, at the static capacities of the bucket (None with
@@ -105,7 +214,7 @@ class InferenceEngine:
         self._stats_lock = threading.Lock()
         self.counters = {
             "scans": 0, "batches": 0, "collate_dropped_points": 0,
-            "oob_points": 0, "voxel_overflow": 0,
+            "oob_points": 0, "voxel_overflow": 0, "captures": 0,
             "bucket_hits": {int(b): 0 for b in self.buckets},
         }
 
@@ -174,11 +283,28 @@ class InferenceEngine:
 
     def dispatch_samples(self, samples: List[Dict]):
         """Collate and enqueue the device step; returns a handle for
-        ``complete``."""
+        ``complete`` (the wait for the result is there)."""
         batch = self.collate(samples)
         with self._device_lock:
-            packed = self._step(device_batch(batch, self.device))
+            if self.device.type == "cpu":
+                packed = self._step(device_batch(batch, self.device))
+            else:
+                packed = self.graph_for(batch).replay(batch)
         return samples, batch, packed
+
+    def graph_for(self, batch) -> StepGraph:
+        """The captured step of ``batch``'s signature, captured now on a
+        miss.  Call under ``_device_lock``."""
+        sig = batch_signature(batch)
+        graph = self.graphs.get(sig)
+        if graph is None:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            graph = StepGraph(self._step, batch, self.device, self._pool)
+            self.graphs[sig] = graph
+            with self._stats_lock:
+                self.counters["captures"] += 1
+        return graph
 
     def forward(self, samples: List[Dict]):
         """The model's raw outputs (logit tensors on the device) for
@@ -193,7 +319,8 @@ class InferenceEngine:
         """One device->host copy, then de-voxelise per scan."""
         samples, batch, packed = handle
         cap = len(batch["pt_valid"]) // self.batch_size
-        packed = packed.cpu().numpy()
+        packed = packed.numpy() if isinstance(packed, Readback) \
+            else packed.cpu().numpy()
         res = {k: packed[:, j] for j, k in enumerate(self._pred_keys)}
         overflow = int(res.pop("voxel_overflow")[0])
 
@@ -230,9 +357,9 @@ class InferenceEngine:
     # ------------------------------------------------------------------ #
     def warmup(self, buckets: Optional[Sequence[int]] = None
                ) -> Dict[int, float]:
-        """Run every capacity bucket once at a full batch before traffic
-        (the first run builds the kernels and warms the libraries).
-        Returns {bucket: seconds}."""
+        """Run every capacity bucket once at a full batch before traffic:
+        on the card that captures its graph (the first run also builds the
+        kernels).  Returns {bucket: seconds}."""
         times = {}
         for b in (buckets or self.buckets):
             t0 = time.time()

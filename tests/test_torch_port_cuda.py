@@ -742,3 +742,107 @@ def test_flash_attention_wrapper_raises_on_what_the_kernel_does_not_take(
     with pytest.raises(ValueError, match="contiguous"):
         qt = q.transpose(1, 2).contiguous().transpose(1, 2)
         flash_attention(qt, q, q, 0.125)
+
+
+# --------------------------------------------------------------------- #
+# The engine's CUDA graphs: one per input signature, in a StepCache.
+
+def _graph_engine(cuda, dtype="float32", **cfg_kw):
+    from fusiontransformer_tpu_torch.config.defaults import get_default_cfg
+    from fusiontransformer_tpu_torch.models.build import build_model
+    from fusiontransformer_tpu_torch.serving.engine import InferenceEngine
+    from test_torch_port_common import tiny_cfg
+
+    cache = cfg_kw.pop("step_cache_size", None)
+    cfg = tiny_cfg(get_default_cfg, dtype=dtype, **cfg_kw)
+    if cache is not None:
+        cfg.defrost()
+        cfg.TPU.STEP_CACHE_SIZE = cache
+        cfg.freeze()
+    return InferenceEngine(cfg, model=build_model(cfg, device="cuda",
+                                                  seed=1))
+
+
+def _replay_equals_eager(eng, batch):
+    from fusiontransformer_tpu_torch.modules.steps import device_batch
+    with eng._device_lock:
+        got = eng.graph_for(batch).replay(batch).numpy()
+    want = eng._step(device_batch(batch, eng.device)).cpu().numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_graph_replay_equals_the_eager_step(cuda, dtype):
+    """Each bucket at two slot-pool sizes S (a scan's maps and a dense
+    grid's): four signatures, four captures, each replay bit for bit the
+    eager step's packed output."""
+    from test_torch_port_common import record
+    eng = _graph_engine(cuda, dtype, buckets=(512, 1024))
+    batches = []
+    for n_points, bucket in ((420, 512), (900, 1024)):
+        batches.append(eng.collate([eng.preprocess(record(3, n_points))]))
+        batches.append(eng.collate([eng._dummy_sample(bucket)]))
+    for b in batches:
+        _replay_equals_eager(eng, b)
+    assert len(eng.graphs) == eng.counters["captures"] == 4
+
+
+def test_graph_pipelined_batches_each_get_their_own_result(cuda):
+    from test_torch_port_common import record
+    eng = _graph_engine(cuda)
+    samples = [eng.preprocess(record(i)) for i in range(3)]
+    serial = [eng.run_samples([s], count_stats=False) for s in samples]
+    handles = [eng.dispatch_samples([s]) for s in samples]
+    for h, want in zip(handles, serial):
+        got = eng.complete(h, count_stats=False)
+        for key in ("labels", "labels_2d", "labels_3d"):
+            np.testing.assert_array_equal(got[0][key], want[0][key])
+
+
+def test_graph_cache_of_one_evicts_and_recaptures(cuda):
+    from test_torch_port_common import record
+    eng = _graph_engine(cuda, step_cache_size=1)
+    scan = eng.collate([eng.preprocess(record(0))])
+    grid = eng.collate([eng._dummy_sample(1024)])
+    for i, b in enumerate((scan, grid, scan, scan)):
+        _replay_equals_eager(eng, b)
+        assert len(eng.graphs) == 1
+    assert eng.counters["captures"] == 3
+
+
+def test_graph_capture_builds_kernels_never_built(cuda, tmp_path,
+                                                  monkeypatch):
+    """The eager run before the capture builds the kernels (into an empty
+    build directory here)."""
+    from fusiontransformer_tpu_torch.ops.kernels import build as kbuild
+    from fusiontransformer_tpu_torch.ops.kernels import segment_sum
+    from test_torch_port_common import record
+    monkeypatch.setattr(kbuild, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(kbuild, "_libs", {})
+    segment_sum._kernel.cache_clear()
+    try:
+        eng = _graph_engine(cuda)
+        _replay_equals_eager(eng, eng.collate([eng.preprocess(record(1))]))
+        built = sorted(p.name.split("_")[1] for p in tmp_path.glob("*.so"))
+        assert built == ["binned", "segment"], built
+    finally:
+        segment_sum._kernel.cache_clear()
+
+
+def test_a_failed_capture_raises_and_caches_nothing(cuda):
+    from test_torch_port_common import record
+    eng = _graph_engine(cuda)
+    step = eng._step
+
+    def syncing_step(batch):
+        out = step(batch)
+        return out + int(out[0, 0].item() * 0)   # a host sync
+
+    eng._step = syncing_step
+    batch = eng.collate([eng.preprocess(record(2))])
+    with pytest.raises(RuntimeError):
+        with eng._device_lock:
+            eng.graph_for(batch)
+    assert len(eng.graphs) == 0 and eng.counters["captures"] == 0
+    eng._step = step
+    _replay_equals_eager(eng, batch)

@@ -70,6 +70,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from fusiontransformer_tpu_torch.config.defaults import get_default_cfg
     from fusiontransformer_tpu_torch.models.build import build_model
     from fusiontransformer_tpu_torch.serving.engine import InferenceEngine
+    from fusiontransformer_tpu_torch.tools import serve
     from fusiontransformer_tpu_torch.utils.device import resolve_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -79,7 +80,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     for call in (lambda: resolve_device(None),
                  lambda: resolve_device("cuda"),
                  lambda: build_model(cfg),
-                 lambda: InferenceEngine(cfg)):
+                 lambda: InferenceEngine(cfg),
+                 lambda: serve.main(["--cfg", str(PKG.parent / "configs/"
+                                                  "semantic_kitti/"
+                                                  "middlefusion.yaml"),
+                                     "--selftest", "1", "--port", "0"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert resolve_device("cpu").type == "cpu"
