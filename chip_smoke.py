@@ -55,15 +55,31 @@ the card, in phases; any failure raises and the exit code is non-zero:
    against its plain version on the same inputs;
 8. the training path — ``SemanticTrainer`` at the flagship's widths in
    bf16, batch 10 as ``middlefusion.yaml`` sets it, 3 steps and one
-   validation over 30 SyntheticSCN scans, with the kernels' launch counts
-   read around it; then the shipped step's breakdown (host collate + slot
-   maps, copy, step on CUDA events; forward / backward / optimizer /
-   metrics from the step's own ``record_function`` ranges; device busy
-   share) and a steady window of ``train_for_one_epoch`` over 6 more
-   batches (train scans/s); then every K1 and K2 call of one more bf16
-   train step against its plain version on the same inputs (with the
-   step's tensor-core launches counted), and the same step with a K2 whose
-   dW misses 1/16 of the groups, which that check must catch;
+   validation over 30 SyntheticSCN scans through the trainer's CUDA graphs,
+   with the kernels' launch counts read around it (held exactly against
+   the trainer's captures: the wrappers launch in the eager run and the
+   capture of each new signature); then the eager step's breakdown (host
+   collate + slot maps, copy, step on CUDA events; forward / backward /
+   optimizer / metrics from the step's own ``record_function`` ranges;
+   device busy share); then every K1 and K2 call of one more bf16 eager
+   train step (``make_train_step``) against its plain version on the same
+   inputs (with the step's tensor-core launches counted), and the same step
+   with a K2 whose dW misses 1/16 of the groups, which that check must
+   catch;
+17a. the trainer's CUDA graphs, group-pooled: ``set_sync_debug_mode
+   ("error")`` around one eager train and eval step; one replay and two
+   replays (fresh dropout masks) bit for bit the eager steps from the same
+   saved state (losses, confusion matrices, parameters, BN statistics,
+   gradients, Adam's moments and step, the generator), bf16 and f32, with
+   each capture's seconds and the pool's bytes; a learning rate set after
+   the capture reaching the replay; one replay's kernels by name from the
+   profiler (K1 / K2 per conv, K3 and K3' twice) and its busy share; the
+   step eager against graph, A B B A; validation's graphs bit for bit the
+   eager eval step; ``train_for_one_epoch`` over 6 batches (a first epoch
+   that captures, then 0 workers and N, all replays), train scans/s, with
+   N, ``os.cpu_count()`` and no CUDA in a worker; ``GRAD_ACCUM_STEPS 2``:
+   parameters bitwise unchanged after the odd micro-steps, after the even
+   one within ``ACCUM_RTOL`` of one eager step on the mean gradient;
 
 then the same configuration with ``TPU.CONV_SLOT_POOL False`` (no host slot
 maps; the hierarchy builds per-voxel K-slot maps on the card):
@@ -82,6 +98,7 @@ maps; the hierarchy builds per-voxel K-slot maps on the card):
     whose dW misses 1/16 of the groups), then ``SemanticTrainer`` as in
     phase 8, with its bf16 per-call K1' / K2' check; its train step side by
     side with the group-pooled one;
+17b. the trainer's CUDA graphs on the per-voxel path, as 17a;
 
 then the tool kernels, the port's counterparts of the JAX tools' Pallas
 kernels:
@@ -111,7 +128,7 @@ kernels:
     result; ``TPU.STEP_CACHE_SIZE 1`` evicting and recapturing; the 8
     requests eager against graph, A B B A (p50, scans/s), the predict step
     side by side on CUDA events, the replay's kernels and busy share;
-16. the server: ``fusiontransformer_tpu_torch.tools.serve --selftest 32
+16. the server: ``fusiontransformer_tpu_torch.tools.serve --selftest 16
     --clients 4`` at full width, over HTTP on the loopback: p50 / p99
     latency and scans/s of each of its two passes (the first captures the
     graphs of new slot-pool sizes), each response equal to the engine's
@@ -126,7 +143,8 @@ kernels:
     step; K2 and K2' their row table / dX / dW / reduce times, the dX
     and dW bounds, the CUDA-core route's times on the same bf16 operands,
     and the tensor-core launches on the path (``dw_launches``,
-    ``fwd_mma_launches``).
+    ``fwd_mma_launches``); K1 / K2 / K3 / K3' and the per-voxel pair
+    their kernels in one train-graph replay (``train_replay_kernels``).
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -144,6 +162,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -152,7 +171,7 @@ import time
 CONFIG = "configs/semantic_kitti/middlefusion.yaml"
 N_REQUESTS = 8
 N_POINTS = 18000
-SERVER_REQUESTS = 32
+SERVER_REQUESTS = 16
 SERVER_CLIENTS = 4
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -1233,7 +1252,8 @@ def one_train_step(cfg32, state, host_batch, caps, dev):
     opt, _ = build_optimizer(cfg32, model.parameters())
     grads = {}
     opt.register_step_pre_hook(lambda o, a, k: grads.update(
-        {n: p.grad.detach().cpu() for n, p in model.named_parameters()}))
+        {n: p.grad.detach().cpu().clone()
+         for n, p in model.named_parameters()}))
     t0 = time.time()
     metrics = make_train_step(cfg32, model, opt)(
         device_batch(host_batch, dev), torch.Generator(dev), caps)
@@ -1602,51 +1622,17 @@ def train_breakdown(trainer, top=12):
                     for k, (n, ms) in ranked]}
 
 
-def train_window(trainer, cfg, step_ms):
-    """Steady training rate: one more epoch of ``train_for_one_epoch`` (the
-    prefetching loader, metrics read one step late) over WINDOW_STEPS
-    batches, after the trainer's first epoch warmed it up; all its scans
-    over all its time, host clock, end synchronised."""
-    import torch
-    from fusiontransformer_tpu_torch.data.build import build_dataloader
-    wcfg = cfg.clone()
-    wcfg.DATASET.SyntheticSCN.num_scans = WINDOW_STEPS * TRAIN_BATCH
-    wcfg.freeze()
-    trainer.train_dataloader = build_dataloader(wcfg, mode="train")
-    step0 = trainer.step
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    trainer.train_for_one_epoch(1)
-    torch.cuda.synchronize()
-    window_s = time.perf_counter() - t0
-    steps = trainer.step - step0
-    meters = trainer.train_metric_logger.meters
-    if steps != WINDOW_STEPS:
-        raise AssertionError(f"{steps} steps in the window, expected "
-                             f"{WINDOW_STEPS}")
-    if any(meters[k].sum != 0 for k in ("voxel_overflow", "slot_overflow",
-                                        "tap_overflow") if k in meters):
-        raise AssertionError("lossy steps in the window")
-    if not math.isfinite(meters["total_loss"].global_avg):
-        raise AssertionError("non-finite loss in the window")
-    rate = steps * TRAIN_BATCH / window_s
-    log(f"steady window: train_for_one_epoch over {steps} batches of "
-        f"{TRAIN_BATCH} in {window_s:.2f} s = {rate:.3f} train scans/s, "
-        f"{window_s / steps * 1e3:.1f} ms per step on the host clock; the "
-        f"card's share of the window {steps * step_ms / 1e3 / window_s:.3f} "
-        f"(steps x the step's CUDA-event time / window)")
-    return {"steps": steps, "seconds": window_s, "scans_per_s": rate,
-            "ms_per_step": window_s / steps * 1e3,
-            "card_share": steps * step_ms / 1e3 / window_s}
-
-
 def drive_trainer(trainer, cfg, card, kind, convs_per_step, k3_name,
                   k3e8_name):
     """The training main path: ``trainer.train()`` (TRAIN_STEPS steps and a
-    validation) with every launch count set to 0 just before and read just
-    after: finite losses and validation, zero overflow, the exact launches
-    of ``kind``'s binned-conv pair and of K3 / K3[E=8], none of the other
-    pair's; then the step's breakdown and the steady window."""
+    validation, through the trainer's CUDA graphs) with every launch count
+    set to 0 just before and read just after: finite losses and
+    validation, zero overflow, and the launches of ``kind``'s binned-conv
+    pair and of K3 / K3[E=8] held exactly against the trainer's captures
+    (the wrappers launch in the eager run and the capture of each new
+    signature, ``RUNS_PER_CAPTURE`` runs; a replay runs no wrapper, and
+    phase 17 counts a replay's kernels by name), none of the other pair's;
+    then the eager step's breakdown."""
     import numpy as np
     import torch
     from fusiontransformer_tpu_torch.ops.kernels import (LAUNCHES,
@@ -1675,17 +1661,24 @@ def drive_trainer(trainer, cfg, card, kind, convs_per_step, k3_name,
     if any(overflow.values()) or (kind == "slots"
                                   and "tap_overflow" not in overflow):
         raise AssertionError(f"lossy train steps: {overflow}")
-    n_fwd = TRAIN_STEPS + n_val
-    want = {kk["fwd"].__name__: convs_per_step * n_fwd,
-            kk["bwd"].__name__: convs_per_step * TRAIN_STEPS,
-            FWD_MMA_NAME: convs_per_step * (n_fwd + TRAIN_STEPS),
-            FWD_CORE_NAME: 0, DW_MMA_NAME: convs_per_step * TRAIN_STEPS,
+    captures = dict(trainer.captures)
+    if not (1 <= captures["train"] <= TRAIN_STEPS
+            and 1 <= captures["eval"] <= n_val and not captures["update"]):
+        raise AssertionError(f"captures {captures} for {TRAIN_STEPS} train "
+                             f"and {n_val} eval batches")
+    runs_t = RUNS_PER_CAPTURE * captures["train"]
+    runs_f = runs_t + RUNS_PER_CAPTURE * captures["eval"]
+    want = {kk["fwd"].__name__: convs_per_step * runs_f,
+            kk["bwd"].__name__: convs_per_step * runs_t,
+            FWD_MMA_NAME: convs_per_step * (runs_f + runs_t),
+            FWD_CORE_NAME: 0, DW_MMA_NAME: convs_per_step * runs_t,
             other["fwd"].__name__: 0, other["bwd"].__name__: 0,
-            k3_name: 2 * n_fwd, k3e8_name: 2 * TRAIN_STEPS}
+            k3_name: 2 * runs_f, k3e8_name: 2 * runs_t}
     for name, n in want.items():
         if launches.get(name, 0) != n:
             raise AssertionError(f"{name}: {launches.get(name, 0)} launches "
-                                 f"on the training path, expected {n}")
+                                 f"on the training path, expected {n} "
+                                 f"(captures {captures})")
     val = {k: trainer.val_metric_logger.meters[k].global_avg
            for k in ("seg_iou_2d", "seg_iou_3d", "seg_loss_2d",
                      "seg_loss_3d")}
@@ -1693,22 +1686,478 @@ def drive_trainer(trainer, cfg, card, kind, convs_per_step, k3_name,
         raise AssertionError(f"non-finite validation metrics {val}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     k1, k2 = kk["ids"]
-    log(f"trained {TRAIN_STEPS} steps + validated {n_val} batches in "
-        f"{train_s:.1f} s ({TRAIN_STEPS * TRAIN_BATCH / train_s:.2f} train "
-        f"scans/s over the whole run, first-step set-up and validation "
-        f"included; {card}); launches {launches} = per train step {k1} "
-        f"{convs_per_step}, {k2} {convs_per_step} (each with one "
-        f"tensor-core dX and dW), K3 2, K3[E=8] 2, and per "
-        f"eval step {k1} {convs_per_step}, K3 2, every {k1} and dX on the "
-        f"tensor-core forward, none on the CUDA-core one; overflow "
-        f"{overflow}; mean "
-        f"losses {losses}; validation {val}; peak device memory "
-        f"{peak_gb:.1f} GB")
+    log(f"trained {TRAIN_STEPS} steps + validated {n_val} batches through "
+        f"the trainer's CUDA graphs in {train_s:.1f} s "
+        f"({TRAIN_STEPS * TRAIN_BATCH / train_s:.2f} train scans/s over the "
+        f"whole run, first-step set-up, captures and validation included; "
+        f"{card}); captures {captures}; launches {launches} = per eager run "
+        f"or capture of a train step {k1} {convs_per_step}, {k2} "
+        f"{convs_per_step} (each with one tensor-core dX and dW), K3 2, "
+        f"K3[E=8] 2, and of an eval step {k1} {convs_per_step}, K3 2, every "
+        f"{k1} and dX on the tensor-core forward, none on the CUDA-core "
+        f"one; overflow {overflow}; mean losses {losses}; validation {val}; "
+        f"peak device memory {peak_gb:.1f} GB")
     tbreak = train_breakdown(trainer)
-    window = train_window(trainer, cfg, tbreak["step_ms"])
     return {"val_batches": n_val, "run_s": train_s, "launches": launches,
-            "losses": losses, "overflow": overflow, "validation": val,
-            "peak_memory_gb": peak_gb, "breakdown": tbreak, "window": window}
+            "captures": captures, "losses": losses, "overflow": overflow,
+            "validation": val, "peak_memory_gb": peak_gb,
+            "breakdown": tbreak}
+
+
+# --------------------------------------------------------------------------- #
+# Phase 17: the train and eval steps through the trainer's CUDA graphs.
+
+# The kernels of one train-graph replay by the name the profiler gives them,
+# per slot-map conv of the step: K1 / K1' and K2 / K2''s dX on the
+# tensor-core forward, K2's row table, dW and chunk sum; and K3 at L4 and L2
+# (E=1, voxelize_mean) and its E=8 devoxelize adjoint (the template's first
+# argument).
+TRAIN_REPLAY_PER_CONV = {"binned_conv_fwd_mma_kernel": 2,
+                         "bin_rows_kernel": 1, "binned_conv_dw_mma_kernel": 1,
+                         "reduce_chunks_kernel": 1,
+                         "binned_conv_grouped_fwd_kernel": 0,
+                         "binned_conv_grouped_dw_kernel": 0}
+K3_KERNEL = "sorted_segment_weighted_sum_kernel"
+# GRAD_ACCUM_STEPS 2 against one eager optimizer step on the mean gradient:
+# each parameter within this share of its largest update (both sides run the
+# same deterministic kernels; the sum is halved where the reference adds
+# the halves).
+ACCUM_RTOL = 1e-6
+
+
+def train_state(trainer):
+    """Clones of what a train step reads and writes: parameters and BN
+    statistics, the static gradients, the optimizer's state and the dropout
+    generator's state."""
+    opt = trainer.optimizer
+    params = [p for g in opt.param_groups for p in g["params"]]
+    return {"model": {k: v.clone()
+                      for k, v in trainer.model.state_dict().items()},
+            "grads": [g.clone() for g in trainer.train_step.grads],
+            "opt": [{k: v.clone() for k, v in opt.state[p].items()}
+                    for p in params],
+            "gen": trainer.generator.get_state()}
+
+
+def set_train_state(trainer, state):
+    """Put ``state`` back in place, into the same tensors (the graphs keep
+    their addresses)."""
+    import torch
+    opt = trainer.optimizer
+    params = [p for g in opt.param_groups for p in g["params"]]
+    with torch.no_grad():
+        for k, v in trainer.model.state_dict().items():
+            v.copy_(state["model"][k])
+        for g, v in zip(trainer.train_step.grads, state["grads"]):
+            g.copy_(v)
+        for p, saved in zip(params, state["opt"]):
+            for k, v in saved.items():
+                opt.state[p][k].copy_(v)
+    trainer.generator.set_state(state["gen"])
+
+
+def state_diffs(a, b):
+    """The names of what differs between two ``train_state``s, bit for
+    bit."""
+    import torch
+    out = [k for k in a["model"] if not torch.equal(a["model"][k],
+                                                    b["model"][k])]
+    out += [f"grad {i}" for i, (x, y) in enumerate(zip(a["grads"],
+                                                       b["grads"]))
+            if not torch.equal(x, y)]
+    out += [f"opt {i}.{k}" for i, (x, y) in enumerate(zip(a["opt"],
+                                                          b["opt"]))
+            for k in x if not torch.equal(x[k], y[k])]
+    if not torch.equal(a["gen"], b["gen"]):
+        out.append("generator")
+    return out
+
+
+def metric_diffs(a, b):
+    import numpy as np
+    return [k for k in a if not np.array_equal(a[k], b[k])]
+
+
+def graph_key(trainer, host_batch):
+    from fusiontransformer_tpu_torch.modules.steps import batch_signature
+    return batch_signature(host_batch), trainer.level_caps(host_batch)
+
+
+def replays_equal_eager(trainer, batches):
+    """From one saved state, ``batches`` through the trainer's graphs (every
+    signature already captured: replays) and the same batches through its
+    eager step: the metrics and the state after them bit for bit.  Returns
+    the state after the replays."""
+    from fusiontransformer_tpu_torch.modules.steps import (device_batch,
+                                                           read_back)
+    for hb in batches:
+        if trainer.train_graphs.get(graph_key(trainer, hb)) is None:
+            raise AssertionError("the batch's signature is not captured")
+    s0, step0 = train_state(trainer), trainer.step
+    graph = [trainer.run_train_step(hb).numpy() for hb in batches]
+    after = train_state(trainer)
+    set_train_state(trainer, s0)
+    eager = [read_back(trainer.train_step(
+        device_batch(hb, trainer.device), trainer.generator,
+        trainer.level_caps(hb))).numpy() for hb in batches]
+    trainer.step = step0 + len(batches)
+    diffs = state_diffs(after, train_state(trainer)) + [
+        d for g, e in zip(graph, eager) for d in metric_diffs(g, e)]
+    if diffs:
+        raise AssertionError(f"{len(batches)} replays differ from as many "
+                             f"eager steps in {len(diffs)} tensors: "
+                             f"{diffs[:12]}")
+    return after
+
+
+def lr_reaches_replay(trainer, hb, factor=10.0):
+    """The learning rate set after the capture reaches the replay: from one
+    saved state, the replay at rate r and at factor * r (set with
+    ``set_learning_rate``, no new capture), the second bit for bit the
+    eager step at factor * r, and its parameter update factor times the
+    first's (Adam's update is linear in the rate)."""
+    import torch
+    from fusiontransformer_tpu_torch.modules.steps import (device_batch,
+                                                           read_back)
+    from fusiontransformer_tpu_torch.solver.build import (get_learning_rate,
+                                                          set_learning_rate)
+    lr = get_learning_rate(trainer.optimizer)
+    if not lr > 0:
+        raise AssertionError(f"learning rate {lr}")
+    captures = dict(trainer.captures)
+    params = dict(trainer.model.named_parameters())
+    s0, step0 = train_state(trainer), trainer.step
+    trainer.run_train_step(hb).numpy()
+    low = train_state(trainer)
+    set_train_state(trainer, s0)
+    set_learning_rate(trainer.optimizer, lr * factor)
+    trainer.run_train_step(hb).numpy()
+    high = train_state(trainer)
+    set_train_state(trainer, s0)
+    read_back(trainer.train_step(device_batch(hb, trainer.device),
+                                 trainer.generator,
+                                 trainer.level_caps(hb))).numpy()
+    diffs = state_diffs(high, train_state(trainer))
+    ratio_err, moved = 0.0, 0
+    for k in params:
+        p0 = s0["model"][k]
+        d_low = low["model"][k] - p0
+        d_high = high["model"][k] - p0
+        scale = d_high.abs().max().item()
+        if scale > 0:
+            moved += 1
+            ratio_err = max(ratio_err, (d_high - factor * d_low).abs().max()
+                            .item() / scale)
+    set_train_state(trainer, s0)
+    set_learning_rate(trainer.optimizer, lr)
+    trainer.step = step0
+    torch.cuda.synchronize()
+    if diffs or trainer.captures != captures or not ratio_err < 1e-2 \
+            or not moved:
+        raise AssertionError(f"LR after the capture: replay vs eager "
+                             f"differ in {diffs[:8]}, captures "
+                             f"{captures} -> {trainer.captures}, update "
+                             f"ratio error {ratio_err}")
+    return {"factor": factor, "update_ratio_err": ratio_err}
+
+
+def no_host_sync(trainer, hb):
+    """One eager train step and one eager eval step under
+    ``torch.cuda.set_sync_debug_mode("error")``: an operation that waits for
+    the card raises."""
+    import torch
+    from fusiontransformer_tpu_torch.modules.steps import device_batch
+    db = device_batch(hb, trainer.device)
+    caps = trainer.level_caps(hb)
+    s0, step0 = train_state(trainer), trainer.step
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trainer.train_step(db, trainer.generator, caps)
+        trainer.eval_step(db, caps)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    set_train_state(trainer, s0)
+    trainer.step = step0
+
+
+def train_replay_kernels(trainer, hb, convs_per_step):
+    """One train-graph replay of ``hb``'s signature: its device time on CUDA
+    events, and its kernels by name from the profiler, held exactly against
+    TRAIN_REPLAY_PER_CONV and K3's 2 + 2; the busy share.  The replays run
+    the step (the state moves on)."""
+    graph = trainer.train_graphs.get(graph_key(trainer, hb))
+    replay_ms = cuda_ms(graph.graph.replay, iters=3, reps=3)
+    by_name = kernels_only(device_kernels(graph.graph.replay))
+    counts = {n: count_of(by_name, n) for n in TRAIN_REPLAY_PER_CONV}
+    for e, key in ((1, "K3 (E=1)"), (8, "K3' (E=8)")):
+        counts[key] = sum(c for name, (c, _) in by_name.items() if re.search(
+            K3_KERNEL + rf"<{e}\b", name))
+    want = {n: k * convs_per_step for n, k in TRAIN_REPLAY_PER_CONV.items()}
+    want.update({"K3 (E=1)": 2, "K3' (E=8)": 2})
+    n = sum(c for c, _ in by_name.values())
+    kernel_ms = sum(ms for _, ms in by_name.values())
+    log(f"  train-graph replay {replay_ms:.2f} ms (CUDA events); profiler: "
+        f"{n} kernels, {kernel_ms:.2f} ms, busy share "
+        f"{kernel_ms / replay_ms:.3f}; by name {counts}")
+    if counts != want:
+        k3 = {k: v for k, v in by_name.items() if K3_KERNEL in k}
+        raise AssertionError(f"kernels of one train replay {counts}, "
+                             f"expected {want} (K3 names: {k3})")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    for name, (c, ms) in ranked:
+        log(f"  {ms:8.3f} ms  x{c:<5d} {name[:100]}")
+    return {"replay_ms": replay_ms, "kernels": n, "kernel_ms": kernel_ms,
+            "busy_share": kernel_ms / replay_ms, "by_name": counts,
+            "top": [{"name": k, "count": c, "ms": ms}
+                    for k, (c, ms) in ranked]}
+
+
+def loader_batches(cfg, n_batches, seed_offset=0):
+    """``n_batches`` collated training batches of ``cfg``'s loader (scans
+    ``seed_offset`` on)."""
+    from fusiontransformer_tpu_torch.data.build import build_dataloader
+    wcfg = cfg.clone()
+    wcfg.DATASET.SyntheticSCN.num_scans = n_batches * TRAIN_BATCH
+    wcfg.DATASET.SyntheticSCN.seed = seed_offset
+    wcfg.freeze()
+    return list(build_dataloader(wcfg, mode="train"))
+
+
+def train_windows(trainer, cfg, replay_ms):
+    """Train scans/s of ``train_for_one_epoch`` over WINDOW_STEPS batches
+    at NUM_WORKERS 0 and N (the loader's worker pool): one epoch with the
+    workers first captures the window's signatures (its captures and time
+    reported), then the window at 0 workers and at N, each all replays,
+    host clock, end synchronised; the card's share of each (steps x the
+    replay's CUDA-event time / window).  The pool's workers never
+    initialised CUDA."""
+    import os
+    import torch
+    from fusiontransformer_tpu_torch.data.build import build_dataloader
+    workers = max(1, min(6, (os.cpu_count() or 2) - 2))
+    loaders = {}
+    for n in (workers, 0):
+        wcfg = cfg.clone()
+        wcfg.DATASET.SyntheticSCN.num_scans = WINDOW_STEPS * TRAIN_BATCH
+        wcfg.DATALOADER.NUM_WORKERS = n
+        wcfg.freeze()
+        loaders[n] = build_dataloader(wcfg, mode="train")
+    out = {"workers": workers, "cpu_count": os.cpu_count()}
+    try:
+        for name, n in (("first epoch (captures)", workers), ("0 workers", 0),
+                        (f"{workers} workers", workers)):
+            trainer.train_dataloader = loaders[n]
+            before, step0 = dict(trainer.captures), trainer.step
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_for_one_epoch(1)
+            torch.cuda.synchronize()
+            window_s = time.perf_counter() - t0
+            steps = trainer.step - step0
+            captures = trainer.captures["train"] - before["train"]
+            meters = trainer.train_metric_logger.meters
+            if steps != WINDOW_STEPS:
+                raise AssertionError(f"{steps} steps in the window")
+            if any(meters[k].sum != 0 for k in (
+                    "voxel_overflow", "slot_overflow", "tap_overflow")
+                    if k in meters):
+                raise AssertionError("lossy steps in the window")
+            if not math.isfinite(meters["total_loss"].global_avg):
+                raise AssertionError("non-finite loss in the window")
+            if name != "first epoch (captures)" and captures:
+                raise AssertionError(f"{captures} captures in the window "
+                                     f"'{name}' after its first epoch")
+            rate = steps * TRAIN_BATCH / window_s
+            out[name] = {"seconds": window_s, "scans_per_s": rate,
+                         "ms_per_step": window_s / steps * 1e3,
+                         "captures": captures,
+                         "card_share": steps * replay_ms / 1e3 / window_s}
+            log(f"  window, {name}: train_for_one_epoch over {steps} "
+                f"batches of {TRAIN_BATCH} in {window_s:.2f} s = "
+                f"{rate:.3f} train scans/s, {window_s / steps * 1e3:.1f} ms "
+                f"a step (host clock), {captures} captures; the card's "
+                f"share {out[name]['card_share']:.3f}")
+        cuda_in_worker = loaders[workers]._get_pool().apply(
+            torch.cuda.is_initialized)
+        if cuda_in_worker:
+            raise AssertionError("a loader worker initialised CUDA")
+    finally:
+        for loader in loaders.values():
+            loader.close()
+    log(f"  NUM_WORKERS {workers} of os.cpu_count() {os.cpu_count()}; no "
+        f"worker initialised CUDA")
+    return out
+
+
+def accumulation(cfg, batches):
+    """``TRAIN.GRAD_ACCUM_STEPS 2`` on the card, through the graphs: the
+    parameters bitwise unchanged after each odd micro-step (the BN
+    statistics move), and after the second update (a replay of the update
+    graph, Adam's moments no longer zero) each parameter within ACCUM_RTOL
+    of its largest update of one eager optimizer step on the mean of the
+    two micro-batches' gradients."""
+    import torch
+    from fusiontransformer_tpu_torch.modules.SemanticTrainer import (
+        SemanticTrainer)
+    from fusiontransformer_tpu_torch.modules.steps import device_batch
+    acfg = cfg.clone()
+    acfg.TRAIN.GRAD_ACCUM_STEPS = 2
+    acfg.freeze()
+    tr = SemanticTrainer(acfg)
+    names = [n for n, _ in tr.model.named_parameters()]
+    params = dict(tr.model.named_parameters())
+    order = [batches[0], batches[1], batches[0], batches[1]]
+    odd_ok, bn_moved = [], []
+    for i, hb in enumerate(order):
+        if i == 2:
+            s2 = train_state(tr)
+        before = train_state(tr)
+        tr.run_train_step(hb).numpy()
+        now = train_state(tr)
+        if i % 2 == 0:
+            odd_ok.append(all(torch.equal(now["model"][n], before["model"][n])
+                              for n in names))
+            bn_moved.append(any(
+                not torch.equal(now["model"][k], before["model"][k])
+                for k in now["model"] if k not in params))
+    p4 = train_state(tr)["model"]
+    # The reference: from the state before the window, each micro-batch's
+    # gradient alone, their mean, one optimizer step.
+    set_train_state(tr, s2)
+    grads = []
+    for hb in order[2:]:
+        torch._foreach_zero_(tr.train_step.grads)
+        tr.train_step(device_batch(hb, tr.device), tr.generator,
+                      tr.level_caps(hb), update=False)
+        grads.append([g.clone() for g in tr.train_step.grads])
+    for g, a, b in zip(tr.train_step.grads, *grads):
+        g.copy_((a + b) / 2)
+    tr.optimizer.step()
+    err = 0.0
+    for n in names:
+        upd = (p4[n] - s2["model"][n]).abs().max().item()
+        if upd > 0:
+            err = max(err, (p4[n] - params[n]).abs().max().item() / upd)
+    captures = dict(tr.captures)
+    del tr
+    torch.cuda.empty_cache()
+    log(f"  GRAD_ACCUM_STEPS 2: parameters bitwise unchanged after the odd "
+        f"micro-steps {odd_ok}, BN statistics moved {bn_moved}; after the "
+        f"second update (a replay of the update graph) each parameter "
+        f"within {err:.3g} of its largest update of one eager step on the "
+        f"mean gradient (bound {ACCUM_RTOL}); captures {captures}")
+    if not (all(odd_ok) and all(bn_moved) and err <= ACCUM_RTOL
+            and captures["update"] == 1):
+        raise AssertionError(f"accumulation: odd {odd_ok}, BN {bn_moved}, "
+                             f"err {err}, captures {captures}")
+    return {"odd_unchanged": odd_ok, "bn_moved": bn_moved,
+            "max_share_of_update": err, "captures": captures}
+
+
+def eval_replays_equal_eager(trainer, batches):
+    """Validation's graphs: each batch through ``run_eval_batch`` (a capture
+    on a miss, else a replay) and again (a replay), bit for bit the eager
+    eval step."""
+    import numpy as np
+    from fusiontransformer_tpu_torch.modules.steps import (device_batch,
+                                                           read_back)
+    before = trainer.captures["eval"]
+    for hb in batches:
+        for _ in range(2):
+            got = trainer.run_eval_batch(hb)
+            want = read_back(trainer.eval_step(
+                device_batch(hb, trainer.device),
+                trainer.level_caps(hb))).numpy()
+            bad = [k for k in want if not np.array_equal(got[k], want[k])]
+            if bad:
+                raise AssertionError(f"eval replay differs from the eager "
+                                     f"eval step in {bad}")
+    return trainer.captures["eval"] - before
+
+
+def phase_train_graphs(label, trainer, cfg, cfg32, convs_per_step):
+    """The trainer's CUDA graphs in one configuration (``trainer``: phase 8's
+    or 11's, bf16): per signature met, the capture's seconds and the graph
+    pool's bytes; replays bit for bit the eager step from the same saved
+    state, bf16 and (a second trainer) f32, one replay and two (fresh
+    dropout masks); a learning rate set after the capture reaching the
+    replay; no host sync in an eager train and eval step; a replay's
+    kernels by name and its busy share; the step eager against graph, A B B
+    A; the training window at 0 and N workers; GRAD_ACCUM_STEPS 2; the eval
+    graphs bit for bit the eager eval step."""
+    import torch
+    from fusiontransformer_tpu_torch.modules.SemanticTrainer import (
+        SemanticTrainer)
+    from fusiontransformer_tpu_torch.modules.steps import device_batch
+    res = {"seconds": {}}
+    t_part = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        res["seconds"][name] = round(now - t_part[0], 1)
+        t_part[0] = now
+
+    hb = loader_batches(cfg, 2, seed_offset=1000)
+    lap("batches")
+    no_host_sync(trainer, hb[0])
+    log(f"  {label}: set_sync_debug_mode('error') holds for one eager train "
+        f"step and one eager eval step")
+    for b in hb:
+        trainer.run_train_step(b).numpy()         # captured if new
+    replays_equal_eager(trainer, hb[:1])
+    replays_equal_eager(trainer, [hb[0], hb[0]])
+    trainers = {"bf16": trainer}
+    t32 = SemanticTrainer(cfg32)
+    t32.model.load_state_dict(trainer.model.state_dict())
+    for b in hb:
+        t32.run_train_step(b).numpy()
+    replays_equal_eager(t32, hb[:1])
+    replays_equal_eager(t32, [hb[0], hb[0]])
+    trainers["f32"] = t32
+    res["captures"] = {}
+    for dtype, tr in trainers.items():
+        for key in list(tr.train_graphs):
+            g = tr.train_graphs.get(key)
+            res["captures"].setdefault(dtype, []).append(
+                {"caps": list(key[1] or ()), "capture_s": g.capture_s})
+        res["captures"][f"{dtype} pool_bytes"] = pool_bytes(tr._pool)
+    log(f"  {label}: one replay and two replays (two dropout draws) bit for "
+        f"bit the eager steps from the same state (losses, confusion "
+        f"matrices, parameters, BN statistics, gradients, Adam's moments and "
+        f"step, the generator), bf16 and f32; captures (caps, s): "
+        + "; ".join(f"{d} " + ", ".join(
+            f"{c['caps']} {c['capture_s']:.2f}" for c in v)
+            for d, v in res["captures"].items() if isinstance(v, list))
+        + "; pool bytes " + ", ".join(
+            f"{d} {v}" for d, v in res["captures"].items()
+            if not isinstance(v, list)))
+    del t32, trainers
+    torch.cuda.empty_cache()
+    lap("bit for bit, bf16 and f32")
+    res["lr"] = lr_reaches_replay(trainer, hb[0])
+    log(f"  {label}: a learning rate set after the capture reaches the "
+        f"replay (x{res['lr']['factor']}: bit for bit the eager step, "
+        f"update ratio error {res['lr']['update_ratio_err']:.2g}), no "
+        f"recapture")
+    res["replay"] = train_replay_kernels(trainer, hb[0], convs_per_step)
+    db = device_batch(hb[0], trainer.device)
+    caps = trainer.level_caps(hb[0])
+    graph = trainer.train_graphs.get(graph_key(trainer, hb[0]))
+    res["step_ms"] = side_by_side(f"{label} train step", {
+        "eager": lambda: trainer.train_step(db, trainer.generator, caps),
+        "graph": graph.graph.replay}, rounds=2)
+    res["eval_captures"] = eval_replays_equal_eager(trainer, hb)
+    log(f"  {label}: validation through its graphs ({res['eval_captures']} "
+        f"captures) bit for bit the eager eval step, twice per batch")
+    lap("LR, kernels, A B B A, eval")
+    res["windows"] = train_windows(trainer, cfg, res["replay"]["replay_ms"])
+    lap("windows")
+    res["accumulation"] = accumulation(cfg, hb)
+    lap("accumulation")
+    log(f"  {label}: seconds {res['seconds']}")
+    return res
 
 
 def per_voxel(cfg):
@@ -1724,7 +2173,7 @@ def without_host_maps(host_batch):
     return {k: v for k, v in host_batch.items() if not k.startswith("gslot_")}
 
 
-def side_by_side(label, fns, rounds=5):
+def side_by_side(label, fns, rounds=3):
     """Each of ``fns`` ({name: zero-argument callable}) timed on CUDA events
     one call at a time, in the order A B B A per round after one warm call
     each, as medians in ms.  The host's launch rate drifts through a run
@@ -2201,7 +2650,7 @@ def phase_native(engine, recs, ds, tcfg):
         return (t1 - t0) * 1e3, (t2 - t1) * 1e3
 
     per_request = [maps_equal(engine.collate, [s]) for s in samples]
-    per_batch = [maps_equal(collate10, items) for _ in range(3)]
+    per_batch = [maps_equal(collate10, items) for _ in range(2)]
     med = statistics.median
     q_n, q_p = ms["quantize"]
     res = {
@@ -2221,11 +2670,11 @@ def phase_native(engine, recs, ds, tcfg):
     return res
 
 
-def pool_bytes(engine):
-    """Bytes of the segments of the engine's graph memory pool, or None
-    where the allocator's snapshot names no segment of it."""
+def pool_bytes(pool):
+    """Bytes of the segments of a graph memory pool, or None where the
+    allocator's snapshot names no segment of it."""
     import torch
-    pool = tuple(engine._pool)
+    pool = tuple(pool)
     segs = [sg["total_size"] for sg in torch.cuda.memory_snapshot()
             if tuple(sg.get("segment_pool_id", ())) == pool]
     return sum(segs) if segs else None
@@ -2286,7 +2735,8 @@ def phase_graphs(label, cfg, cfg32, state, recs):
             s_sizes = [batch[k].shape[1] for k in sorted(batch)
                        if k.startswith("gslot_src_")]
             res["captures"][f"{dtype} {name}"] = {
-                "capture_s": graph.capture_s, "pool_bytes": pool_bytes(eng),
+                "capture_s": graph.capture_s,
+                "pool_bytes": pool_bytes(eng._pool),
                 "pool_sizes": s_sizes}
         log(f"  {label} {dtype}: replay == eager bit for bit at "
             f"{list(batches)}; captures (s, pool bytes after it, S): "
@@ -2357,11 +2807,11 @@ def phase_graphs(label, cfg, cfg32, state, recs):
 
 def phase_server():
     """The port's ``tools/serve.py --selftest`` at full width on the card:
-    the flagship behind its HTTP front end, 32 SyntheticSCN requests of
-    ``N_POINTS`` rays from 4 client threads, twice (the first pass meets
-    new slot-pool sizes and captures their graphs, the second finds them
-    captured), each response held against the engine's serial prediction;
-    /stats and /healthz answer."""
+    the flagship behind its HTTP front end, SERVER_REQUESTS SyntheticSCN
+    requests of ``N_POINTS`` rays from 4 client threads, twice (the first
+    pass meets new slot-pool sizes and captures their graphs, the second
+    finds them captured), each response held against the engine's serial
+    prediction; /stats and /healthz answer."""
     from fusiontransformer_tpu_torch.tools import serve
     report = serve.main(["--cfg", CONFIG, "--selftest", str(SERVER_REQUESTS),
                          "--clients", str(SERVER_CLIENTS), "--points",
@@ -2590,9 +3040,20 @@ def main() -> int:
     train["bf16_k2_calls"] = bf16_step_calls(
         trainer, "grouped", device_batch(hb, trainer.device), caps,
         convs_per_step)
+    phase_end("8")
+
+    # ---- 17a. the train and eval steps through the trainer's graphs
+    log("== 17a. train graphs, group-pooled: replays against the eager step "
+        "(bf16, f32), LR, host syncs, kernels per replay, eager against "
+        "graph, the window at 0 and N workers, GRAD_ACCUM_STEPS 2, eval")
+    tcfg32 = tcfg.clone()
+    tcfg32.TPU.COMPUTE_DTYPE = "float32"
+    tcfg32.freeze()
+    train_graphs = {"group-pooled": phase_train_graphs(
+        "group-pooled", trainer, tcfg, tcfg32, convs_per_step)}
     del trainer
     torch.cuda.empty_cache()
-    phase_end("8")
+    phase_end("17a")
 
     # ---- 9. K1' and K2' on the flagship's per-voxel maps
     log("== 9. K1' binned_conv_slots_fwd and K2' binned_conv_slots_bwd vs "
@@ -2670,6 +3131,13 @@ def main() -> int:
         "per-voxel maps (K1'/K2')": lambda: ptrainer.train_step(
             tdb, ptrainer.generator, caps)})
     phase_end("11")
+
+    log("== 17b. train graphs, per-voxel: as 17a")
+    train_graphs["per-voxel"] = phase_train_graphs(
+        "per-voxel", ptrainer, ptcfg, per_voxel(tcfg32), convs_per_step)
+    del ptrainer
+    torch.cuda.empty_cache()
+    phase_end("17b")
 
     # ---- 12. the tool kernels behind the port's microbenches
     log("== 12. tool kernels: the port's microbenches (T1-T3 row gathers "
@@ -2766,30 +3234,51 @@ def main() -> int:
               "tools": {"runs": tools, "row_gather": gather_rows,
                         "flash_attention": flash_rows},
               "native_host": native_host, "graphs": graphs,
+              "train_graphs": train_graphs,
               "server": server, "phase_s": phase_s}
     log("== 13. kernels (ms, plain_ms, bound_ms, library_ms: K1, K1' and K3 "
         "per inference request at batch 1 (K1 and K1' also per train step "
         "under train_step), K2, K2' and K3[E=8] per train "
         f"step at batch {TRAIN_BATCH}; each summed over the path's calls, "
         "bf16; launches from the path each entry is timed on: K1' from "
-        "phase 10, K2' from phase 11; T1-T3 one whole-level launch at L0 "
+        "phase 10, K2' from phase 11 (the wrappers' in the trainer's eager "
+        "runs and captures); train_replay_kernels: by name in one "
+        "train-graph replay, phase 17; T1-T3 one whole-level launch at L0 "
         "plus one at L2, T4 12 chained calls at B=8, launches from the "
         "microbenches in phase 12)")
     log("detail: " + json.dumps(detail))
     log(f"phase seconds: {phase_s}, total {time.time() - t_start:.1f} s")
+    # Each kernel's launches in one train-graph replay, by name from the
+    # profiler (phase 17): the forward kernel runs K1 / K1' and K2's dX.
+    per_replay = {c: train_graphs[c]["replay"]["by_name"]
+                  for c in ("group-pooled", "per-voxel")}
+
+    def replay_of(config, *names):
+        return {"train_replay_kernels": {n: per_replay[config][n]
+                                         for n in names}}
+
+    fwd_names = ("binned_conv_fwd_mma_kernel",)
+    bwd_names = ("bin_rows_kernel", "binned_conv_dw_mma_kernel",
+                 "reduce_chunks_kernel")
     print(json.dumps({"kernels": [
-        fwd_entry("binned_conv_grouped_fwd", k1, k1t, serve),
-        bwd_entry("binned_conv_grouped_bwd", k2, tlaunches),
+        {**fwd_entry("binned_conv_grouped_fwd", k1, k1t, serve),
+         **replay_of("group-pooled", *fwd_names)},
+        {**bwd_entry("binned_conv_grouped_bwd", k2, tlaunches),
+         **replay_of("group-pooled", *bwd_names)},
         {**entry(k3_name, K3_SOURCE, K3_REPLACES, k3, k3["library_ms"],
                  serve["launches"]), "graph_ms": k3["graph_ms"],
          "replay_launches": serve["replay_launches"][
              "sorted_segment_weighted_sum_kernel"],
          "train_step": {k: k3t[k] for k in (
-             "ms", "graph_ms", "plain_ms", "bound_ms", "library_ms")}},
+             "ms", "graph_ms", "plain_ms", "bound_ms", "library_ms")},
+         **replay_of("group-pooled", "K3 (E=1)")},
         {**entry(k3e8_name, K3_SOURCE, K3_REPLACES, k3e8, k3e8["library_ms"],
-                 tlaunches), "graph_ms": k3e8["graph_ms"]},
-        fwd_entry("binned_conv_slots_fwd", k1p, k1pt, pserve),
-        bwd_entry("binned_conv_slots_bwd", k2p, ptlaunches),
+                 tlaunches), "graph_ms": k3e8["graph_ms"],
+         **replay_of("group-pooled", "K3' (E=8)")},
+        {**fwd_entry("binned_conv_slots_fwd", k1p, k1pt, pserve),
+         **replay_of("per-voxel", *fwd_names)},
+        {**bwd_entry("binned_conv_slots_bwd", k2p, ptlaunches),
+         **replay_of("per-voxel", *bwd_names)},
         *({**entry(name, GATHER_SOURCE, TOOL_KERNELS[name], m,
                    m["library_ms"], tools["launches"]),
            **{k: m[k] for k in ("eager_ms", "gathered_GB_per_s", "levels")

@@ -35,7 +35,10 @@ class SyntheticSCN:
     that the JAX package emits with ``output_orig=True``.  ``aug``: the
     training split's augmentations (``noisy_rot``, ``flip_y``, ``rot_z``,
     ``transl`` of ``augment_and_scale_3d``), drawn from each item's
-    ``RandomState(seed + index)`` after the scan, as in the JAX package."""
+    ``RandomState(seed + index)`` after the scan, as in the JAX package.
+    ``point_count_jitter`` > 0 draws each scan's ray count from
+    U[(1 - jitter) * num_points, num_points] (the JAX package's draw), so
+    that a run meets several capacity buckets."""
 
     num_classes = 20
     scale = 20
@@ -44,10 +47,12 @@ class SyntheticSCN:
     class_labels = tuple(range(num_classes))
 
     def __init__(self, split=("train",), num_scans=8, num_points=4096,
-                 image_width=1226, image_height=370, seed=0, **aug):
+                 image_width=1226, image_height=370, seed=0,
+                 point_count_jitter=0.0, **aug):
         self.split = split
         self.num_scans = num_scans
         self.num_points = num_points
+        self.point_count_jitter = float(point_count_jitter)
         self.image_width = image_width
         self.image_height = image_height
         self.aug = {k: v for k, v in aug.items()
@@ -116,6 +121,8 @@ class SyntheticSCN:
         voxel merging at coarse levels, which uniform random points do not.
         """
         n = self.num_points
+        if self.point_count_jitter > 0:
+            n = int(n * (1.0 - self.point_count_jitter * rng.rand()))
         n_beams = 64
         n_az = (n + n_beams - 1) // n_beams
         elev = np.linspace(-0.43, 0.05, n_beams)           # rad, ~KITTI HDL-64

@@ -35,7 +35,7 @@ def validate(cfg, run_batch, dataloader, val_metric_logger, log_tables=True):
 
     ``run_batch(host_batch)`` returns the eval step's results
     (``pred_2d``, ``pred_3d``, ``pred_ensemble``, ``seg_loss_2d``,
-    ``seg_loss_3d``) for one collated batch.  Returns
+    ``seg_loss_3d``) for one collated batch, as numpy arrays.  Returns
     ``[(modality, Evaluator), ...]``.
     """
     logger = logging.getLogger(
@@ -49,7 +49,7 @@ def validate(cfg, run_batch, dataloader, val_metric_logger, log_tables=True):
     for batch in dataloader:
         data_time = time.time() - end
         total_dropped += int(batch.get("num_dropped", 0))
-        res = {k: v.cpu().numpy() for k, v in run_batch(batch).items()}
+        res = run_batch(batch)
         scan_count = batch["scan_count"]
         cap = len(batch["pt_valid"]) // len(scan_count)
         for i, n_pts in enumerate(scan_count):

@@ -66,7 +66,10 @@ class SampleDown(nn.Module):
         x = self.bn(F.relu(self.conv(img)))
         ri = nearest_resize_idx(h, self.out_size, img.device)
         ci = nearest_resize_idx(w, self.out_size, img.device)
-        return x.index_select(1, ri).index_select(2, ci)
+        # Rows and columns through index_rows: the height is upsampled, and
+        # index_select's gradient would add the repeated rows with atomics.
+        x = index_rows(x.movedim(1, 0), ri).movedim(0, 1)
+        return index_rows(x.movedim(2, 0), ci).movedim(0, 2).contiguous()
 
 
 class Net2DBilinear(nn.Module):

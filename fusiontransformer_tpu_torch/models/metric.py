@@ -2,8 +2,8 @@
 
 Port of ``confusion_matrix_from_logits`` and ``SegIoU`` of
 ``fusiontransformer_tpu/models/metric.py``: the confusion matrix of one
-step is computed on the device (argmax + bincount, class 0 ignored) and
-accumulated on the host in a numpy matrix.
+step is computed on the device (argmax, then a count into a fixed number of
+bins, class 0 ignored) and accumulated on the host in a numpy matrix.
 """
 
 from __future__ import annotations
@@ -15,13 +15,20 @@ import torch
 def confusion_matrix_from_logits(logits, labels, valid, num_classes: int,
                                  ignore_index: int = 0):
     """[C, C] int64 confusion matrix (rows = gt, cols = pred) of the valid
-    points whose label is not ``ignore_index``."""
+    points whose label is not ``ignore_index``.
+
+    The counts go into C*C + 1 bins whose number is fixed by ``num_classes``
+    (the last one takes the ignored points): ``torch.bincount`` would read
+    the largest index back to size its output, a host sync that a CUDA-graph
+    capture refuses."""
     pred = torch.argmax(logits, dim=-1)
     labels = labels.long()
     mask = valid & (labels != ignore_index)
     idx = torch.where(mask, labels * num_classes + pred,
                       num_classes * num_classes)
-    counts = torch.bincount(idx, minlength=num_classes * num_classes + 1)
+    counts = torch.zeros(num_classes * num_classes + 1, dtype=torch.int64,
+                         device=idx.device)
+    counts.index_add_(0, idx, torch.ones_like(idx))
     return counts[:-1].reshape(num_classes, num_classes)
 
 

@@ -3,12 +3,26 @@
 Port of ``fusiontransformer_tpu/modules/SemanticTrainer.py``: build the model
 (random weights from ``RNG_SEED``) and the train/val loaders, the optimizer
 and per-epoch LR schedule, the checkpointer (auto-resume); then per epoch:
-train (one ``make_train_step`` call per batch, capacities sized per batch
-from its voxel counts when ``TPU.ADAPTIVE_LEVEL_CAPS`` is on), log,
-validate (2D, 3D and the 2D+3D softmax-sum ensemble), track the best metric
-and checkpoint on it.  A non-finite loss stops the run with
-``FloatingPointError``.  Metrics are read one step late, so the host
-queues the next step before it waits for the card.
+train (one train step per batch, capacities sized per batch from its voxel
+counts when ``TPU.ADAPTIVE_LEVEL_CAPS`` is on), log, validate (2D, 3D and
+the 2D+3D softmax-sum ensemble), track the best metric and checkpoint on
+it.  A non-finite loss stops the run with ``FloatingPointError``.  Metrics
+are read one step late, so the host queues the next step before it waits
+for the card.
+
+On the card the train and eval steps run as CUDA graphs, as the JAX trainer
+jits them once per input signature: one ``StepGraph`` per
+(``batch_signature``, level capacities), in a ``StepCache`` of
+``TPU.STEP_CACHE_SIZE`` each, all in one graph memory pool.  A signature's
+first batch runs the step eagerly (its real step) and the step is captured
+after it; later batches of that signature replay the graph.  Each step's
+output is copied to pinned host memory in stream order (``Readback``)
+before the next step is enqueued.  With ``TRAIN.GRAD_ACCUM_STEPS`` = k > 1
+the per-signature graphs only add their gradients, and the optimizer update
+runs as one graph of its own every k-th micro-step.  There is no switch to
+train eagerly on the card, and a capture that fails raises.  On the CPU
+(``device="cpu"``) the same steps run eagerly.  The checkpoint and the
+optimizer's state are loaded before any capture.
 
 Runs on the card unless it is given ``device="cpu"``; with no CUDA device
 and no explicit CPU it raises.  ``MODEL.IMAGE_PRETRAINED_PATH`` loads a
@@ -33,12 +47,17 @@ from fusiontransformer_tpu_torch.data.build import build_dataloader
 from fusiontransformer_tpu_torch.data.utils.validate import validate
 from fusiontransformer_tpu_torch.models.build import build_model
 from fusiontransformer_tpu_torch.models.metric import SegIoU
-from fusiontransformer_tpu_torch.modules.steps import (batch_level_caps,
+from fusiontransformer_tpu_torch.modules.steps import (StepCache,
+                                                       StepGraph,
+                                                       batch_level_caps,
+                                                       batch_signature,
                                                        device_batch,
                                                        make_eval_step,
-                                                       make_train_step)
+                                                       make_train_step,
+                                                       read_back)
 from fusiontransformer_tpu_torch.solver.build import (build_optimizer,
                                                       get_learning_rate,
+                                                      load_optimizer_state,
                                                       set_learning_rate)
 from fusiontransformer_tpu_torch.utils.checkpoint import Checkpointer
 from fusiontransformer_tpu_torch.utils.device import resolve_device
@@ -51,13 +70,13 @@ MODALITIES = ("2d", "3d")
 # its default, and the ROADMAP.md item that will port it.
 UNPORTED_KEYS = (
     ("TRAIN.SUMMARY_PERIOD", lambda v: v > 0,
-     "Queue 1 item 4 (TensorBoard scalars)"),
+     "Queue 1 item 3 (TensorBoard scalars)"),
     ("TRAIN.LOG_HISTOGRAM", bool,
-     "Queue 1 item 4 (weight/grad histograms)"),
-    ("TPU.NUM_DEVICES", lambda v: v > 1, "Queue 1 item 6 (data parallelism)"),
+     "Queue 1 item 3 (weight/grad histograms)"),
+    ("TPU.NUM_DEVICES", lambda v: v > 1, "Queue 1 item 5 (data parallelism)"),
     ("TPU.MODEL_PARALLEL", lambda v: v > 1,
-     "Queue 1 item 7 (tensor parallelism)"),
-    ("TPU.ZERO_OPTIMIZER", bool, "Queue 1 item 7 (ZeRO)"),
+     "Queue 1 item 6 (tensor parallelism)"),
+    ("TPU.ZERO_OPTIMIZER", bool, "Queue 1 item 6 (ZeRO)"),
 )
 
 
@@ -95,6 +114,14 @@ class SemanticTrainer:
         self.val_dataloader = (build_dataloader(cfg, mode="val")
                                if cfg.VAL.PERIOD > 0 else None)
         self.steps_per_epoch = max(1, len(self.train_dataloader))
+        self.accum_steps = int(cfg.TRAIN.GRAD_ACCUM_STEPS)
+        if self.accum_steps > 1 and self.steps_per_epoch % self.accum_steps:
+            self.logger.warning(
+                "steps_per_epoch (%d) is not a multiple of "
+                "TRAIN.GRAD_ACCUM_STEPS (%d): accumulation windows straddle "
+                "epoch boundaries — the per-epoch LR change lands mid-window "
+                "and the final partial window of the run is discarded",
+                self.steps_per_epoch, self.accum_steps)
         self.optimizer, self.lr_schedule = build_optimizer(
             cfg, self.model.parameters(), self.steps_per_epoch)
         self.logger.info("#Parameters: %.2e",
@@ -103,10 +130,17 @@ class SemanticTrainer:
         self.eval_step = make_eval_step(cfg, self.model)
         self.adaptive_caps = bool(cfg.TPU.ADAPTIVE_LEVEL_CAPS)
         # Dropout's random stream: one generator on the device, seeded from
-        # RNG_SEED, advanced by every train step.
+        # RNG_SEED, advanced by every train step (and every replay).
         self.generator = torch.Generator(device=self.device).manual_seed(
             int(cfg.RNG_SEED))
         self.step = 0
+        # The card's graphs: train and eval steps per signature, the
+        # optimizer update (GRAD_ACCUM_STEPS > 1), one memory pool.
+        self.train_graphs = StepCache(cfg.TPU.STEP_CACHE_SIZE)
+        self.eval_graphs = StepCache(cfg.TPU.STEP_CACHE_SIZE)
+        self.update_graph = None
+        self._pool = None
+        self.captures = {"train": 0, "eval": 0, "update": 0}
 
         self.checkpointer = Checkpointer(output_dir, self.logger,
                                          cfg.TRAIN.MAX_TO_KEEP)
@@ -124,17 +158,42 @@ class SemanticTrainer:
 
     # ------------------------------------------------------------------ #
     def _load_checkpoint(self):
+        """Restore the newest checkpoint (or ``RESUME_PATH``).  Loading
+        replaces the state tensors a captured graph would keep updating, so
+        it drops every graph; the trainer loads before its first capture."""
         payload = self.checkpointer.load(self.cfg.RESUME_PATH,
                                          resume=self.cfg.AUTO_RESUME,
                                          resume_states=self.cfg.RESUME_STATES)
+        self.clear_graphs()
         if not payload:
             return {}
+        if "optimizer" in payload:
+            saved_k = payload.get("grad_accum_steps")
+            if saved_k is not None and int(saved_k) != self.accum_steps:
+                raise ValueError(
+                    f"checkpoint was saved with TRAIN.GRAD_ACCUM_STEPS="
+                    f"{int(saved_k)} but the run has {self.accum_steps}: the "
+                    "optimizer state layout depends on it — set the same "
+                    "value, or resume with RESUME_STATES False to drop the "
+                    "optimizer state")
         self.model.load_state_dict(payload["model"])
         if "optimizer" in payload:
-            self.optimizer.load_state_dict(payload["optimizer"])
+            load_optimizer_state(self.optimizer, payload["optimizer"])
+        # The gradients of a window that was open at the save.
+        for g, saved in zip(self.train_step.grads,
+                            payload.get("grad_accum", ())):
+            g.copy_(saved)
+        if "generator" in payload:
+            self.generator.set_state(payload["generator"])
         self.step = int(payload.get("step", 0))
         return {k: v for k, v in payload.items()
-                if k not in ("model", "optimizer", "step")}
+                if k not in ("model", "optimizer", "step", "grad_accum",
+                             "grad_accum_steps", "generator")}
+
+    def clear_graphs(self):
+        self.train_graphs.clear()
+        self.eval_graphs.clear()
+        self.update_graph = None
 
     def level_caps(self, host_batch):
         """The batch's voxel capacities (None: sized from its buffer)."""
@@ -142,12 +201,62 @@ class SemanticTrainer:
             return None
         return batch_level_caps(self.cfg, host_batch)
 
+    def _run(self, kind, cache, step, host_batch, generator=None):
+        """``step`` on a collated host batch, read back (``Readback``): on
+        the card through the graph of the batch's signature and capacities,
+        captured after an eager run of this batch on a miss."""
+        if self.device.type == "cpu":
+            return read_back(step(device_batch(host_batch, self.device)))
+        caps = self.level_caps(host_batch)
+        key = (batch_signature(host_batch), caps)
+        graph = cache.get(key)
+        if graph is not None:
+            return graph.replay(host_batch)
+        graph = self._capture(step, host_batch, generator)
+        cache[key] = graph
+        self.captures[kind] += 1
+        self.logger.info("captured the %s step for capacities %s in %.2f s",
+                         kind, caps, graph.capture_s)
+        first, graph.first = graph.first, None
+        return read_back(first, graph)
+
     def run_train_step(self, host_batch):
-        """One train step on a collated host batch; device metrics."""
-        metrics = self.train_step(device_batch(host_batch, self.device),
-                                  self.generator, self.level_caps(host_batch))
+        """One train step on a collated host batch: its metrics, on their
+        way to the host (``Readback``).  With GRAD_ACCUM_STEPS = k, every
+        k-th call also runs the optimizer update."""
+        caps = self.level_caps(host_batch)
+        k = self.accum_steps
+        metrics = self._run(
+            "train", self.train_graphs,
+            lambda batch: self.train_step(batch, self.generator, caps,
+                                          update=k == 1),
+            host_batch, self.generator)
         self.step += 1
+        if k > 1 and self.step % k == 0:
+            self._update()
         return metrics
+
+    def _capture(self, step, host_batch, generator=None):
+        """``StepGraph`` of ``step`` into the trainer's pool (a new pool
+        after a capture that failed)."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        try:
+            return StepGraph(step, host_batch, self.device, self._pool,
+                             generator)
+        except BaseException:
+            self._pool = None
+            raise
+
+    def _update(self):
+        if self.device.type == "cpu":
+            self.train_step.update()
+        elif self.update_graph is None:
+            self.update_graph = self._capture(
+                lambda _: self.train_step.update(), {})
+            self.captures["update"] += 1
+        else:
+            self.update_graph.graph.replay()
 
     def train_for_one_epoch(self, epoch):
         self.train_metric_logger.reset()
@@ -166,8 +275,9 @@ class SemanticTrainer:
         set_learning_rate(self.optimizer,
                           self.lr_schedule((epoch + 1) * self.steps_per_epoch))
 
-    def _consume_step_metrics(self, metrics, slot_overflow):
-        host = {k: v.item() for k, v in metrics.items()
+    def _consume_step_metrics(self, readback, slot_overflow):
+        metrics = readback.numpy()
+        host = {k: float(v) for k, v in metrics.items()
                 if not k.startswith("cm_")}
         if not math.isfinite(host["total_loss"]):
             raise FloatingPointError(
@@ -185,8 +295,8 @@ class SemanticTrainer:
                 "forward under overflow; raise TPU.CONV_TAP_SLOTS",
                 int(host["tap_overflow"]))
         self.train_metric_logger.update(**host)
-        self.train_3d_metric.update_matrix(metrics["cm_3d"].cpu().numpy())
-        self.train_2d_metric.update_matrix(metrics["cm_2d"].cpu().numpy())
+        self.train_3d_metric.update_matrix(metrics["cm_3d"])
+        self.train_2d_metric.update_matrix(metrics["cm_2d"])
 
     def update_log(self, epoch):
         lp = self.cfg.TRAIN.LOG_PERIOD
@@ -206,8 +316,11 @@ class SemanticTrainer:
 
     # ------------------------------------------------------------------ #
     def run_eval_batch(self, host_batch):
-        return self.eval_step(device_batch(host_batch, self.device),
-                              self.level_caps(host_batch))
+        """The eval step's results on a collated host batch, as numpy."""
+        caps = self.level_caps(host_batch)
+        return self._run("eval", self.eval_graphs,
+                         lambda batch: self.eval_step(batch, caps),
+                         host_batch).numpy()
 
     def validate_for_one_epoch(self, epoch):
         """True iff validation ran this epoch."""
@@ -234,24 +347,43 @@ class SemanticTrainer:
 
     def update_checkpoint(self, epoch):
         """Checkpoint after ``epoch``; its ``epoch`` field is the next epoch
-        to run, so a resumed run continues after it."""
+        to run, so a resumed run continues after it.  It holds the dropout
+        generator's state, and with GRAD_ACCUM_STEPS > 1 the gradients of
+        the open window, so that a resumed run goes on as the uninterrupted
+        one would."""
         extra = {f"{m}_{self.best_metric_name}": float(self.best_metric[m])
                  for m in MODALITIES if self.best_metric[m] is not None}
+        if self.accum_steps > 1:
+            extra["grad_accum"] = [g.cpu() for g in self.train_step.grads]
         self.checkpointer.save(
             f"model{epoch:06d}",
             model={k: v.cpu() for k, v in self.model.state_dict().items()},
             optimizer=self.optimizer.state_dict(), step=self.step,
-            epoch=epoch + 1, **extra)
+            epoch=epoch + 1, grad_accum_steps=self.accum_steps,
+            generator=self.generator.get_state(), **extra)
 
     def train(self):
-        for epoch in range(self.start_epoch, int(self.cfg.SCHEDULER.MAX_EPOCH)):
-            t0 = time.time()
-            self.train_for_one_epoch(epoch)
-            self.logger.info("Epoch %d took %.1fs", epoch, time.time() - t0)
-            if self.validate_for_one_epoch(epoch):
-                self.update_validation_logging_meters(epoch)
-            self.update_log(epoch)
-            # As in the JAX trainer: a checkpoint on each new best epoch.
-            if any(self.best_metric_epoch[m] == epoch for m in MODALITIES):
-                self.update_checkpoint(epoch)
+        try:
+            for epoch in range(self.start_epoch,
+                               int(self.cfg.SCHEDULER.MAX_EPOCH)):
+                t0 = time.time()
+                self.train_for_one_epoch(epoch)
+                self.logger.info("Epoch %d took %.1fs", epoch,
+                                 time.time() - t0)
+                if self.validate_for_one_epoch(epoch):
+                    self.update_validation_logging_meters(epoch)
+                self.update_log(epoch)
+                # As in the JAX trainer: a checkpoint on each new best epoch.
+                if any(self.best_metric_epoch[m] == epoch
+                       for m in MODALITIES):
+                    self.update_checkpoint(epoch)
+        finally:
+            self.close()
         return self.model
+
+    def close(self):
+        """Stop the loaders' worker pools (a later epoch starts them
+        again)."""
+        for loader in (self.train_dataloader, self.val_dataloader):
+            if loader is not None:
+                loader.close()

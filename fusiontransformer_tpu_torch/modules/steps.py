@@ -11,27 +11,34 @@ Port of ``fusiontransformer_tpu/modules/steps.py``:
   per-voxel K-slot maps built on the device (``TPU.CONV_TAP_SLOTS``);
   ``device_batch`` moves the array part of a collated batch to the device;
 * ``make_train_step``: forward in train mode, CE + lambda * KL per stream,
-  the two streams summed, one backward, the frozen-pattern mask, the
-  optimizer step; returns the losses, ``voxel_overflow`` (and
-  ``tap_overflow`` with per-voxel maps) and the confusion matrices.  Image
-  features are detached before fusion and the KL teachers
-  are detached, so the gradient of the summed loss equals the reference's
-  two accumulated backward passes (as in the JAX step).  Its parts run in
-  ``record_function`` ranges (``train_step.forward`` / ``.backward`` /
-  ``.optimizer`` / ``.metrics``), which a ``torch.profiler`` trace shows;
+  the two streams summed, one backward into the parameters' static
+  ``.grad``, the frozen-pattern mask, the optimizer step (every
+  ``TRAIN.GRAD_ACCUM_STEPS``-th call, on the mean of the accumulated
+  gradients); returns the losses, ``voxel_overflow`` (and ``tap_overflow``
+  with per-voxel maps) and the confusion matrices.  Image features are
+  detached before fusion and the KL teachers are detached, so the gradient
+  of the summed loss equals the reference's two accumulated backward passes
+  (as in the JAX step).  Its parts run in ``record_function`` ranges
+  (``train_step.forward`` / ``.backward`` / ``.optimizer`` / ``.metrics``),
+  which a ``torch.profiler`` trace shows;
 * ``make_eval_step``: per-point predictions of each stream and of the sum
   of the 2D and 3D softmaxes, with the per-stream CE.
 
-* ``StepCache``: the LRU cache of captured steps (``TPU.STEP_CACHE_SIZE``);
-  the inference engine keeps one CUDA graph of its predict step per
-  ``batch_signature`` in it, as the JAX package keeps one compiled program
-  per input shape.
+* ``StepGraph``: a step captured in one CUDA graph at one input signature
+  (``batch_signature``), the role ``jax.jit`` plays in the JAX package;
+  ``StepCache``: the LRU cache of them (``TPU.STEP_CACHE_SIZE``).  The
+  inference engine keeps its predict step's graphs in one, the trainer its
+  train and eval steps' graphs in two, as the JAX package keeps one compiled
+  program per input shape.  ``Readback`` carries a step's output to pinned
+  host memory in stream order.
 """
 
 from __future__ import annotations
 
 import re
+import time
 from collections import OrderedDict
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -137,10 +144,18 @@ def device_arrays(batch):
             if k in _ARRAY_KEYS or k.startswith(("gslot_src_", "gslot_bin_"))}
 
 
+def host_tensor(array, device):
+    """A host array as a tensor to copy to ``device``: pinned for the card,
+    so the copy is asynchronous (the caching host allocator holds the
+    staging buffer until the copy has run)."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    return t.pin_memory() if torch.device(device).type == "cuda" else t
+
+
 def device_batch(batch, device):
     """``device_arrays`` of a collated batch on ``device``."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
-        device, non_blocking=True) for k, v in device_arrays(batch).items()}
+    return {k: host_tensor(v, device).to(device, non_blocking=True)
+            for k, v in device_arrays(batch).items()}
 
 
 def batch_signature(batch):
@@ -184,6 +199,128 @@ class StepCache:
 
     def __iter__(self):
         return iter(self._d)
+
+    def clear(self):
+        self._d.clear()
+
+
+class Readback(NamedTuple):
+    """A step's output on its way to the host: ``host`` (a tensor or a dict
+    of tensors, pinned and the caller's own on the card) holds it once
+    ``done`` has passed (no event on the CPU, where it is the output
+    itself)."""
+    host: object
+    done: Optional["torch.cuda.Event"]
+    graph: object           # kept alive until the copy has run
+
+    def numpy(self):
+        if self.done is not None:
+            self.done.synchronize()
+        if isinstance(self.host, dict):
+            return {k: v.numpy() for k, v in self.host.items()}
+        return self.host.numpy()
+
+
+def read_back(out, graph=None) -> Readback:
+    """Copy ``out`` (a device tensor or a dict of them) into pinned host
+    memory of its own, in stream order: the copy runs before anything
+    enqueued after it, such as the next replay, which overwrites a graph's
+    static output."""
+    one = torch.is_tensor(out)
+    tensors = {"": out} if one else out
+    if all(t.device.type == "cpu" for t in tensors.values()):
+        return Readback(out, None, graph)
+    host = {}
+    for k, t in tensors.items():
+        host[k] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host[k].copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return Readback(host[""] if one else host, done, graph)
+
+
+def _close_failed_capture(device, pool, stream, generator=None):
+    """Undo what a capture that raised leaves behind in ``torch.cuda.graph``:
+    its exit stops at the failed end of the capture, so the capture stream
+    stays current and the allocator keeps routing that stream's allocations
+    to ``pool``; and a generator registered with the graph stays in its
+    capturing state, in which every later draw outside a capture raises (a
+    capture that ends, an empty one with the generator registered, puts it
+    back).  The pool itself stays unfit for another capture on the card's
+    PyTorch (2.11: "beginAllocateToPool: already recording"), so the
+    graph's owner takes a new pool for the next one."""
+    torch.cuda.set_stream(stream)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    try:
+        torch._C._cuda_endAllocateToPool(index, pool)
+    except RuntimeError:
+        pass        # the capture ended its allocation before it failed
+    if generator is not None:
+        reset = torch.cuda.CUDAGraph()
+        reset.register_generator_state(generator)
+        with torch.cuda.graph(reset):
+            pass
+
+
+class StepGraph:
+    """``step(inputs)`` captured in one CUDA graph at one input signature.
+
+    ``inputs`` are the graph's static input tensors (allocated outside the
+    graph's memory pool), ``out`` its static output.  The step first runs
+    eagerly on a side stream, on the batch the graph is made for (that run
+    builds the kernels, warms cuBLAS and creates an optimizer's state); its
+    output is ``first``.  For a train step that run is the batch's own
+    step: a capture executes nothing, so the batch is not applied twice, and
+    only later batches replay.  Then the step is captured with the memory
+    ``pool`` that all of its owner's graphs share: they replay one at a
+    time on one stream, and each replay's output is read back before the
+    next one is enqueued.  ``generator``, where the step draws random
+    numbers from one (dropout), is registered with the graph, so that each
+    replay advances it and draws fresh numbers.  A capture that fails
+    raises (``_close_failed_capture``); its owner then captures the next
+    graph into a new pool.
+    """
+
+    def __init__(self, step, batch, device, pool, generator=None):
+        self.inputs = {k: torch.empty(v.shape, device=device,
+                                      dtype=torch.from_numpy(v[:0]).dtype)
+                       for k, v in device_arrays(batch).items()}
+        t0 = time.perf_counter()
+        self.load(batch)
+        stream = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            self.first = step(self.inputs)
+        stream.wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            self.graph.register_generator_state(generator)
+        try:
+            # Only this thread's calls are checked against the capture: a
+            # server's or a loader's other threads never touch its stream.
+            # The backward's kernels, launched from autograd's device
+            # thread, run on the forward's stream and so are captured too.
+            with torch.cuda.graph(self.graph, pool=pool,
+                                  capture_error_mode="thread_local"):
+                self.out = step(self.inputs)
+        except BaseException:
+            _close_failed_capture(device, pool, stream, generator)
+            raise
+        torch.cuda.synchronize(device)
+        self.capture_s = time.perf_counter() - t0
+
+    def load(self, batch):
+        """Copy a host batch into the static inputs, stream-ordered, from
+        pinned staging buffers."""
+        for k, dst in self.inputs.items():
+            dst.copy_(host_tensor(batch[k], dst.device), non_blocking=True)
+
+    def replay(self, batch) -> Readback:
+        self.load(batch)
+        self.graph.replay()
+        return read_back(self.out, self)
 
 
 def frozen_params(model, patterns):
@@ -238,41 +375,59 @@ def _check_fusion(cfg):
         raise NotImplementedError("only the fusion models' steps are ported")
 
 
-def make_train_step(cfg, model, optimizer):
-    """``step(batch, generator, level_caps=None) -> metrics``.
+class TrainStep:
+    """The train step of ``make_train_step``.
 
-    ``batch``: a ``device_batch``; ``generator``: the ``torch.Generator``
-    (on the batch's device) that dropout draws from.  The metrics are
-    device tensors: the losses, ``total_loss``, ``voxel_overflow``,
+    ``step(batch, generator, level_caps=None, update=True) -> metrics``:
+    ``batch`` a ``device_batch``; ``generator`` the ``torch.Generator`` (on
+    the batch's device) that dropout draws from.  The metrics are device
+    tensors: the losses, ``total_loss``, ``voxel_overflow``,
     ``tap_overflow`` where the step built per-voxel slot maps, and the
-    confusion matrices ``cm_2d`` / ``cm_3d``.  The parameters' ``.grad``
-    hold the step's gradients after it.
-    """
-    _check_fusion(cfg)
-    frozen = frozen_params(model, cfg.TRAIN.FROZEN_PATTERNS)
-    params = list(model.parameters())
-    class_weights = class_weights_of(cfg, params[0].device)
+    confusion matrices ``cm_2d`` / ``cm_3d``.
 
-    def step(batch, generator, level_caps=None):
-        model.train()
+    The gradients are static: each parameter's ``.grad`` is allocated once,
+    here, outside any CUDA graph, and the backward adds into it, so every
+    graph of the step reads and writes the same tensors (and no graph's
+    pool holds a copy of them).  A parameter the loss does not reach (the
+    middle-fusion image taps feed only the detached fusion input) keeps a
+    zero gradient, as jax.grad gives it, so the optimizer still applies its
+    weight decay and moment updates.  ``update()`` (run by the step unless
+    ``update=False``) zeroes the frozen parameters' gradients, divides the
+    sum by ``TRAIN.GRAD_ACCUM_STEPS`` = k, steps the optimizer and zeroes
+    the gradients.  With k > 1 the trainer runs the step with
+    ``update=False`` and ``update()`` every k-th micro-step: the gradients
+    of k micro-batches are averaged into one optimizer step, the parameters
+    stay bitwise unchanged in between and the BatchNorm statistics move at
+    every micro-step, as ``optax.MultiSteps`` does in the JAX package (which
+    keeps a running mean where this keeps the sum, the same up to f32
+    rounding).
+    """
+
+    def __init__(self, cfg, model, optimizer):
+        _check_fusion(cfg)
+        self.cfg, self.model, self.optimizer = cfg, model, optimizer
+        self.accum_steps = int(cfg.TRAIN.GRAD_ACCUM_STEPS)
+        params = list(model.parameters())
+        self.class_weights = class_weights_of(cfg, params[0].device)
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        self.grads = [p.grad for p in params]
+        torch._foreach_zero_(self.grads)
+        self.frozen_grads = [p.grad for p in frozen_params(
+            model, cfg.TRAIN.FROZEN_PATTERNS)]
+
+    def __call__(self, batch, generator, level_caps=None, update=True):
+        cfg = self.cfg
+        self.model.train()
         with record_function("train_step.forward"):
             hier = hier_from_cfg(cfg, batch, level_caps)
-            out = model(batch, hier, generator=generator)
-            total, parts = losses(cfg, out, batch, class_weights)
+            out = self.model(batch, hier, generator=generator)
+            total, parts = losses(cfg, out, batch, self.class_weights)
         with record_function("train_step.backward"):
-            optimizer.zero_grad(set_to_none=True)
             total.backward()
-        with record_function("train_step.optimizer"):
-            # A parameter the loss does not reach (the middle-fusion image
-            # taps feed only the detached fusion input) gets a zero
-            # gradient, as jax.grad gives it, so the optimizer still
-            # applies its weight decay and moment updates.
-            for p in params:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            for p in frozen:
-                p.grad.zero_()
-            optimizer.step()
+        if update:
+            self.update()
         with record_function("train_step.metrics"), torch.no_grad():
             metrics = {k: v.detach() for k, v in parts.items()}
             metrics["total_loss"] = total.detach()
@@ -280,7 +435,27 @@ def make_train_step(cfg, model, optimizer):
             metrics.update(confusions(cfg, out, batch))
         return metrics
 
-    return step
+    def update(self):
+        with record_function("train_step.optimizer"):
+            apply_gradients(self.optimizer, self.grads, self.accum_steps,
+                            self.frozen_grads)
+
+
+def apply_gradients(optimizer, grads, accum_steps=1, frozen_grads=()):
+    """One optimizer step on the static gradients ``grads`` (the sum of
+    ``accum_steps`` micro-batches' gradients): zero ``frozen_grads``, take
+    the mean, step, zero ``grads`` for the next window."""
+    if frozen_grads:
+        torch._foreach_zero_(list(frozen_grads))
+    if accum_steps > 1:
+        torch._foreach_mul_(grads, 1.0 / accum_steps)
+    optimizer.step()
+    torch._foreach_zero_(grads)
+
+
+def make_train_step(cfg, model, optimizer):
+    """The train step (``TrainStep``) of ``model`` and ``optimizer``."""
+    return TrainStep(cfg, model, optimizer)
 
 
 def make_eval_step(cfg, model):

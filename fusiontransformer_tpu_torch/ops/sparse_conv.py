@@ -439,14 +439,42 @@ def devoxelize_trilinear(vox_feats, corner_idx, corner_w, plan,
 
 
 def gather_rows(feats, idx):
-    """Gather with a zero pad row (sentinel index = len(feats)).  Through
-    ``index_select``, whose gradient (``index_add_``) sums in index order on
-    the CPU: bitwise repeatable, where indexing's ``index_put_`` is not."""
+    """Gather with a zero pad row (sentinel index = len(feats)); see
+    ``index_rows``."""
     return index_rows(pad_row(feats), idx)
 
 
+class _IndexRows(torch.autograd.Function):
+    """``table.index_select(0, idx)`` with a gradient that is bitwise
+    repeatable on the card too.  ``index_select``'s own gradient
+    (``index_add_``) adds the rows that meet at one index with float atomics
+    there, in whatever order they land, and ``index_put_`` with
+    ``accumulate`` adds each index's rows one after another in one warp
+    (slow where thousands of rows meet at one index, as at the image lift).
+    Here the indices are sorted (stably) and each row's gradient is the sum
+    of its segment (``torch.segment_reduce``), in f32, in index order: on
+    the CPU the same bits as ``index_add_``."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return table.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        order = torch.sort(idx, stable=True)[1]
+        lengths = torch.zeros(ctx.rows, dtype=torch.int64,
+                              device=idx.device).index_add_(
+                                  0, idx, torch.ones_like(idx))
+        dtable = torch.segment_reduce(
+            g.float().index_select(0, order), "sum", lengths=lengths,
+            axis=0, unsafe=True, initial=0.0)
+        return dtable.to(g.dtype), None
+
+
 def index_rows(table, idx):
-    """``table[idx]`` for an integer ``idx`` of any shape, as
-    ``index_select`` (see ``gather_rows``)."""
-    out = table.index_select(0, idx.reshape(-1).long())
+    """``table[idx]`` for an integer ``idx`` of any shape (``_IndexRows``)."""
+    out = _IndexRows.apply(table, idx.reshape(-1).long())
     return out.reshape(*idx.shape, *table.shape[1:])

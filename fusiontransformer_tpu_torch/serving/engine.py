@@ -19,13 +19,13 @@ Port of ``fusiontransformer_tpu/serving/engine.py`` for one device:
   (out-of-frustum and capacity-dropped points get class 0, the ignore id).
 
 On the card the step runs as CUDA graphs, the role ``jax.jit`` plays in the
-JAX engine: one ``StepGraph`` per input signature (``batch_signature``: the
-bucket, the batch size and each level's slot-pool size S), kept in a
-``StepCache`` of ``TPU.STEP_CACHE_SIZE``.  A miss runs the eager step once
-and captures it; a hit copies the batch into the graph's static inputs,
-replays it and copies the packed output into pinned host memory of the
-request's own.  There is no switch to run the card eagerly, and a capture
-that fails raises.  ``device="cpu"`` runs the step eagerly (no graphs on
+JAX engine: one ``StepGraph`` (``modules/steps.py``) per input signature
+(``batch_signature``: the bucket, the batch size and each level's slot-pool
+size S), kept in a ``StepCache`` of ``TPU.STEP_CACHE_SIZE``.  A miss runs
+the eager step once and captures it; a hit copies the batch into the
+graph's static inputs, replays it and copies the packed output into pinned
+host memory of the request's own.  There is no switch to run the card
+eagerly, and a capture that fails raises.  ``device="cpu"`` runs the step eagerly (no graphs on
 the CPU); ``forward`` is eager on either device.
 
 The engine runs on the card unless it is given ``device="cpu"``; with no
@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, List, NamedTuple, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -48,9 +48,9 @@ from fusiontransformer_tpu_torch.data.utils.augmentation_3d import (
     augment_and_scale_3d)
 from fusiontransformer_tpu_torch.data.utils.validate import map_sparse_to_org
 from fusiontransformer_tpu_torch.models.build import build_model
-from fusiontransformer_tpu_torch.modules.steps import (StepCache,
+from fusiontransformer_tpu_torch.modules.steps import (Readback, StepCache,
+                                                       StepGraph,
                                                        batch_signature,
-                                                       device_arrays,
                                                        device_batch,
                                                        hier_from_cfg,
                                                        overflow_metrics)
@@ -79,88 +79,6 @@ def make_predict_step(cfg, model):
             return torch.stack([c.to(torch.int32) for c in cols], dim=1)
 
     return step, list(PRED_KEYS)
-
-
-class Readback(NamedTuple):
-    """A dispatched batch's packed output on its way to the host: ``host``
-    (pinned, the request's own) holds it once ``done`` has passed."""
-    host: torch.Tensor
-    done: torch.cuda.Event
-    graph: "StepGraph"      # kept alive until the copy has run
-
-    def numpy(self) -> np.ndarray:
-        self.done.synchronize()
-        return self.host.numpy()
-
-
-def _close_failed_capture(device, pool, stream):
-    """Undo what a capture that raised leaves behind in ``torch.cuda.graph``:
-    its exit stops at the failed end of the capture, so the capture stream
-    stays current and the allocator keeps routing that stream's allocations
-    to ``pool`` (the next capture into it then fails)."""
-    torch.cuda.set_stream(stream)
-    index = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    try:
-        torch._C._cuda_endAllocateToPool(index, pool)
-    except RuntimeError:
-        pass        # the capture ended its allocation before it failed
-
-
-class StepGraph:
-    """The predict step captured in one CUDA graph at one input signature.
-
-    ``inputs`` are the graph's static input tensors (allocated outside the
-    graph's memory pool), ``out`` its static packed output.  The step runs
-    eagerly once on a side stream before the capture (that run builds the
-    kernels and warms cuBLAS), then is captured with the memory ``pool``
-    all of the engine's graphs share: they replay one at a time on one
-    stream, and each replay's output is copied out before the next one is
-    enqueued.
-    """
-
-    def __init__(self, step, batch, device, pool):
-        self.inputs = {k: torch.empty(v.shape, device=device,
-                                      dtype=torch.from_numpy(v[:0]).dtype)
-                       for k, v in device_arrays(batch).items()}
-        t0 = time.perf_counter()
-        self.load(batch)
-        stream = torch.cuda.current_stream(device)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(stream)
-        with torch.cuda.stream(side):
-            step(self.inputs)
-        stream.wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        try:
-            # Only this thread's calls are checked against the capture: the
-            # server's other threads never touch its stream.
-            with torch.cuda.graph(self.graph, pool=pool,
-                                  capture_error_mode="thread_local"):
-                self.out = step(self.inputs)
-        except BaseException:
-            _close_failed_capture(device, pool, stream)
-            raise
-        torch.cuda.synchronize(device)
-        self.capture_s = time.perf_counter() - t0
-
-    def load(self, batch):
-        """Copy a host batch into the static inputs, stream-ordered, from
-        pinned staging buffers (the caching host allocator holds each one
-        until its copy has run)."""
-        for k, dst in self.inputs.items():
-            src = torch.from_numpy(np.ascontiguousarray(batch[k]))
-            dst.copy_(src.pin_memory(), non_blocking=True)
-
-    def replay(self, batch) -> Readback:
-        self.load(batch)
-        self.graph.replay()
-        host = torch.empty(self.out.shape, dtype=self.out.dtype,
-                           pin_memory=True)
-        host.copy_(self.out, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return Readback(host, done, self)
 
 
 class InferenceEngine:
@@ -300,7 +218,11 @@ class InferenceEngine:
         if graph is None:
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
-            graph = StepGraph(self._step, batch, self.device, self._pool)
+            try:
+                graph = StepGraph(self._step, batch, self.device, self._pool)
+            except BaseException:
+                self._pool = None   # unfit for another capture
+                raise
             self.graphs[sig] = graph
             with self._stats_lock:
                 self.counters["captures"] += 1

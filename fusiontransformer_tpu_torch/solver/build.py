@@ -9,9 +9,20 @@ Port of ``fusiontransformer_tpu/solver/build.py``:
 * SGD: momentum with dampening 0 (``optax.trace``), coupled L2 likewise;
 * schedules are per-epoch factors (StepLR / MultiStepLR /
   WarmupMultiStepLR) floored by ClipLR; the trainer applies one per epoch
-  by setting the param groups' ``lr`` (``set_learning_rate``).
+  with ``set_learning_rate``.
 
-``TRAIN.GRAD_ACCUM_STEPS > 1`` is not ported (ROADMAP.md, Queue 1).
+The learning rate is a one-element tensor on the parameters' device,
+shared by every param group and filled in place by ``set_learning_rate``:
+a train step captured in a CUDA graph reads it at every replay, as the JAX
+package's optimizer reads its injected hyperparameter, so a new rate never
+needs a new capture.  On the card Adam is ``capturable`` (its step count
+lives on the device too).  ``load_optimizer_state`` keeps that tensor
+across a state-dict load.
+
+``TRAIN.GRAD_ACCUM_STEPS`` = k > 1 (``optax.MultiSteps`` in the JAX
+package) is applied by the train step (``modules/steps.py::TrainStep``): the
+micro-batches' gradients add up in the parameters' ``.grad``, and every
+k-th micro-step divides them by k and runs the optimizer once.
 """
 
 from __future__ import annotations
@@ -56,20 +67,29 @@ def make_lr_schedule(cfg, steps_per_epoch: int):
 
 
 def build_optimizer(cfg, params, steps_per_epoch: int = 1):
-    """``(optimizer, schedule)`` for ``params`` (an iterable of tensors)."""
-    if int(cfg.TRAIN.GRAD_ACCUM_STEPS) > 1:
-        raise NotImplementedError(
-            "TRAIN.GRAD_ACCUM_STEPS > 1 is not ported yet (ROADMAP.md, "
-            "Queue 1: gradient accumulation)")
+    """``(optimizer, schedule)`` for ``params`` (an iterable of tensors on
+    one device)."""
+    if int(cfg.TRAIN.GRAD_ACCUM_STEPS) < 1:
+        raise ValueError(f"TRAIN.GRAD_ACCUM_STEPS must be >= 1, got "
+                         f"{cfg.TRAIN.GRAD_ACCUM_STEPS}")
+    params = list(params)
     name = cfg.OPTIMIZER.TYPE
     schedule = make_lr_schedule(cfg, steps_per_epoch)
     wd = cfg.OPTIMIZER.WEIGHT_DECAY
+    device = params[0].device
+    lr = torch.tensor(schedule(0), dtype=torch.float32, device=device)
+    on_card = device.type == "cuda"
     if name == "Adam":
         b1, b2 = cfg.OPTIMIZER.Adam.betas
-        opt = torch.optim.Adam(params, lr=schedule(0), betas=(b1, b2),
-                               eps=1e-8, weight_decay=wd)
+        opt = torch.optim.Adam(params, lr=lr, betas=(b1, b2), eps=1e-8,
+                               weight_decay=wd, capturable=on_card)
     elif name == "SGD":
-        opt = torch.optim.SGD(params, lr=schedule(0),
+        if on_card:
+            raise NotImplementedError(
+                "SGD on the card is not ported: torch's SGD reads a tensor "
+                "learning rate back to the host, which the train step's CUDA "
+                "graph refuses (ROADMAP.md, Queue 1)")
+        opt = torch.optim.SGD(params, lr=lr,
                               momentum=cfg.OPTIMIZER.SGD.momentum,
                               dampening=0.0, weight_decay=wd)
     else:
@@ -78,9 +98,23 @@ def build_optimizer(cfg, params, steps_per_epoch: int = 1):
 
 
 def set_learning_rate(optimizer, lr: float):
-    for group in optimizer.param_groups:
-        group["lr"] = lr
+    """Fill the optimizer's learning-rate tensor in place (stream-ordered on
+    the card: the next step, eager or replayed, reads the new rate)."""
+    optimizer.param_groups[0]["lr"].fill_(lr)
 
 
 def get_learning_rate(optimizer) -> float:
     return float(optimizer.param_groups[0]["lr"])
+
+
+def load_optimizer_state(optimizer, state):
+    """``optimizer.load_state_dict(state)``, keeping the optimizer's own
+    learning-rate tensor (the load would put the saved one in its place)
+    with the saved rate in it.  The moments and step counts are new tensors
+    after a load: a CUDA graph captured before it would keep updating the
+    old ones, so the trainer loads before its first capture."""
+    lr = optimizer.param_groups[0]["lr"]
+    optimizer.load_state_dict(state)
+    lr.fill_(float(optimizer.param_groups[0]["lr"]))
+    for group in optimizer.param_groups:
+        group["lr"] = lr

@@ -3,9 +3,12 @@
 Port of ``CheckpointerV2`` of ``fusiontransformer_tpu/utils/checkpoint.py``,
 synchronous: ``save`` writes one ``torch.save`` file per checkpoint (the
 model's ``state_dict`` — parameters and BN running statistics — the
-optimizer's state dict, step, epoch and best metrics), appends it to the
-``last_checkpoint`` manifest in the save directory and deletes the oldest
-beyond ``max_to_keep``.  ``load`` restores the newest one when resuming.
+optimizer's state dict, step, epoch, best metrics, the dropout generator's
+state, ``grad_accum_steps`` and, with ``TRAIN.GRAD_ACCUM_STEPS`` > 1, the
+gradients accumulated so far in ``grad_accum``: the JAX package keeps both
+in its optimizer state), appends it to the ``last_checkpoint`` manifest in
+the save directory and deletes the oldest beyond ``max_to_keep``.  ``load``
+restores the newest one when resuming.
 The JAX package's asynchronous writer is not ported (ROADMAP.md, Queue 1).
 """
 
@@ -60,8 +63,9 @@ class Checkpointer:
         """The restored payload (``{}`` when there is nothing to restore).
 
         With no ``path`` and ``resume``, the manifest's newest checkpoint.
-        ``resume_states=False`` drops the optimizer state and epoch.  Tensors
-        load onto the CPU; the caller moves them.
+        ``resume_states=False`` drops the optimizer state (with the
+        accumulated gradients) and the epoch.  Tensors load onto the CPU;
+        the caller moves them.
         """
         if not path and resume and self._saved:
             path = self._saved[-1]
@@ -72,5 +76,5 @@ class Checkpointer:
         payload = torch.load(path, map_location="cpu", weights_only=True)
         if not resume_states:
             payload = {k: v for k, v in payload.items()
-                       if k not in ("optimizer", "epoch")}
+                       if k not in ("optimizer", "grad_accum", "epoch")}
         return payload

@@ -6,6 +6,7 @@ module holds helpers only.
 """
 
 import numpy as np
+import pytest
 
 H, W = 40, 60
 N_POINTS = 900
@@ -110,3 +111,88 @@ def train_cfg(get_cfg, opt="Adam"):
     cfg.DATASET.VAL = ("val",)
     cfg.freeze()
     return cfg
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the importing module's tests (restored
+    after): the test session runs several processes on the same cores, and
+    torch's CPU thread pools, oversubscribed, slow every process down many
+    times over."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# Reading a tensor back to the host: on the card each of these waits for the
+# device, which a CUDA-graph capture refuses.
+HOST_READS = {"Tensor": ("item", "tolist", "numpy", "cpu", "__bool__",
+                         "__int__", "__float__", "nonzero", "bincount",
+                         "unique", "masked_select"),
+              "torch": ("nonzero", "bincount", "unique", "masked_select")}
+
+
+def refuse_host_data(monkeypatch, reads=False):
+    """From here on, host data cannot enter a tensor op: building a tensor
+    from host values, or indexing one with a list or an array, raises.  With
+    ``reads``, so does every op of HOST_READS."""
+    import torch
+
+    def refuse(*a, **k):
+        raise AssertionError("a tensor built from host data inside the step")
+
+    for name in ("tensor", "as_tensor", "from_numpy"):
+        monkeypatch.setattr(torch, name, refuse)
+
+    def host_index(idx):
+        parts = idx if isinstance(idx, tuple) else (idx,)
+        return any(isinstance(p, (list, np.ndarray)) for p in parts)
+
+    for slot in ("__getitem__", "__setitem__"):
+        orig = getattr(torch.Tensor, slot)
+
+        def checked(self, idx, *rest, _orig=orig):
+            if host_index(idx):
+                raise AssertionError(f"a tensor indexed by host data "
+                                     f"inside the step: {idx!r}")
+            return _orig(self, idx, *rest)
+
+        monkeypatch.setattr(torch.Tensor, slot, checked)
+    if not reads:
+        return
+    for owner, names in HOST_READS.items():
+        for name in names:
+            def read(*a, _name=name, **k):
+                raise AssertionError(f"{_name}: a read back to the host "
+                                     f"inside the step")
+            monkeypatch.setattr(torch.Tensor if owner == "Tensor" else torch,
+                                name, read)
+
+
+# Datasets and a collate for the loader's worker pool: module-level, so the
+# workers unpickle them by import path, and numpy-only at import.
+class Draws:
+    """Scan i is (i, a draw from numpy's global generator)."""
+
+    def __len__(self):
+        return 7
+
+    def __getitem__(self, i):
+        return i, int(np.random.randint(1 << 30))
+
+
+class CudaProbe:
+    """Scan i is whether the process that makes it has initialised CUDA."""
+
+    def __len__(self):
+        return 4
+
+    def __getitem__(self, i):
+        import torch
+        return torch.cuda.is_initialized()
+
+
+def broken_collate(items):
+    raise ValueError("bad scan")

@@ -846,3 +846,170 @@ def test_a_failed_capture_raises_and_caches_nothing(cuda):
     assert len(eng.graphs) == 0 and eng.counters["captures"] == 0
     eng._step = step
     _replay_equals_eager(eng, batch)
+
+
+# --------------------------------------------------------------------- #
+# The trainer's CUDA graphs: one per (signature, capacities), each
+# signature's first batch run eagerly as its real step.
+
+def _graph_trainer(cuda, tmp_path, **over):
+    from fusiontransformer_tpu_torch.modules.SemanticTrainer import (
+        SemanticTrainer)
+    from test_torch_port_trainer import trainer_cfg
+    cfg = trainer_cfg(tmp_path, **{"VAL.PERIOD": 0, **over})
+    return SemanticTrainer(cfg, "", device="cuda")
+
+
+def _train_state(tr):
+    opt = tr.optimizer
+    return ([v.clone() for v in tr.model.state_dict().values()],
+            [g.clone() for g in tr.train_step.grads],
+            [v.clone() for p in tr.model.parameters()
+             for v in opt.state[p].values()],
+            tr.generator.get_state())
+
+
+def _set_train_state(tr, st):
+    opt = tr.optimizer
+    with torch.no_grad():
+        for v, s in zip(tr.model.state_dict().values(), st[0]):
+            v.copy_(s)
+        for g, s in zip(tr.train_step.grads, st[1]):
+            g.copy_(s)
+        for v, s in zip([v for p in tr.model.parameters()
+                         for v in opt.state[p].values()], st[2]):
+            v.copy_(s)
+    tr.generator.set_state(st[3])
+
+
+def _states_equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a[0] + a[1] + a[2],
+                                                 b[0] + b[1] + b[2])) \
+        and torch.equal(a[3], b[3])
+
+
+def _eager(tr, batch):
+    from fusiontransformer_tpu_torch.modules.steps import (device_batch,
+                                                           read_back)
+    return read_back(tr.train_step(device_batch(batch, tr.device),
+                                   tr.generator,
+                                   tr.level_caps(batch))).numpy()
+
+
+def _metrics_equal(a, b):
+    return all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def test_train_graph_replays_equal_eager_steps(cuda, tmp_path):
+    """One update per batch: the first batch of a signature is its eager
+    step (no second update at the capture), later ones replay; from one
+    saved state, one and two replays (two dropout draws) equal as many
+    eager steps bit for bit, and an LR set after the capture reaches the
+    replay with no recapture."""
+    from fusiontransformer_tpu_torch.solver.build import (get_learning_rate,
+                                                          set_learning_rate)
+    tr = _graph_trainer(cuda, tmp_path)
+    ref = _graph_trainer(cuda, tmp_path / "ref")       # the same seed
+    batch = next(iter(tr.train_dataloader))
+    first = tr.run_train_step(batch).numpy()
+    assert tr.captures["train"] == 1
+    assert _metrics_equal(first, _eager(ref, batch))
+    assert _states_equal(_train_state(tr), _train_state(ref))
+    del ref
+
+    for n in (1, 2):
+        s1 = _train_state(tr)
+        got = [tr.run_train_step(batch).numpy() for _ in range(n)]
+        after = _train_state(tr)
+        _set_train_state(tr, s1)
+        want = [_eager(tr, batch) for _ in range(n)]
+        assert all(_metrics_equal(g, w) for g, w in zip(got, want))
+        assert _states_equal(after, _train_state(tr))
+    # Two replays drew two dropout masks: the losses differ.
+    assert not np.array_equal(got[0]["total_loss"], got[1]["total_loss"])
+
+    lr = get_learning_rate(tr.optimizer)
+    s2 = _train_state(tr)
+    set_learning_rate(tr.optimizer, 10 * lr)
+    tr.run_train_step(batch).numpy()
+    after = _train_state(tr)
+    _set_train_state(tr, s2)
+    _eager(tr, batch)
+    assert _states_equal(after, _train_state(tr))
+    _set_train_state(tr, s2)
+    set_learning_rate(tr.optimizer, lr)
+    tr.run_train_step(batch).numpy()
+    assert not _states_equal(after, _train_state(tr))
+    assert tr.captures == {"train": 1, "eval": 0, "update": 0}
+
+
+def test_train_graphs_accumulate_and_update_once_a_window(cuda, tmp_path):
+    tr = _graph_trainer(cuda, tmp_path, **{"TRAIN.GRAD_ACCUM_STEPS": 2})
+    batch = next(iter(tr.train_dataloader))
+    params = [p.detach().clone() for p in tr.model.parameters()]
+    moved = []
+    for _ in range(6):
+        tr.run_train_step(batch).numpy()
+        now = [p.detach().clone() for p in tr.model.parameters()]
+        moved.append(any(not torch.equal(a, b) for a, b in zip(params, now)))
+        params = now
+    assert moved == [False, True] * 3
+    assert tr.captures == {"train": 1, "eval": 0, "update": 1}
+
+
+def test_train_steps_read_nothing_back_to_the_host(cuda, tmp_path):
+    from fusiontransformer_tpu_torch.modules.steps import device_batch
+    tr = _graph_trainer(cuda, tmp_path)
+    batch = next(iter(tr.train_dataloader))
+    db = device_batch(batch, tr.device)
+    caps = tr.level_caps(batch)
+    tr.train_step(db, tr.generator, caps)       # Adam's state, the tables
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tr.train_step(db, tr.generator, caps)
+        tr.eval_step(db, caps)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def test_a_failed_train_capture_leaves_the_next_one_working(cuda, tmp_path):
+    tr = _graph_trainer(cuda, tmp_path)
+    batch = next(iter(tr.train_dataloader))
+    step = tr.train_step
+
+    class Syncing:
+        grads = step.grads
+
+        def __call__(self, *a, **k):
+            out = step(*a, **k)
+            out["total_loss"] = out["total_loss"] + out["total_loss"].item()
+            return out
+
+    tr.train_step = Syncing()
+    with pytest.raises(RuntimeError):
+        tr.run_train_step(batch)
+    assert len(tr.train_graphs) == 0 and tr.captures["train"] == 0
+    tr.train_step = step
+    s0 = _train_state(tr)
+    tr.run_train_step(batch).numpy()
+    tr.run_train_step(batch).numpy()
+    assert tr.captures["train"] == 1 and len(tr.train_graphs) == 1
+    after = _train_state(tr)
+    _set_train_state(tr, s0)
+    _eager(tr, batch)
+    _eager(tr, batch)
+    assert _states_equal(after, _train_state(tr))
+
+
+def test_eval_graph_replays_equal_the_eager_eval_step(cuda, tmp_path):
+    from fusiontransformer_tpu_torch.modules.steps import (device_batch,
+                                                           read_back)
+    tr = _graph_trainer(cuda, tmp_path)
+    batch = next(iter(tr.train_dataloader))
+    for _ in range(3):
+        got = tr.run_eval_batch(batch)
+        want = read_back(tr.eval_step(device_batch(batch, tr.device),
+                                      tr.level_caps(batch))).numpy()
+        assert _metrics_equal(got, want)
+    assert tr.captures["eval"] == 1

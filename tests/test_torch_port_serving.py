@@ -27,7 +27,7 @@ from fusiontransformer_tpu_torch.serving.server import (HTTPFrontend,
                                                         encode_record)
 from fusiontransformer_tpu_torch.utils.checkpoint import Checkpointer
 
-from test_torch_port_common import record, tiny_cfg
+from test_torch_port_common import record, refuse_host_data, tiny_cfg
 
 KEYS = ("labels", "labels_2d", "labels_3d")
 
@@ -142,32 +142,6 @@ def test_engine_loads_a_checkpoint(engine, tmp_path):
 
 
 # --------------------------------------------------------------------- #
-def _refuse_host_data(monkeypatch):
-    """From here on, host data cannot enter a tensor op: building a tensor
-    from host values, or indexing one with a list or an array, raises."""
-
-    def refuse(*a, **k):
-        raise AssertionError("a tensor built from host data inside the step")
-
-    for name in ("tensor", "as_tensor", "from_numpy"):
-        monkeypatch.setattr(torch, name, refuse)
-
-    def host_index(idx):
-        parts = idx if isinstance(idx, tuple) else (idx,)
-        return any(isinstance(p, (list, np.ndarray)) for p in parts)
-
-    for slot in ("__getitem__", "__setitem__"):
-        orig = getattr(torch.Tensor, slot)
-
-        def checked(self, idx, *rest, _orig=orig):
-            if host_index(idx):
-                raise AssertionError(f"a tensor indexed by host data "
-                                     f"inside the step: {idx!r}")
-            return _orig(self, idx, *rest)
-
-        monkeypatch.setattr(torch.Tensor, slot, checked)
-
-
 @pytest.mark.parametrize("slot_pool", [True, False],
                          ids=["group-pooled", "per-voxel"])
 def test_the_step_takes_no_host_data_after_its_first_run(monkeypatch,
@@ -182,7 +156,7 @@ def test_the_step_takes_no_host_data_after_its_first_run(monkeypatch,
         eng = InferenceEngine(cfg, model=eng.model, device="cpu")
     db = device_batch(eng.collate([eng.preprocess(record(4))]), "cpu")
     first = eng._step(db)
-    _refuse_host_data(monkeypatch)
+    refuse_host_data(monkeypatch)
     assert torch.equal(eng._step(db), first)
 
 

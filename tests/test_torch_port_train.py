@@ -124,10 +124,16 @@ def test_optimizer_matches_optax(opt):
 
 
 def test_grad_accumulation_is_not_ported():
+    """Accumulation is ported now (held against ``optax.MultiSteps`` in
+    ``test_torch_port_grad_accum.py``): k > 1 builds the optimizer, and a
+    k below 1 is refused."""
     cfg = train_cfg(get_default_cfg)
     cfg.defrost()
     cfg.TRAIN.GRAD_ACCUM_STEPS = 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    opt, _ = build_optimizer(cfg, [torch.nn.Parameter(torch.zeros(2))])
+    assert isinstance(opt, torch.optim.Optimizer)
+    cfg.TRAIN.GRAD_ACCUM_STEPS = 0
+    with pytest.raises(ValueError, match="GRAD_ACCUM_STEPS"):
         build_optimizer(cfg, [torch.nn.Parameter(torch.zeros(2))])
 
 
