@@ -100,6 +100,28 @@ maps; the hierarchy builds per-voxel K-slot maps on the card):
     side with the group-pooled one;
 17b. the trainer's CUDA graphs on the per-voxel path, as 17a;
 
+then the flagship on real-format data, each path with every launch count
+set to 0 just before it and read just after (held exactly against the
+trainer's captures):
+
+18. SemanticKITTI-format: a raw tree (``tools/fabricate.py``: 20 train, 10
+    val and 4 test frames of ~21,000 in-frustum points, 370 x 1226 PNGs)
+    through the preprocess CLI, ``train.py`` with ``middlefusion.yaml``
+    (only the directories, one epoch and a validation set: 2 steps of 10),
+    finite losses, no overflow and no lost point; the item's host time,
+    validation's, the training window at 0 and 6 workers; one val batch's
+    eval replay bit for bit the eager eval step, and K1 and K3 on that
+    batch's maps against their plain versions as in phases 3 and 2; then
+    ``test.py`` on the checkpoint (batch 1), its confusion matrices equal
+    to an in-process ``validate`` of the same checkpoint, every prediction
+    a raw SemanticKITTI id after the inverse map;
+19. NuScenes-format: a database of ~10,000-point scans with 1600 x 900
+    JPEGs (``tools/fabricate.py::FakeNuScenes``) through the preprocessor
+    (USA train, Singapore validation subsets) and ``train.py`` with
+    ``configs/nuscenes/middlefusion.yaml`` (5 classes, 400 x 225, batch 8):
+    2 steps and a validation, finite losses, no lost point, predictions in
+    [0, 5);
+
 then the tool kernels, the port's counterparts of the JAX tools' Pallas
 kernels:
 
@@ -1637,10 +1659,7 @@ def drive_trainer(trainer, cfg, card, kind, convs_per_step, k3_name,
     import torch
     from fusiontransformer_tpu_torch.ops.kernels import (LAUNCHES,
                                                          reset_launches)
-    from fusiontransformer_tpu_torch.ops.kernels.binned_conv import (
-        DW_MMA_NAME, FWD_CORE_NAME, FWD_MMA_NAME)
     kk = binned_kernels(kind)
-    other = binned_kernels("slots" if kind == "grouped" else "grouped")
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
@@ -1666,19 +1685,9 @@ def drive_trainer(trainer, cfg, card, kind, convs_per_step, k3_name,
             and 1 <= captures["eval"] <= n_val and not captures["update"]):
         raise AssertionError(f"captures {captures} for {TRAIN_STEPS} train "
                              f"and {n_val} eval batches")
-    runs_t = RUNS_PER_CAPTURE * captures["train"]
-    runs_f = runs_t + RUNS_PER_CAPTURE * captures["eval"]
-    want = {kk["fwd"].__name__: convs_per_step * runs_f,
-            kk["bwd"].__name__: convs_per_step * runs_t,
-            FWD_MMA_NAME: convs_per_step * (runs_f + runs_t),
-            FWD_CORE_NAME: 0, DW_MMA_NAME: convs_per_step * runs_t,
-            other["fwd"].__name__: 0, other["bwd"].__name__: 0,
-            k3_name: 2 * runs_f, k3e8_name: 2 * runs_t}
-    for name, n in want.items():
-        if launches.get(name, 0) != n:
-            raise AssertionError(f"{name}: {launches.get(name, 0)} launches "
-                                 f"on the training path, expected {n} "
-                                 f"(captures {captures})")
+    check_launches(f"training path (captures {captures})", launches,
+                   trainer_launches_expected(captures, convs_per_step,
+                                             k3_name, k3e8_name, kind))
     val = {k: trainer.val_metric_logger.meters[k].global_avg
            for k in ("seg_iou_2d", "seg_iou_3d", "seg_loss_2d",
                      "seg_loss_3d")}
@@ -2066,7 +2075,7 @@ def eval_replays_equal_eager(trainer, batches):
     before = trainer.captures["eval"]
     for hb in batches:
         for _ in range(2):
-            got = trainer.run_eval_batch(hb)
+            got = trainer.run_eval_batch(hb).numpy()
             want = read_back(trainer.eval_step(
                 device_batch(hb, trainer.device),
                 trainer.level_caps(hb))).numpy()
@@ -2834,6 +2843,386 @@ def phase_server():
     return report
 
 
+# --------------------------------------------------------------------------- #
+# Phases 18 and 19: the flagship on SemanticKITTI- and NuScenes-format data,
+# through the port's preprocessors, train.py and test.py.
+
+NUSCENES_CONFIG = "configs/nuscenes/middlefusion.yaml"
+# Raw trees (tools/fabricate.py): SemanticKITTI frames in the regular
+# splits' sequences (train 00, val 07, test 08), 370 x 1226 PNGs, ~21,300
+# in-frustum points a frame from 36,000 rays; NuScenes samples of ~10,000
+# points, 1600 x 900 JPEGs resized to 400 x 225, in a USA train scene and a
+# Singapore validation scene.
+KITTI_RAYS = 36000
+NUSCENES_RAYS = 10500
+NUSCENES_SCENES = (("scene-0001", "day", "boston-seaport", 16),
+                   ("scene-0004", "day", "singapore-onenorth", 8))
+# SyntheticSCN's item a scan on the host (PERF.md section 5, the train cell).
+SYNTHETIC_ITEM_MS = 46.5
+PATH_KERNELS = ("binned_conv_grouped_fwd", "binned_conv_grouped_bwd")
+
+
+@contextlib.contextmanager
+def cli_logging():
+    """Undo the root logging handlers a CLI's ``main`` installs, so later
+    phases do not log every INFO line to stderr."""
+    import logging
+    root = logging.getLogger()
+    handlers, level = root.handlers[:], root.level
+    try:
+        yield
+    finally:
+        for h in root.handlers[:]:
+            if h not in handlers:
+                root.removeHandler(h)
+                h.close()
+        root.setLevel(level)
+
+
+def trainer_launches_expected(captures, convs_per_step, k3_name, k3e8_name,
+                              kind="grouped"):
+    """The kernels' launches of a trainer's run with ``captures``: the
+    wrappers launch in the eager run and the capture of each new signature
+    (RUNS_PER_CAPTURE runs), a replay runs none; ``kind``'s binned-conv
+    pair on the tensor cores, none of the other pair's."""
+    from fusiontransformer_tpu_torch.ops.kernels.binned_conv import (
+        DW_MMA_NAME, FWD_CORE_NAME, FWD_MMA_NAME)
+    kk = binned_kernels(kind)
+    other = binned_kernels("slots" if kind == "grouped" else "grouped")
+    runs_t = RUNS_PER_CAPTURE * captures["train"]
+    runs_f = runs_t + RUNS_PER_CAPTURE * captures["eval"]
+    return {kk["fwd"].__name__: convs_per_step * runs_f,
+            kk["bwd"].__name__: convs_per_step * runs_t,
+            FWD_MMA_NAME: convs_per_step * (runs_f + runs_t),
+            FWD_CORE_NAME: 0, DW_MMA_NAME: convs_per_step * runs_t,
+            other["fwd"].__name__: 0, other["bwd"].__name__: 0,
+            k3_name: 2 * runs_f, k3e8_name: 2 * runs_t}
+
+
+def check_launches(what, launches, want):
+    """Each kernel of ``want`` launched exactly its count (None: at least
+    once) on ``what``."""
+    for name, n in want.items():
+        got = launches.get(name, 0)
+        if got != n if n is not None else not got:
+            raise AssertionError(f"{name}: {got} launches on the {what}, "
+                                 f"expected {n or 'some'}")
+
+
+def graph_seconds(runner):
+    """Capture seconds of each graph a trainer or StepRunner holds."""
+    out = {}
+    for kind in ("train", "eval"):
+        cache = getattr(runner, f"{kind}_graphs", None)
+        if cache is not None:
+            out[kind] = [round(cache.get(k).capture_s, 3)
+                         for k in list(cache)]
+    return out
+
+
+def train_cli_run(argv):
+    """``train.py`` as a user runs it, with every launch count set to 0
+    just before and read just after: (trainer, launches, seconds)."""
+    import torch
+    from fusiontransformer_tpu_torch import train as train_cli
+    from fusiontransformer_tpu_torch.ops.kernels import (LAUNCHES,
+                                                         reset_launches)
+    reset_launches()
+    t0 = time.perf_counter()
+    with cli_logging():
+        trainer = train_cli.main(argv)
+    torch.cuda.synchronize()
+    return trainer, dict(LAUNCHES), time.perf_counter() - t0
+
+
+def trained_losses(trainer, n_steps):
+    import numpy as np
+    meters = trainer.train_metric_logger.meters
+    if trainer.step != n_steps:
+        raise AssertionError(f"{trainer.step} train steps, expected "
+                             f"{n_steps}")
+    losses = {k: meters[k].global_avg for k in LOSS_KEYS}
+    if not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"non-finite losses {losses}")
+    overflow = {k: meters[k].sum for k in ("voxel_overflow", "slot_overflow")}
+    if any(overflow.values()):
+        raise AssertionError(f"lossy train steps: {overflow}")
+    val = trainer.val_metric_logger.meters
+    lost = {k: val[k].global_avg for k in ("collate_dropped", "oob_points")}
+    if any(lost.values()):
+        raise AssertionError(f"points lost in validation: {lost}")
+    return losses, overflow, lost
+
+
+def kitti_windows(trainer, cfg, workers):
+    """Train scans/s of ``train_for_one_epoch`` over the training split at
+    NUM_WORKERS ``workers`` (the first, which may capture new signatures of
+    this epoch's batches), 0 and ``workers`` again, host clock."""
+    import torch
+    from fusiontransformer_tpu_torch.data.build import build_dataloader
+    loaders = {}
+    for n in (workers, 0):
+        wcfg = cfg.clone()
+        wcfg.DATALOADER.NUM_WORKERS = n
+        wcfg.freeze()
+        loaders[n] = build_dataloader(wcfg, mode="train")
+    out = {}
+    try:
+        for name, n in (("first", workers), ("0 workers", 0),
+                        (f"{workers} workers", workers)):
+            trainer.train_dataloader = loaders[n]
+            before, step0 = trainer.captures["train"], trainer.step
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_for_one_epoch(1)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            steps = trainer.step - step0
+            scans = len(loaders[n].dataset)
+            out[name] = {"scans_per_s": scans / dt, "seconds": dt,
+                         "steps": steps,
+                         "captures": trainer.captures["train"] - before}
+            if name != "first" and out[name]["captures"]:
+                raise AssertionError(f"captures in the window '{name}'")
+            if not math.isfinite(
+                    trainer.train_metric_logger.meters["total_loss"]
+                    .global_avg):
+                raise AssertionError("non-finite loss in the window")
+    finally:
+        for loader in loaders.values():
+            loader.close()
+    return out
+
+
+def phase_kitti(card, convs_per_step, k3_name, k3e8_name):
+    """Phase 18: ``middlefusion.yaml`` on a SemanticKITTI-format tree."""
+    import logging
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from fusiontransformer_tpu_torch import test as test_cli
+    from fusiontransformer_tpu_torch.data.build import build_dataloader
+    from fusiontransformer_tpu_torch.data.semantic_kitti import labels as L
+    from fusiontransformer_tpu_torch.data.utils.validate import validate
+    from fusiontransformer_tpu_torch.models.build import build_model
+    from fusiontransformer_tpu_torch.modules.SemanticTrainer import (
+        StepRunner)
+    from fusiontransformer_tpu_torch.modules.steps import (device_batch,
+                                                           hier_from_cfg)
+    from fusiontransformer_tpu_torch.ops.kernels import (LAUNCHES,
+                                                         reset_launches)
+    from fusiontransformer_tpu_torch.tools.fabricate import (KITTI_FRAMES,
+                                                             make_kitti)
+    from fusiontransformer_tpu_torch.train import load_cfg
+    from fusiontransformer_tpu_torch.utils.metric_logger import MetricLogger
+    res = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="ftx_kitti_") as work:
+        raw, pre, out = (os.path.join(work, d) for d in ("raw", "pre", "out"))
+        t0 = time.perf_counter()
+        make_kitti(raw, KITTI_FRAMES, rays=KITTI_RAYS)
+        res["fabricate_s"] = time.perf_counter() - t0
+        frames = sum(KITTI_FRAMES.values())
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m", "fusiontransformer_tpu_torch."
+                        "data.semantic_kitti.preprocess", "--root", raw,
+                        "--out", pre, "--workers", "6"], check=True,
+                       capture_output=True, text=True, timeout=600,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+        res["preprocess_ms_a_frame"] = (time.perf_counter() - t0) * 1e3 \
+            / frames
+        dirs = ["OUTPUT_DIR", out,
+                "DATASET.SemanticKITTISCN.preprocess_dir", pre,
+                "DATASET.SemanticKITTISCN.semantic_kitti_dir", raw]
+        run = ["SCHEDULER.MAX_EPOCH", "1", "VAL.PERIOD", "1"]
+        cfg = load_cfg(CONFIG, dirs + run)
+        steps = -(-KITTI_FRAMES["00"] // cfg.TRAIN.BATCH_SIZE)
+        trainer, launches, train_s = train_cli_run(
+            ["--cfg", CONFIG, "--run_name", "kitti", *dirs, *run])
+        losses, overflow, lost = trained_losses(trainer, steps)
+        captures = dict(trainer.captures)
+        check_launches("real-format training path", launches,
+                       trainer_launches_expected(captures, convs_per_step,
+                                                 k3_name, k3e8_name))
+        res.update(train_s=train_s, losses=losses, overflow=overflow,
+                   lost=lost, captures=captures, launches=launches,
+                   capture_s=graph_seconds(trainer))
+        log(f"  SemanticKITTI-format tree: {frames} frames fabricated in "
+            f"{res['fabricate_s']:.1f} s, preprocess CLI "
+            f"{res['preprocess_ms_a_frame']:.1f} ms a frame; train.py "
+            f"({steps} steps of {cfg.TRAIN.BATCH_SIZE} + validation) in "
+            f"{train_s:.1f} s: losses {losses}, overflow {overflow}, "
+            f"validation lost {lost}; captures {captures} "
+            f"({res['capture_s']} s); launches {launches}")
+        ds = trainer.train_dataloader.dataset
+        t0 = time.perf_counter()
+        for i in range(len(ds)):
+            np.random.seed(i)
+            ds[i]
+        res["item_ms"] = (time.perf_counter() - t0) * 1e3 / len(ds)
+        t0 = time.perf_counter()
+        trainer.validate_for_one_epoch(0)
+        torch.cuda.synchronize()
+        res["validate_ms_a_scan"] = (time.perf_counter() - t0) * 1e3 \
+            / len(trainer.val_dataloader.dataset)
+        res["windows"] = kitti_windows(trainer, cfg, 6)
+        # One real-format batch: the eval replay against the eager eval
+        # step, then K1 and K3 on its maps against their plain versions.
+        hb = next(iter(build_dataloader(cfg, "val")))
+        res["eval_replay_captures"] = eval_replays_equal_eager(trainer, [hb])
+        hier = hier_from_cfg(cfg, device_batch(hb, trainer.device),
+                             trainer.level_caps(hb))
+        gen = torch.Generator().manual_seed(18)
+        res["k1_rows"], k1, _ = phase_k1(hier, trainer.model, gen,
+                                         per="real-format batch")
+        res["k3_rows"], k3 = phase_k3(hier, gen)
+        res["k1"] = {k: k1[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "max_abs_err", "max_share")}
+        res["k3"] = {k: k3[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "max_abs_err")}
+        ckpt = os.path.join(out, "kitti", "model000000.pth")
+        del trainer, hier
+        torch.cuda.empty_cache()
+        log(f"  item {res['item_ms']:.1f} ms a scan (SyntheticSCN "
+            f"{SYNTHETIC_ITEM_MS}); validate {res['validate_ms_a_scan']:.1f} "
+            f"ms a scan; windows " + ", ".join(
+                f"{k}: {v['scans_per_s']:.3f} train scans/s "
+                f"({v['captures']} captures)"
+                for k, v in res["windows"].items())
+            + f"; the eval replay of a real-format batch bit for bit the "
+            f"eager eval step; {card}")
+
+        reset_launches()
+        t0 = time.perf_counter()
+        with cli_logging():
+            tested = test_cli.main(["--cfg", CONFIG, "--ckpt", ckpt, *dirs])
+        torch.cuda.synchronize()
+        res["test_s"] = time.perf_counter() - t0
+        res["test_launches"] = dict(LAUNCHES)
+        check_launches("test path", res["test_launches"],
+                       {"binned_conv_grouped_fwd": None, k3_name: None,
+                        "binned_conv_grouped_bwd": 0})
+        meters = tested["meters"].meters
+        if meters["collate_dropped"].global_avg or \
+                meters["oob_points"].global_avg:
+            raise AssertionError("test.py lost points")
+        n_test = KITTI_FRAMES["08"]
+        res["test_ms_a_scan"] = res["test_s"] * 1e3 / n_test
+        res["test_batch_ms"] = meters["time"].global_avg * 1e3
+        res["test_captures"] = tested["captures"]
+        res["test_iou"] = {m: ev.overall_iou
+                           for m, ev in tested["evaluators"].items()}
+        # The same checkpoint through an in-process validate: the same
+        # matrices, and every prediction a raw SemanticKITTI id.
+        tcfg = load_cfg(CONFIG, dirs)
+        model = build_model(tcfg, "cuda")
+        model.load_state_dict(torch.load(ckpt, map_location="cpu",
+                                         weights_only=True)["model"])
+        runner = StepRunner(tcfg, model, next(model.parameters()).device,
+                            logging.getLogger("chip_smoke"))
+        loader = build_dataloader(tcfg, "test")
+        mapped = []
+        inverse = loader.dataset.map_inverse_label
+        loader.dataset.map_inverse_label = \
+            lambda x: mapped.append(inverse(x)) or mapped[-1]
+        again = dict(validate(tcfg, runner.run_eval_batch, loader,
+                              MetricLogger(), log_tables=False))
+        raw_ids = set(L.LABELS)
+        if not mapped or any(set(np.unique(m)) - raw_ids for m in mapped):
+            raise AssertionError("a validated prediction is not a raw "
+                                 "SemanticKITTI id")
+        for m, ev in again.items():
+            if not np.array_equal(ev.confusion_matrix,
+                                  tested["evaluators"][m].confusion_matrix):
+                raise AssertionError(f"test.py's {m} confusion matrix "
+                                     f"differs from an in-process validate")
+        del runner, model
+        torch.cuda.empty_cache()
+    log(f"  test.py on the checkpoint: {n_test} scans at batch 1 in "
+        f"{res['test_s']:.1f} s (model build, checkpoint load and "
+        f"{res['test_captures']} eval captures included; "
+        f"{res['test_batch_ms']:.1f} ms a batch on average), IoU "
+        f"{res['test_iou']}, its confusion matrices equal an in-process "
+        f"validate's; every prediction a raw SemanticKITTI id; launches "
+        f"{res['test_launches']}; {card}")
+    return res
+
+
+def phase_nuscenes(card, convs_per_step, k3_name, k3e8_name):
+    """Phase 19: ``configs/nuscenes/middlefusion.yaml`` on a NuScenes-format
+    database."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from fusiontransformer_tpu_torch.data.build import build_dataloader
+    from fusiontransformer_tpu_torch.data.nuscenes.preprocess import (
+        preprocess)
+    from fusiontransformer_tpu_torch.tools.fabricate import FakeNuScenes
+    from fusiontransformer_tpu_torch.train import load_cfg
+    res = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="ftx_nuscenes_") as work:
+        root, out = os.path.join(work, "nusc"), os.path.join(work, "out")
+        t0 = time.perf_counter()
+        nusc = FakeNuScenes(root, NUSCENES_SCENES, rays=NUSCENES_RAYS)
+        res["fabricate_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        preprocess(nusc, ["train", "test"], root, out, location="boston",
+                   subset_name="usa")
+        preprocess(nusc, ["train", "val", "test"], root, out,
+                   location="singapore", subset_name="singapore")
+        res["preprocess_ms_a_sample"] = (time.perf_counter() - t0) * 1e3 \
+            / len(nusc.sample)
+        dirs = ["OUTPUT_DIR", os.path.join(work, "logs"),
+                "DATASET.NuScenesSCN.preprocess_dir",
+                os.path.join(out, "preprocess"),
+                "DATASET.NuScenesSCN.nuscenes_dir", root]
+        run = ["SCHEDULER.MAX_EPOCH", "1", "VAL.PERIOD", "1"]
+        cfg = load_cfg(NUSCENES_CONFIG, dirs + run)
+        steps = -(-NUSCENES_SCENES[0][3] // cfg.TRAIN.BATCH_SIZE)
+        trainer, launches, train_s = train_cli_run(
+            ["--cfg", NUSCENES_CONFIG, "--run_name", "nuscenes", *dirs,
+             *run])
+        losses, overflow, lost = trained_losses(trainer, steps)
+        captures = dict(trainer.captures)
+        check_launches("NuScenes training path", launches,
+                       trainer_launches_expected(captures, convs_per_step,
+                                                 k3_name, k3e8_name))
+        hb = next(iter(build_dataloader(cfg, "val")))
+        got = trainer.run_eval_batch(hb).numpy()
+        valid = hb["pt_valid"]
+        n_cls = cfg.MODEL.NUM_CLASSES
+        for key in ("pred_2d", "pred_3d", "pred_ensemble"):
+            p = got[key][valid]
+            if not (p.size and p.min() >= 0 and p.max() < n_cls):
+                raise AssertionError(f"{key} outside [0, {n_cls})")
+        ds = trainer.train_dataloader.dataset
+        t0 = time.perf_counter()
+        for i in range(len(ds)):
+            np.random.seed(i)
+            ds[i]
+        res.update(train_s=train_s, losses=losses, overflow=overflow,
+                   lost=lost, captures=captures, launches=launches,
+                   capture_s=graph_seconds(trainer),
+                   item_ms=(time.perf_counter() - t0) * 1e3 / len(ds),
+                   points_a_scan=float(hb["scan_count"].mean()),
+                   image=list(hb["img"].shape[1:3]))
+        del trainer
+        torch.cuda.empty_cache()
+    log(f"  NuScenes-format database: {len(nusc.sample)} samples "
+        f"fabricated in {res['fabricate_s']:.1f} s, preprocess "
+        f"{res['preprocess_ms_a_sample']:.1f} ms a sample; item "
+        f"{res['item_ms']:.1f} ms a scan ({res['points_a_scan']:.0f} voxels "
+        f"a scan, images {res['image']}); train.py ({steps} steps of "
+        f"{cfg.TRAIN.BATCH_SIZE} + validation) in {train_s:.1f} s: losses "
+        f"{losses}, overflow {overflow}, validation lost {lost}, every "
+        f"prediction in [0, {n_cls}); captures {captures} "
+        f"({res['capture_s']} s); launches {launches}; {card}")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3139,6 +3528,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_end("17b")
 
+    # ---- 18. / 19. the flagship on real-format data
+    log("== 18. SemanticKITTI-format data: fabricated raw tree -> the "
+        "preprocess CLI -> train.py (middlefusion.yaml, batch "
+        f"{TRAIN_BATCH}) -> validation -> test.py, bf16, through the "
+        "trainer's CUDA graphs")
+    real = {"kitti": phase_kitti(card, convs_per_step, k3_name, k3e8_name)}
+    phase_end("18")
+    log("== 19. NuScenes-format data: fabricated database -> preprocess -> "
+        "train.py (nuscenes/middlefusion.yaml: 5 classes, 400 x 225, batch "
+        "8) -> validation, bf16")
+    real["nuscenes"] = phase_nuscenes(card, convs_per_step, k3_name,
+                                      k3e8_name)
+    phase_end("19")
+
     # ---- 12. the tool kernels behind the port's microbenches
     log("== 12. tool kernels: the port's microbenches (T1-T3 row gathers "
         "at the flagship's L0/L2 slot maps, T4 flash attention at "
@@ -3235,7 +3638,7 @@ def main() -> int:
                         "flash_attention": flash_rows},
               "native_host": native_host, "graphs": graphs,
               "train_graphs": train_graphs,
-              "server": server, "phase_s": phase_s}
+              "server": server, "real_format": real, "phase_s": phase_s}
     log("== 13. kernels (ms, plain_ms, bound_ms, library_ms: K1, K1' and K3 "
         "per inference request at batch 1 (K1 and K1' also per train step "
         "under train_step), K2, K2' and K3[E=8] per train "

@@ -30,9 +30,12 @@ def _class_palette(n):
 
 
 class SyntheticSCN:
-    """KITTI-shaped synthetic dataset: 20 classes, 5 cm voxels in a 4096^3
-    grid.  Items carry the eval-time fields (original labels, inverse map)
-    that the JAX package emits with ``output_orig=True``.  ``aug``: the
+    """KITTI-shaped synthetic dataset: 20 classes, voxels of 1 / ``scale`` m
+    (5 cm) in a ``full_scale``^3 grid (4096).  With ``output_orig`` (the
+    default here; the build passes False for the training split, as the JAX
+    package does) items carry the eval-time fields (original labels,
+    inverse map).  ``image_normalizer`` is accepted and unused, as in the
+    JAX package: the rendered images stay in [0, 1].  ``aug``: the
     training split's augmentations (``noisy_rot``, ``flip_y``, ``rot_z``,
     ``transl`` of ``augment_and_scale_3d``), drawn from each item's
     ``RandomState(seed + index)`` after the scan, as in the JAX package.
@@ -41,15 +44,18 @@ class SyntheticSCN:
     that a run meets several capacity buckets."""
 
     num_classes = 20
-    scale = 20
-    full_scale = 4096
     class_names = tuple(f"class_{i}" for i in range(num_classes))
     class_labels = tuple(range(num_classes))
+    map_inverse_label = None       # the labels are the classes
 
     def __init__(self, split=("train",), num_scans=8, num_points=4096,
-                 image_width=1226, image_height=370, seed=0,
-                 point_count_jitter=0.0, **aug):
+                 scale=20, full_scale=4096, image_width=1226,
+                 image_height=370, image_normalizer=None, seed=0,
+                 output_orig=True, point_count_jitter=0.0, **aug):
         self.split = split
+        self.scale = scale
+        self.full_scale = full_scale
+        self.output_orig = output_orig
         self.num_scans = num_scans
         self.num_points = num_points
         self.point_count_jitter = float(point_count_jitter)
@@ -202,7 +208,7 @@ class SyntheticSCN:
         vox_img_idx = points_img[keep]
 
         uniq, inverse = sparse_quantize(vox_coords)
-        return {
+        out = {
             "coords": vox_coords[uniq].astype(np.int32),
             "feats": vox_feats[uniq].astype(np.float32),
             "seg_label": vox_seg[uniq].astype(np.int32),
@@ -210,7 +216,9 @@ class SyntheticSCN:
             "img": img,
             "seq": "synthetic",
             "filename": f"{index:06d}",
-            "orig_seg_label": seg_label,
-            "sparse_orig_points_idx": keep,
-            "inverse_map": inverse,
         }
+        if self.output_orig:
+            out["orig_seg_label"] = seg_label
+            out["sparse_orig_points_idx"] = keep
+            out["inverse_map"] = inverse
+        return out

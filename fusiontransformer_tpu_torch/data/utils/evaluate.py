@@ -1,5 +1,6 @@
 """Eval-time confusion-matrix Evaluator (a copy of
-``fusiontransformer_tpu/data/utils/evaluate.py``; the table is plain text).
+``fusiontransformer_tpu/data/utils/evaluate.py``; the tables are plain text,
+written without ``tabulate``).
 
 Keeps the reference's exact conventions, including the ``gt==0 ->
 num_classes`` ignore trick (``evaluate.py:22``): ignored points fall outside
@@ -85,3 +86,13 @@ class Evaluator:
             lines.append(f"{name:<16}{acc * 100:>10.2f}{iou * 100:>10.2f}"
                          f"{int(self.confusion_matrix[i].sum()):>10d}")
         return "\n".join(lines)
+
+    def save_table(self, filename):
+        """Overall accuracy, overall IoU and each class's IoU as two
+        tab-separated lines (names, then values to 5 decimals): the file the
+        JAX package's ``save_table`` writes."""
+        header = ("overall acc", "overall iou") + self.class_names
+        values = [self.overall_acc, self.overall_iou] + self.class_iou
+        with open(filename, "w") as f:
+            f.write("\t".join(header) + "\n"
+                    + "\t".join(f"{v:.5f}" for v in values))

@@ -12,6 +12,9 @@ import numpy as np
 
 from fusiontransformer_tpu_torch.data.utils.evaluate import Evaluator
 
+PREDICTIONS = (("2D", "pred_2d"), ("3D", "pred_3d"),
+               ("2D+3D", "pred_ensemble"))
+
 
 def map_sparse_to_org(x, inverse_map):
     """Devoxelize per-voxel values back to original points.
@@ -28,28 +31,37 @@ def map_sparse_to_org(x, inverse_map):
     return x[inverse_map], 0
 
 
-def validate(cfg, run_batch, dataloader, val_metric_logger, log_tables=True):
+def validate(cfg, run_batch, dataloader, val_metric_logger, log_tables=True,
+             logger_name=None):
     """Eval loop: per-class IoU of the 2D, 3D and 2D+3D ensemble predictions
     on the original points (``fusiontransformer_tpu/data/utils/validate.py``
-    for the fusion models).
+    for the fusion models), with the dataset's inverse label map applied to
+    predictions and labels (raw SemanticKITTI ids; ``map_inverse_label``
+    None keeps the training ids).
 
-    ``run_batch(host_batch)`` returns the eval step's results
-    (``pred_2d``, ``pred_3d``, ``pred_ensemble``, ``seg_loss_2d``,
-    ``seg_loss_3d``) for one collated batch, as numpy arrays.  Returns
-    ``[(modality, Evaluator), ...]``.
+    ``run_batch(host_batch)`` enqueues the eval step on one collated batch
+    and returns its results (``pred_2d``, ``pred_3d``, ``pred_ensemble``,
+    ``seg_loss_2d``, ``seg_loss_3d``) on their way to the host: a
+    ``modules.steps.Readback``, whose ``numpy()`` waits for them.  Batch k
+    is read and scored after batch k+1 has been enqueued, so the card runs
+    one batch while the host scores the one before (the JAX package's
+    ``consume``).  Returns ``[(modality, Evaluator), ...]``.
     """
     logger = logging.getLogger(
-        f"FusionTransformer.{cfg['MODEL']['TYPE']}.validate")
+        logger_name or f"FusionTransformer.{cfg['MODEL']['TYPE']}.validate")
     logger.info("Validation")
     dataset = dataloader.dataset
-    evaluators = {k: Evaluator(dataset.class_names, dataset.class_labels)
-                  for k in ("pred_2d", "pred_3d", "pred_ensemble")}
-    total_dropped = total_oob = total_points = 0
-    end = time.time()
-    for batch in dataloader:
-        data_time = time.time() - end
-        total_dropped += int(batch.get("num_dropped", 0))
-        res = run_batch(batch)
+    inverse_label = dataset.map_inverse_label
+    evaluators = {key: Evaluator(dataset.class_names, dataset.class_labels)
+                  for _, key in PREDICTIONS}
+    totals = {"dropped": 0, "oob": 0, "points": 0}
+
+    def consume(readback, batch, data_time, end, dispatched):
+        wait = time.time()
+        res = readback.numpy()
+        # This batch's own span: host work up to its dispatch, then the wait
+        # for its results (not the next batch's load, which came between).
+        batch_time = (dispatched - end) + (time.time() - wait)
         scan_count = batch["scan_count"]
         cap = len(batch["pt_valid"]) // len(scan_count)
         for i, n_pts in enumerate(scan_count):
@@ -60,28 +72,44 @@ def validate(cfg, run_batch, dataloader, val_metric_logger, log_tables=True):
             kept = np.asarray(batch["sparse_orig_points_idx"][i])
             seg_label = np.asarray(batch["orig_seg_label"][i])
             gt = seg_label[kept] if kept.dtype == bool else seg_label
-            total_points += len(inverse_map)
+            if inverse_label is not None:
+                gt = inverse_label(gt)
+            totals["points"] += len(inverse_map)
             for key, ev in evaluators.items():
                 pred, n_oob = map_sparse_to_org(res[key][sl], inverse_map)
-                total_oob += n_oob
+                totals["oob"] += n_oob
+                if inverse_label is not None:
+                    pred = inverse_label(pred)
                 ev.update(pred, gt.copy())
-        val_metric_logger.update(time=time.time() - end, data=data_time,
+        val_metric_logger.update(time=batch_time, data=data_time,
                                  seg_loss_3d=float(res["seg_loss_3d"]),
                                  seg_loss_2d=float(res["seg_loss_2d"]))
-        end = time.time()
 
-    oob = total_oob // len(evaluators)
+    pending = None
+    end = time.time()
+    for batch in dataloader:
+        data_time = time.time() - end
+        totals["dropped"] += int(batch.get("num_dropped", 0))
+        readback = run_batch(batch)
+        dispatched = time.time()
+        if pending is not None:
+            consume(*pending)
+        pending = (readback, batch, data_time, end, dispatched)
+        end = time.time()
+    if pending is not None:
+        consume(*pending)
+
+    dropped, oob = totals["dropped"], totals["oob"] // len(evaluators)
     logger.info("capacity overflow: %d points dropped at collate, %d points "
                 "scored as class 0 via out-of-bounds inverse map (of %d "
-                "evaluated)", total_dropped, oob, total_points)
-    if total_dropped or oob:
+                "evaluated)", dropped, oob, totals["points"])
+    if dropped or oob:
         logger.warning("TPU.POINT_CAPACITY / CAPACITY_BUCKETS undersized for "
-                       "this dataset: %d+%d points lost", total_dropped, oob)
-    val_metric_logger.update(collate_dropped=total_dropped, oob_points=oob)
+                       "this dataset: %d+%d points lost", dropped, oob)
+    val_metric_logger.update(collate_dropped=dropped, oob_points=oob)
     val_metric_logger.update(seg_iou_2d=evaluators["pred_2d"].overall_iou,
                              seg_iou_3d=evaluators["pred_3d"].overall_iou)
-    eval_list = [("2D", evaluators["pred_2d"]), ("3D", evaluators["pred_3d"]),
-                 ("2D+3D", evaluators["pred_ensemble"])]
+    eval_list = [(modality, evaluators[key]) for modality, key in PREDICTIONS]
     for modality, evaluator in (eval_list if log_tables else []):
         logger.info("%s overall accuracy=%.2f%%", modality,
                     100.0 * evaluator.overall_acc)

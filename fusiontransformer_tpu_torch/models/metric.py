@@ -1,7 +1,7 @@
 """Training metrics (torch).
 
-Port of ``confusion_matrix_from_logits`` and ``SegIoU`` of
-``fusiontransformer_tpu/models/metric.py``: the confusion matrix of one
+Port of ``confusion_matrix_from_logits``, ``SegAccuracy`` and ``SegIoU``
+of ``fusiontransformer_tpu/models/metric.py``: the confusion matrix of one
 step is computed on the device (argmax, then a count into a fixed number of
 bins, class 0 ignored) and accumulated on the host in a numpy matrix.
 """
@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from fusiontransformer_tpu_torch.utils.metric_logger import AverageMeter
 
 
 def confusion_matrix_from_logits(logits, labels, valid, num_classes: int,
@@ -30,6 +32,23 @@ def confusion_matrix_from_logits(logits, labels, valid, num_classes: int,
                          device=idx.device)
     counts.index_add_(0, idx, torch.ones_like(idx))
     return counts[:-1].reshape(num_classes, num_classes)
+
+
+class SegAccuracy(AverageMeter):
+    """Segmentation accuracy of host logits and labels, points labelled
+    ``ignore_index`` left out (reference ``models/metric.py:5-23``)."""
+
+    name = "seg_acc"
+
+    def __init__(self, ignore_index=-100):
+        super().__init__()
+        self.ignore_index = ignore_index
+
+    def update_dict(self, preds, labels):
+        pred = np.asarray(preds["seg_logit"]).argmax(-1)
+        label = np.asarray(labels["seg_label"])
+        mask = label != self.ignore_index
+        self.update(float((pred[mask] == label[mask]).sum()), int(mask.sum()))
 
 
 class SegIoU:

@@ -24,13 +24,23 @@ train eagerly on the card, and a capture that fails raises.  On the CPU
 (``device="cpu"``) the same steps run eagerly.  The checkpoint and the
 optimizer's state are loaded before any capture.
 
+``StepRunner`` is the part the eval CLI (``test.py``) uses alone: the eval
+step of a model through the same per-signature graphs.
+
+With ``TRAIN.GRAD_ACCUM_STEPS`` = k the trainer counts the micro-steps of
+the open window and updates when the count reaches k; the count is saved
+with the window's gradients and dropped with them (``RESUME_STATES
+False``), as the JAX package keeps it in ``optax.MultiSteps``' state.  Each
+epoch's line of ``metrics.jsonl`` is written before that epoch validates,
+as in the JAX trainer: it carries the previous validation's meters.
+
 Runs on the card unless it is given ``device="cpu"``; with no CUDA device
 and no explicit CPU it raises.  ``MODEL.IMAGE_PRETRAINED_PATH`` loads a
 DeiT / SimCLR checkpoint into the ViT (``utils/torch_checkpoint.py``).  Not
 ported (ROADMAP.md, Queue 1): wandb and TensorBoard, gradient histograms
-(``make_grads_fn``), asynchronous checkpoints, the preemption handler, and
-more than one device; the keys that would ask for them raise
-(``check_ported_keys``).
+(``make_grads_fn``), asynchronous checkpoints, the preemption handler, the
+ViT's rematerialisation, and more than one device; the keys that would ask
+for them raise (``check_ported_keys``).
 """
 
 from __future__ import annotations
@@ -70,13 +80,14 @@ MODALITIES = ("2d", "3d")
 # its default, and the ROADMAP.md item that will port it.
 UNPORTED_KEYS = (
     ("TRAIN.SUMMARY_PERIOD", lambda v: v > 0,
-     "Queue 1 item 3 (TensorBoard scalars)"),
+     "Queue 1 item 2 (TensorBoard scalars)"),
     ("TRAIN.LOG_HISTOGRAM", bool,
-     "Queue 1 item 3 (weight/grad histograms)"),
-    ("TPU.NUM_DEVICES", lambda v: v > 1, "Queue 1 item 5 (data parallelism)"),
+     "Queue 1 item 2 (weight/grad histograms)"),
+    ("TPU.REMAT_VIT", bool, "Queue 1 item 2 (ViT rematerialisation)"),
+    ("TPU.NUM_DEVICES", lambda v: v > 1, "Queue 1 item 3 (data parallelism)"),
     ("TPU.MODEL_PARALLEL", lambda v: v > 1,
-     "Queue 1 item 6 (tensor parallelism)"),
-    ("TPU.ZERO_OPTIMIZER", bool, "Queue 1 item 6 (ZeRO)"),
+     "Queue 1 item 4 (tensor parallelism)"),
+    ("TPU.ZERO_OPTIMIZER", bool, "Queue 1 item 4 (ZeRO)"),
 )
 
 
@@ -92,17 +103,81 @@ def check_ported_keys(cfg):
                                       f"(ROADMAP.md, {item})")
 
 
-class SemanticTrainer:
+class StepRunner:
+    """A model's steps on collated host batches: eagerly on the CPU; on the
+    card through one ``StepGraph`` per (``batch_signature``, level
+    capacities), all captured into one memory pool, a signature's first
+    batch being its eager step.  Holds the eval step and its graphs
+    (``eval_graphs``); ``SemanticTrainer`` adds the train step's."""
+
+    def __init__(self, cfg, model, device, logger):
+        self.cfg, self.model, self.device = cfg, model, device
+        self.logger = logger
+        self.eval_step = make_eval_step(cfg, model)
+        self.adaptive_caps = bool(cfg.TPU.ADAPTIVE_LEVEL_CAPS)
+        self.eval_graphs = StepCache(cfg.TPU.STEP_CACHE_SIZE)
+        self._pool = None
+        self.captures = {"train": 0, "eval": 0, "update": 0}
+
+    def clear_graphs(self):
+        self.eval_graphs.clear()
+
+    def level_caps(self, host_batch):
+        """The batch's voxel capacities (None: sized from its buffer)."""
+        if not self.adaptive_caps:
+            return None
+        return batch_level_caps(self.cfg, host_batch)
+
+    def _run(self, kind, cache, step, host_batch, generator=None):
+        """``step`` on a collated host batch, read back (``Readback``): on
+        the card through the graph of the batch's signature and capacities,
+        captured after an eager run of this batch on a miss."""
+        if self.device.type == "cpu":
+            return read_back(step(device_batch(host_batch, self.device)))
+        caps = self.level_caps(host_batch)
+        key = (batch_signature(host_batch), caps)
+        graph = cache.get(key)
+        if graph is not None:
+            return graph.replay(host_batch)
+        graph = self._capture(step, host_batch, generator)
+        cache[key] = graph
+        self.captures[kind] += 1
+        self.logger.info("captured the %s step for capacities %s in %.2f s",
+                         kind, caps, graph.capture_s)
+        first, graph.first = graph.first, None
+        return read_back(first, graph)
+
+    def _capture(self, step, host_batch, generator=None):
+        """``StepGraph`` of ``step`` into the runner's pool (a new pool
+        after a capture that failed)."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        try:
+            return StepGraph(step, host_batch, self.device, self._pool,
+                             generator)
+        except BaseException:
+            self._pool = None
+            raise
+
+    def run_eval_batch(self, host_batch):
+        """The eval step's results on a collated host batch, on their way to
+        pinned host memory of their own (``Readback``): the next batch's
+        replay, enqueued before they are read, cannot overwrite them."""
+        caps = self.level_caps(host_batch)
+        return self._run("eval", self.eval_graphs,
+                         lambda batch: self.eval_step(batch, caps),
+                         host_batch)
+
+
+class SemanticTrainer(StepRunner):
     def __init__(self, cfg, output_dir="", run_name="", device=None):
         check_ported_keys(cfg)
-        self.cfg = cfg
         self.output_dir = output_dir
         self.run_name = run_name
-        self.device = resolve_device(device)
-        self.logger = logging.getLogger(
-            f"FusionTransformer.{cfg.MODEL.TYPE}.train")
-
-        self.model = build_model(cfg, self.device, seed=cfg.RNG_SEED)
+        device = resolve_device(device)
+        logger = logging.getLogger(f"FusionTransformer.{cfg.MODEL.TYPE}.train")
+        model = build_model(cfg, device, seed=cfg.RNG_SEED)
+        super().__init__(cfg, model, device, logger)
         if cfg.MODEL.IMAGE_PRETRAINED_PATH:
             self.logger.info("Loaded %d pretrained image tensors from %s",
                              load_pretrained_image(cfg, self.model),
@@ -127,20 +202,16 @@ class SemanticTrainer:
         self.logger.info("#Parameters: %.2e",
                          sum(p.numel() for p in self.model.parameters()))
         self.train_step = make_train_step(cfg, self.model, self.optimizer)
-        self.eval_step = make_eval_step(cfg, self.model)
-        self.adaptive_caps = bool(cfg.TPU.ADAPTIVE_LEVEL_CAPS)
         # Dropout's random stream: one generator on the device, seeded from
         # RNG_SEED, advanced by every train step (and every replay).
         self.generator = torch.Generator(device=self.device).manual_seed(
             int(cfg.RNG_SEED))
         self.step = 0
-        # The card's graphs: train and eval steps per signature, the
-        # optimizer update (GRAD_ACCUM_STEPS > 1), one memory pool.
+        self.window = 0         # micro-steps of the open accumulation window
+        # The card's graphs beside the eval step's: the train step's per
+        # signature and the optimizer update (GRAD_ACCUM_STEPS > 1).
         self.train_graphs = StepCache(cfg.TPU.STEP_CACHE_SIZE)
-        self.eval_graphs = StepCache(cfg.TPU.STEP_CACHE_SIZE)
         self.update_graph = None
-        self._pool = None
-        self.captures = {"train": 0, "eval": 0, "update": 0}
 
         self.checkpointer = Checkpointer(output_dir, self.logger,
                                          cfg.TRAIN.MAX_TO_KEEP)
@@ -179,51 +250,29 @@ class SemanticTrainer:
         self.model.load_state_dict(payload["model"])
         if "optimizer" in payload:
             load_optimizer_state(self.optimizer, payload["optimizer"])
-        # The gradients of a window that was open at the save.
+        # The gradients of a window that was open at the save, and how many
+        # micro-steps it had taken.
         for g, saved in zip(self.train_step.grads,
                             payload.get("grad_accum", ())):
             g.copy_(saved)
+        self.window = int(payload.get("grad_accum_window", 0))
         if "generator" in payload:
             self.generator.set_state(payload["generator"])
         self.step = int(payload.get("step", 0))
         return {k: v for k, v in payload.items()
                 if k not in ("model", "optimizer", "step", "grad_accum",
-                             "grad_accum_steps", "generator")}
+                             "grad_accum_window", "grad_accum_steps",
+                             "generator")}
 
     def clear_graphs(self):
+        super().clear_graphs()
         self.train_graphs.clear()
-        self.eval_graphs.clear()
         self.update_graph = None
-
-    def level_caps(self, host_batch):
-        """The batch's voxel capacities (None: sized from its buffer)."""
-        if not self.adaptive_caps:
-            return None
-        return batch_level_caps(self.cfg, host_batch)
-
-    def _run(self, kind, cache, step, host_batch, generator=None):
-        """``step`` on a collated host batch, read back (``Readback``): on
-        the card through the graph of the batch's signature and capacities,
-        captured after an eager run of this batch on a miss."""
-        if self.device.type == "cpu":
-            return read_back(step(device_batch(host_batch, self.device)))
-        caps = self.level_caps(host_batch)
-        key = (batch_signature(host_batch), caps)
-        graph = cache.get(key)
-        if graph is not None:
-            return graph.replay(host_batch)
-        graph = self._capture(step, host_batch, generator)
-        cache[key] = graph
-        self.captures[kind] += 1
-        self.logger.info("captured the %s step for capacities %s in %.2f s",
-                         kind, caps, graph.capture_s)
-        first, graph.first = graph.first, None
-        return read_back(first, graph)
 
     def run_train_step(self, host_batch):
         """One train step on a collated host batch: its metrics, on their
-        way to the host (``Readback``).  With GRAD_ACCUM_STEPS = k, every
-        k-th call also runs the optimizer update."""
+        way to the host (``Readback``).  With GRAD_ACCUM_STEPS = k, the
+        k-th micro-step of a window also runs the optimizer update."""
         caps = self.level_caps(host_batch)
         k = self.accum_steps
         metrics = self._run(
@@ -232,21 +281,12 @@ class SemanticTrainer:
                                           update=k == 1),
             host_batch, self.generator)
         self.step += 1
-        if k > 1 and self.step % k == 0:
-            self._update()
+        if k > 1:
+            self.window += 1
+            if self.window == k:
+                self._update()
+                self.window = 0
         return metrics
-
-    def _capture(self, step, host_batch, generator=None):
-        """``StepGraph`` of ``step`` into the trainer's pool (a new pool
-        after a capture that failed)."""
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        try:
-            return StepGraph(step, host_batch, self.device, self._pool,
-                             generator)
-        except BaseException:
-            self._pool = None
-            raise
 
     def _update(self):
         if self.device.type == "cpu":
@@ -315,13 +355,6 @@ class SemanticTrainer:
             f.write(json.dumps(rec) + "\n")
 
     # ------------------------------------------------------------------ #
-    def run_eval_batch(self, host_batch):
-        """The eval step's results on a collated host batch, as numpy."""
-        caps = self.level_caps(host_batch)
-        return self._run("eval", self.eval_graphs,
-                         lambda batch: self.eval_step(batch, caps),
-                         host_batch).numpy()
-
     def validate_for_one_epoch(self, epoch):
         """True iff validation ran this epoch."""
         period = self.cfg.VAL.PERIOD
@@ -355,6 +388,7 @@ class SemanticTrainer:
                  for m in MODALITIES if self.best_metric[m] is not None}
         if self.accum_steps > 1:
             extra["grad_accum"] = [g.cpu() for g in self.train_step.grads]
+            extra["grad_accum_window"] = self.window
         self.checkpointer.save(
             f"model{epoch:06d}",
             model={k: v.cpu() for k, v in self.model.state_dict().items()},
@@ -370,9 +404,11 @@ class SemanticTrainer:
                 self.train_for_one_epoch(epoch)
                 self.logger.info("Epoch %d took %.1fs", epoch,
                                  time.time() - t0)
+                # As in the JAX trainer: the log line first, so epoch e's
+                # carries the validation of an earlier epoch (none at 0).
+                self.update_log(epoch)
                 if self.validate_for_one_epoch(epoch):
                     self.update_validation_logging_meters(epoch)
-                self.update_log(epoch)
                 # As in the JAX trainer: a checkpoint on each new best epoch.
                 if any(self.best_metric_epoch[m] == epoch
                        for m in MODALITIES):

@@ -5,8 +5,9 @@ synchronous: ``save`` writes one ``torch.save`` file per checkpoint (the
 model's ``state_dict`` — parameters and BN running statistics — the
 optimizer's state dict, step, epoch, best metrics, the dropout generator's
 state, ``grad_accum_steps`` and, with ``TRAIN.GRAD_ACCUM_STEPS`` > 1, the
-gradients accumulated so far in ``grad_accum``: the JAX package keeps both
-in its optimizer state), appends it to the ``last_checkpoint`` manifest in
+gradients accumulated so far in ``grad_accum`` and the open window's
+micro-step count in ``grad_accum_window``: the JAX package keeps both in
+its optimizer state), appends it to the ``last_checkpoint`` manifest in
 the save directory and deletes the oldest beyond ``max_to_keep``.  ``load``
 restores the newest one when resuming.
 The JAX package's asynchronous writer is not ported (ROADMAP.md, Queue 1).
@@ -64,7 +65,7 @@ class Checkpointer:
 
         With no ``path`` and ``resume``, the manifest's newest checkpoint.
         ``resume_states=False`` drops the optimizer state (with the
-        accumulated gradients) and the epoch.  Tensors load onto the CPU;
+        accumulated gradients and their window's count) and the epoch.  Tensors load onto the CPU;
         the caller moves them.
         """
         if not path and resume and self._saved:
@@ -76,5 +77,6 @@ class Checkpointer:
         payload = torch.load(path, map_location="cpu", weights_only=True)
         if not resume_states:
             payload = {k: v for k, v in payload.items()
-                       if k not in ("optimizer", "grad_accum", "epoch")}
+                       if k not in ("optimizer", "grad_accum",
+                                    "grad_accum_window", "epoch")}
         return payload

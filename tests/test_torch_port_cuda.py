@@ -1008,7 +1008,7 @@ def test_eval_graph_replays_equal_the_eager_eval_step(cuda, tmp_path):
     tr = _graph_trainer(cuda, tmp_path)
     batch = next(iter(tr.train_dataloader))
     for _ in range(3):
-        got = tr.run_eval_batch(batch)
+        got = tr.run_eval_batch(batch).numpy()
         want = read_back(tr.eval_step(device_batch(batch, tr.device),
                                       tr.level_caps(batch))).numpy()
         assert _metrics_equal(got, want)

@@ -226,3 +226,32 @@ def test_resume_with_another_accumulation_raises(tmp_path):
     cfg.freeze()
     tr = SemanticTrainer(cfg, str(tmp_path), device="cpu")
     assert not any(g.any() for g in tr.train_step.grads)
+
+
+def test_a_resume_without_states_opens_a_fresh_window(tmp_path):
+    """RESUME_STATES False drops the open window's gradients and its count
+    with the optimizer state, as JAX drops ``optax.MultiSteps``' state:
+    after a resume from a checkpoint saved mid-window (step 3 of k = 2),
+    one micro-step leaves every parameter bitwise unchanged, the second
+    moves them."""
+    SemanticTrainer(_accum_cfg(tmp_path / "a", 2, 1), str(tmp_path / "a"),
+                    device="cpu").train()
+    cfg = _accum_cfg(tmp_path / "b", 2, 2)
+    cfg.defrost()
+    cfg.RESUME_PATH = str(tmp_path / "a" / "model000000.pth")
+    cfg.RESUME_STATES = False
+    cfg.freeze()
+    tr = SemanticTrainer(cfg, str(tmp_path / "b"), device="cpu")
+    assert tr.step == 3 and tr.window == 0
+    assert not any(g.any() for g in tr.train_step.grads)
+    batches = list(tr.train_dataloader)
+    before = {n: p.detach().clone() for n, p in tr.model.named_parameters()}
+    tr.run_train_step(batches[0])
+    for n, p in tr.model.named_parameters():
+        assert torch.equal(p.detach(), before[n]), n
+    assert tr.window == 1
+    tr.run_train_step(batches[1])
+    moved = [n for n, p in tr.model.named_parameters()
+             if not torch.equal(p.detach(), before[n])]
+    assert len(moved) > 0.9 * len(before) and tr.window == 0
+

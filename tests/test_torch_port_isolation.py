@@ -1,4 +1,5 @@
-"""The port stands alone: no JAX, no JAX package, no quiet CPU fallback."""
+"""The port stands alone: no JAX, no JAX package, no quiet CPU fallback; its
+modules import Pillow only where they read or write an image."""
 
 import ast
 import os
@@ -57,7 +58,7 @@ def test_importing_every_module_loads_no_jax():
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
-        "                                    'fusiontransformer_tpu'))\n"
+        "                                    'fusiontransformer_tpu', 'PIL'))\n"
         "print(len(sys.modules))\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(PKG.parent))

@@ -212,7 +212,7 @@ def test_a_checkpoint_that_does_not_fit_raises(tmp_path, broken):
 @pytest.mark.parametrize("key,value", [
     ("TRAIN.SUMMARY_PERIOD", 10), ("TRAIN.LOG_HISTOGRAM", True),
     ("TPU.NUM_DEVICES", 4), ("TPU.MODEL_PARALLEL", 2),
-    ("TPU.ZERO_OPTIMIZER", True)])
+    ("TPU.ZERO_OPTIMIZER", True), ("TPU.REMAT_VIT", True)])
 def test_keys_the_port_does_not_honour_raise(key, value):
     assert key in {k for k, _, _ in UNPORTED_KEYS}
     cfg = tiny_cfg(get_default_cfg)

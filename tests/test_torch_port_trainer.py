@@ -2,6 +2,7 @@
 small config of ``test_torch_port_common.tiny_cfg``: 4 SyntheticSCN scans
 of ~900 points, batch 2, f32."""
 
+import json
 import math
 
 import numpy as np
@@ -72,6 +73,33 @@ def test_train_validate_checkpoint_resume(tmp_path):
         assert torch.equal(s["exp_avg"], st2["state"][i]["exp_avg"])
     tr2.train()
     assert tr2.step == 4
+
+
+def test_each_epochs_log_line_carries_the_previous_validation(tmp_path):
+    """As the JAX trainer: ``metrics.jsonl``'s line for epoch e is written
+    before epoch e validates, so epoch 0's has no ``val/`` meter and epoch
+    1's carries epoch 0's validation."""
+    cfg = trainer_cfg(tmp_path, **{"SCHEDULER.MAX_EPOCH": 2})
+    tr = SemanticTrainer(cfg, str(tmp_path), device="cpu")
+    seen = []
+    validate = tr.validate_for_one_epoch
+
+    def recording(epoch):
+        ran = validate(epoch)
+        seen.append({k: float(m.global_avg)
+                     for k, m in tr.val_metric_logger.meters.items()})
+        return ran
+
+    tr.validate_for_one_epoch = recording
+    tr.train()
+    lines = [json.loads(x) for x in
+             (tmp_path / "metrics.jsonl").read_text().splitlines()]
+    assert [x["epoch"] for x in lines] == [0, 1]
+    assert not [k for k in lines[0] if k.startswith("val/")]
+    assert {k[4:]: v for k, v in lines[1].items()
+            if k.startswith("val/")} == seen[0]
+    assert seen[0] and seen[0] != seen[1]
+    assert "train/total_loss" in lines[0]
 
 
 def test_non_finite_loss_stops_the_run(tmp_path):
