@@ -121,6 +121,28 @@ trainer's captures):
     ``configs/nuscenes/middlefusion.yaml`` (5 classes, 400 x 225, batch 8):
     2 steps and a validation, finite losses, no lost point, predictions in
     [0, 5);
+20. the uni-modal models on the same trees, each config as shipped but
+    for its directories, each path's launch counts set to 0 just before it
+    and read just after:
+    20a ``lidar.yaml`` (LidarSeg: SPVCNN cr 1.0 alone, batch 10, bf16):
+    ``train.py`` (2 steps and a validation), K1 / K2 / K3 / K3' launches
+    held exactly against the trainer's captures, validation's ms a scan,
+    one train replay bit for bit the eager step, the replay's time, its
+    kernels by name and busy share, the training window at 0 and 6
+    workers, every K1 and K2 call of one bf16 step against its plain
+    version; ``test.py`` (batch 1) equal to an in-process ``validate``;
+    ``InferenceEngine`` for 8 requests at batch 1 through its graphs (K1 /
+    K3 launches held against its captures and counted in the replays,
+    ``pred`` == ``pred_3d``), its f32 logits on the card (TF32 off) within
+    2e-3 of the CPU's;
+    20b ``nuscenes/lidar.yaml``: 2 steps and a validation, launches held
+    as in 20a, predictions in [0, 5);
+    20c ``imageBilinear.yaml`` (the ViT alone): 2 steps and a validation,
+    batches without slot maps (their host collate timed), no hand-written
+    kernel launched, one train replay bit for bit the eager step;
+    ``InferenceEngine`` for 8 requests;
+    20d ``image.yaml`` (the STN ``ImageSeg``): as 20c without the engine,
+    with the peak device memory;
 
 then the tool kernels, the port's counterparts of the JAX tools' Pallas
 kernels:
@@ -166,7 +188,10 @@ kernels:
     and dW bounds, the CUDA-core route's times on the same bf16 operands,
     and the tensor-core launches on the path (``dw_launches``,
     ``fwd_mma_launches``); K1 / K2 / K3 / K3' and the per-voxel pair
-    their kernels in one train-graph replay (``train_replay_kernels``).
+    their kernels in one train-graph replay (``train_replay_kernels``),
+    and K1 / K2 / K3 / K3' those of the lidar-only model's replay and its
+    training path's launches (``lidar_train_replay_kernels``,
+    ``lidar_launches``, phase 20a).
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -496,7 +521,9 @@ def slot_convs(model, hier):
                 "stage3": 3, "stage4": 4, "up1": 3, "up2": 2, "up3": 1,
                 "up4": 0}
     out = []
-    for name, m in model.lidar_backbone.backbone.named_modules():
+    backbone = (model.lidar_backbone.backbone
+                if hasattr(model, "lidar_backbone") else model.backbone)
+    for name, m in backbone.named_modules():
         if isinstance(m, SubMConv3):
             level = level_of[name.split("_")[0]]
             if hier.levels[level].slot_idx is not None:
@@ -889,7 +916,7 @@ def drive_engine(engine, recs, card, per_run, per_replay):
     captures = stats["captures"]
     for rec, out in zip(recs, outs):
         n = len(rec["points"])
-        for key in ("labels", "labels_2d", "labels_3d"):
+        for key in (k for k in out if k.startswith("labels")):
             lab = out[key]
             if lab.shape != (n,) or lab.min() < 0 or lab.max() >= 20:
                 raise AssertionError(f"{key}: shape {lab.shape}, range "
@@ -957,8 +984,10 @@ def drive_engine(engine, recs, card, per_run, per_replay):
             "replay_launches": replay_launches,
             "kernels_per_request": per_request,
             "request_split_ms": split_ms,
+            # The split of the eager step into its streams: fusion models.
             "step_breakdown": step_breakdown(
-                engine, device_batch(host_batch, engine.device)),
+                engine, device_batch(host_batch, engine.device))
+            if hasattr(engine.model, "lidar_backbone") else None,
             "replay_breakdown": replay_breakdown(engine, host_batch)}
 
 
@@ -2848,6 +2877,7 @@ def phase_server():
 # through the port's preprocessors, train.py and test.py.
 
 NUSCENES_CONFIG = "configs/nuscenes/middlefusion.yaml"
+ONE_EPOCH = ["SCHEDULER.MAX_EPOCH", "1", "VAL.PERIOD", "1"]
 # Raw trees (tools/fabricate.py): SemanticKITTI frames in the regular
 # splits' sequences (train 00, val 07, test 08), 370 x 1226 PNGs, ~21,300
 # in-frustum points a frame from 36,000 rays; NuScenes samples of ~10,000
@@ -2941,10 +2971,13 @@ def trained_losses(trainer, n_steps):
     if trainer.step != n_steps:
         raise AssertionError(f"{trainer.step} train steps, expected "
                              f"{n_steps}")
-    losses = {k: meters[k].global_avg for k in LOSS_KEYS}
-    if not all(np.isfinite(v) for v in losses.values()):
-        raise AssertionError(f"non-finite losses {losses}")
-    overflow = {k: meters[k].sum for k in ("voxel_overflow", "slot_overflow")}
+    losses = {k: meters[k].global_avg for k in LOSS_KEYS if k in meters}
+    want = {"total_loss", *(f"seg_loss_{m}" for m in trainer.modalities)}
+    if not want <= set(losses) or not all(np.isfinite(v)
+                                          for v in losses.values()):
+        raise AssertionError(f"losses {losses}, expected finite {want}")
+    overflow = {k: meters[k].sum for k in ("voxel_overflow", "slot_overflow")
+                if k in meters}
     if any(overflow.values()):
         raise AssertionError(f"lossy train steps: {overflow}")
     val = trainer.val_metric_logger.meters
@@ -2994,11 +3027,22 @@ def kitti_windows(trainer, cfg, workers):
     return out
 
 
-def phase_kitti(card, convs_per_step, k3_name, k3e8_name):
-    """Phase 18: ``middlefusion.yaml`` on a SemanticKITTI-format tree."""
+def kitti_args(kitti_dirs, out):
+    """The overrides that point a SemanticKITTI config at a fabricated,
+    preprocessed tree and an output directory."""
+    raw, pre = kitti_dirs
+    return ["OUTPUT_DIR", out, "DATASET.SemanticKITTISCN.preprocess_dir", pre,
+            "DATASET.SemanticKITTISCN.semantic_kitti_dir", raw]
+
+
+def test_cli_run(config, dirs, ckpt, n_test, k3_name):
+    """``test.py`` on ``ckpt`` as a user runs it (batch 1), with every
+    launch count set to 0 just before and read just after (the binned conv
+    and K3 launched where the model has the 3D stream, no backward; none
+    without it); no lost point; then the same checkpoint through an
+    in-process ``validate``: the same confusion matrices, every prediction
+    a raw SemanticKITTI id after the inverse map."""
     import logging
-    import os
-    import tempfile
 
     import numpy as np
     import torch
@@ -3009,136 +3053,149 @@ def phase_kitti(card, convs_per_step, k3_name, k3e8_name):
     from fusiontransformer_tpu_torch.models.build import build_model
     from fusiontransformer_tpu_torch.modules.SemanticTrainer import (
         StepRunner)
-    from fusiontransformer_tpu_torch.modules.steps import (device_batch,
-                                                           hier_from_cfg)
     from fusiontransformer_tpu_torch.ops.kernels import (LAUNCHES,
                                                          reset_launches)
+    from fusiontransformer_tpu_torch.train import load_cfg
+    from fusiontransformer_tpu_torch.utils.metric_logger import MetricLogger
+    res = {}
+    tcfg = load_cfg(config, dirs)
+    reset_launches()
+    t0 = time.perf_counter()
+    with cli_logging():
+        tested = test_cli.main(["--cfg", config, "--ckpt", ckpt, *dirs])
+    torch.cuda.synchronize()
+    res["test_s"] = time.perf_counter() - t0
+    res["test_launches"] = dict(LAUNCHES)
+    lidar = tcfg.MODEL.USE_LIDAR
+    check_launches("test path", res["test_launches"], {
+        "binned_conv_grouped_fwd": None if lidar else 0,
+        k3_name: None if lidar else 0, "binned_conv_grouped_bwd": 0})
+    meters = tested["meters"].meters
+    if meters["collate_dropped"].global_avg or \
+            meters["oob_points"].global_avg:
+        raise AssertionError("test.py lost points")
+    res["test_ms_a_scan"] = res["test_s"] * 1e3 / n_test
+    res["test_batch_ms"] = meters["time"].global_avg * 1e3
+    res["test_captures"] = tested["captures"]
+    res["test_iou"] = {m: ev.overall_iou
+                       for m, ev in tested["evaluators"].items()}
+    model = build_model(tcfg, "cuda")
+    model.load_state_dict(torch.load(ckpt, map_location="cpu",
+                                     weights_only=True)["model"])
+    runner = StepRunner(tcfg, model, next(model.parameters()).device,
+                        logging.getLogger("chip_smoke"))
+    loader = build_dataloader(tcfg, "test")
+    mapped = []
+    inverse = loader.dataset.map_inverse_label
+    loader.dataset.map_inverse_label = \
+        lambda x: mapped.append(inverse(x)) or mapped[-1]
+    again = dict(validate(tcfg, runner.run_eval_batch, loader,
+                          MetricLogger(), log_tables=False))
+    raw_ids = set(L.LABELS)
+    if not mapped or any(set(np.unique(m)) - raw_ids for m in mapped):
+        raise AssertionError("a validated prediction is not a raw "
+                             "SemanticKITTI id")
+    if again.keys() != tested["evaluators"].keys():
+        raise AssertionError(f"test.py scored {list(tested['evaluators'])}"
+                             f", validate {list(again)}")
+    for m, ev in again.items():
+        if not np.array_equal(ev.confusion_matrix,
+                              tested["evaluators"][m].confusion_matrix):
+            raise AssertionError(f"test.py's {m} confusion matrix "
+                                 f"differs from an in-process validate")
+    del runner, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_kitti(card, convs_per_step, k3_name, k3e8_name, work):
+    """Phase 18: ``middlefusion.yaml`` on a SemanticKITTI-format tree, made
+    under ``work`` (phase 20 reads it again)."""
+    import os
+
+    import numpy as np
+    import torch
+    from fusiontransformer_tpu_torch.data.build import build_dataloader
+    from fusiontransformer_tpu_torch.modules.steps import (device_batch,
+                                                           hier_from_cfg)
     from fusiontransformer_tpu_torch.tools.fabricate import (KITTI_FRAMES,
                                                              make_kitti)
     from fusiontransformer_tpu_torch.train import load_cfg
-    from fusiontransformer_tpu_torch.utils.metric_logger import MetricLogger
     res = {"card": card}
-    with tempfile.TemporaryDirectory(prefix="ftx_kitti_") as work:
-        raw, pre, out = (os.path.join(work, d) for d in ("raw", "pre", "out"))
-        t0 = time.perf_counter()
-        make_kitti(raw, KITTI_FRAMES, rays=KITTI_RAYS)
-        res["fabricate_s"] = time.perf_counter() - t0
-        frames = sum(KITTI_FRAMES.values())
-        t0 = time.perf_counter()
-        subprocess.run([sys.executable, "-m", "fusiontransformer_tpu_torch."
-                        "data.semantic_kitti.preprocess", "--root", raw,
-                        "--out", pre, "--workers", "6"], check=True,
-                       capture_output=True, text=True, timeout=600,
-                       cwd=os.path.dirname(os.path.abspath(__file__)))
-        res["preprocess_ms_a_frame"] = (time.perf_counter() - t0) * 1e3 \
-            / frames
-        dirs = ["OUTPUT_DIR", out,
-                "DATASET.SemanticKITTISCN.preprocess_dir", pre,
-                "DATASET.SemanticKITTISCN.semantic_kitti_dir", raw]
-        run = ["SCHEDULER.MAX_EPOCH", "1", "VAL.PERIOD", "1"]
-        cfg = load_cfg(CONFIG, dirs + run)
-        steps = -(-KITTI_FRAMES["00"] // cfg.TRAIN.BATCH_SIZE)
-        trainer, launches, train_s = train_cli_run(
-            ["--cfg", CONFIG, "--run_name", "kitti", *dirs, *run])
-        losses, overflow, lost = trained_losses(trainer, steps)
-        captures = dict(trainer.captures)
-        check_launches("real-format training path", launches,
-                       trainer_launches_expected(captures, convs_per_step,
-                                                 k3_name, k3e8_name))
-        res.update(train_s=train_s, losses=losses, overflow=overflow,
-                   lost=lost, captures=captures, launches=launches,
-                   capture_s=graph_seconds(trainer))
-        log(f"  SemanticKITTI-format tree: {frames} frames fabricated in "
-            f"{res['fabricate_s']:.1f} s, preprocess CLI "
-            f"{res['preprocess_ms_a_frame']:.1f} ms a frame; train.py "
-            f"({steps} steps of {cfg.TRAIN.BATCH_SIZE} + validation) in "
-            f"{train_s:.1f} s: losses {losses}, overflow {overflow}, "
-            f"validation lost {lost}; captures {captures} "
-            f"({res['capture_s']} s); launches {launches}")
-        ds = trainer.train_dataloader.dataset
-        t0 = time.perf_counter()
-        for i in range(len(ds)):
-            np.random.seed(i)
-            ds[i]
-        res["item_ms"] = (time.perf_counter() - t0) * 1e3 / len(ds)
-        t0 = time.perf_counter()
-        trainer.validate_for_one_epoch(0)
-        torch.cuda.synchronize()
-        res["validate_ms_a_scan"] = (time.perf_counter() - t0) * 1e3 \
-            / len(trainer.val_dataloader.dataset)
-        res["windows"] = kitti_windows(trainer, cfg, 6)
-        # One real-format batch: the eval replay against the eager eval
-        # step, then K1 and K3 on its maps against their plain versions.
-        hb = next(iter(build_dataloader(cfg, "val")))
-        res["eval_replay_captures"] = eval_replays_equal_eager(trainer, [hb])
-        hier = hier_from_cfg(cfg, device_batch(hb, trainer.device),
-                             trainer.level_caps(hb))
-        gen = torch.Generator().manual_seed(18)
-        res["k1_rows"], k1, _ = phase_k1(hier, trainer.model, gen,
-                                         per="real-format batch")
-        res["k3_rows"], k3 = phase_k3(hier, gen)
-        res["k1"] = {k: k1[k] for k in ("ms", "plain_ms", "bound_ms",
-                                        "max_abs_err", "max_share")}
-        res["k3"] = {k: k3[k] for k in ("ms", "plain_ms", "bound_ms",
-                                        "max_abs_err")}
-        ckpt = os.path.join(out, "kitti", "model000000.pth")
-        del trainer, hier
-        torch.cuda.empty_cache()
-        log(f"  item {res['item_ms']:.1f} ms a scan (SyntheticSCN "
-            f"{SYNTHETIC_ITEM_MS}); validate {res['validate_ms_a_scan']:.1f} "
-            f"ms a scan; windows " + ", ".join(
-                f"{k}: {v['scans_per_s']:.3f} train scans/s "
-                f"({v['captures']} captures)"
-                for k, v in res["windows"].items())
-            + f"; the eval replay of a real-format batch bit for bit the "
-            f"eager eval step; {card}")
+    os.makedirs(work, exist_ok=True)
+    raw, pre, out = (os.path.join(work, d) for d in ("raw", "pre", "out"))
+    t0 = time.perf_counter()
+    make_kitti(raw, KITTI_FRAMES, rays=KITTI_RAYS)
+    res["fabricate_s"] = time.perf_counter() - t0
+    frames = sum(KITTI_FRAMES.values())
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "fusiontransformer_tpu_torch."
+                    "data.semantic_kitti.preprocess", "--root", raw,
+                    "--out", pre, "--workers", "6"], check=True,
+                   capture_output=True, text=True, timeout=600,
+                   cwd=os.path.dirname(os.path.abspath(__file__)))
+    res["preprocess_ms_a_frame"] = (time.perf_counter() - t0) * 1e3 \
+        / frames
+    dirs = kitti_args((raw, pre), out)
+    cfg = load_cfg(CONFIG, dirs + ONE_EPOCH)
+    steps = -(-KITTI_FRAMES["00"] // cfg.TRAIN.BATCH_SIZE)
+    trainer, launches, train_s = train_cli_run(
+        ["--cfg", CONFIG, "--run_name", "kitti", *dirs, *ONE_EPOCH])
+    losses, overflow, lost = trained_losses(trainer, steps)
+    captures = dict(trainer.captures)
+    check_launches("real-format training path", launches,
+                   trainer_launches_expected(captures, convs_per_step,
+                                             k3_name, k3e8_name))
+    res.update(train_s=train_s, losses=losses, overflow=overflow,
+               lost=lost, captures=captures, launches=launches,
+               capture_s=graph_seconds(trainer))
+    log(f"  SemanticKITTI-format tree: {frames} frames fabricated in "
+        f"{res['fabricate_s']:.1f} s, preprocess CLI "
+        f"{res['preprocess_ms_a_frame']:.1f} ms a frame; train.py "
+        f"({steps} steps of {cfg.TRAIN.BATCH_SIZE} + validation) in "
+        f"{train_s:.1f} s: losses {losses}, overflow {overflow}, "
+        f"validation lost {lost}; captures {captures} "
+        f"({res['capture_s']} s); launches {launches}")
+    ds = trainer.train_dataloader.dataset
+    t0 = time.perf_counter()
+    for i in range(len(ds)):
+        np.random.seed(i)
+        ds[i]
+    res["item_ms"] = (time.perf_counter() - t0) * 1e3 / len(ds)
+    t0 = time.perf_counter()
+    trainer.validate_for_one_epoch(0)
+    torch.cuda.synchronize()
+    res["validate_ms_a_scan"] = (time.perf_counter() - t0) * 1e3 \
+        / len(trainer.val_dataloader.dataset)
+    res["windows"] = kitti_windows(trainer, cfg, 6)
+    # One real-format batch: the eval replay against the eager eval
+    # step, then K1 and K3 on its maps against their plain versions.
+    hb = next(iter(build_dataloader(cfg, "val")))
+    res["eval_replay_captures"] = eval_replays_equal_eager(trainer, [hb])
+    hier = hier_from_cfg(cfg, device_batch(hb, trainer.device),
+                         trainer.level_caps(hb))
+    gen = torch.Generator().manual_seed(18)
+    res["k1_rows"], k1, _ = phase_k1(hier, trainer.model, gen,
+                                     per="real-format batch")
+    res["k3_rows"], k3 = phase_k3(hier, gen)
+    res["k1"] = {k: k1[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "max_abs_err", "max_share")}
+    res["k3"] = {k: k3[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "max_abs_err")}
+    ckpt = os.path.join(out, "kitti", "model000000.pth")
+    del trainer, hier
+    torch.cuda.empty_cache()
+    log(f"  item {res['item_ms']:.1f} ms a scan (SyntheticSCN "
+        f"{SYNTHETIC_ITEM_MS}); validate {res['validate_ms_a_scan']:.1f} "
+        f"ms a scan; windows " + ", ".join(
+            f"{k}: {v['scans_per_s']:.3f} train scans/s "
+            f"({v['captures']} captures)"
+            for k, v in res["windows"].items())
+        + f"; the eval replay of a real-format batch bit for bit the "
+        f"eager eval step; {card}")
 
-        reset_launches()
-        t0 = time.perf_counter()
-        with cli_logging():
-            tested = test_cli.main(["--cfg", CONFIG, "--ckpt", ckpt, *dirs])
-        torch.cuda.synchronize()
-        res["test_s"] = time.perf_counter() - t0
-        res["test_launches"] = dict(LAUNCHES)
-        check_launches("test path", res["test_launches"],
-                       {"binned_conv_grouped_fwd": None, k3_name: None,
-                        "binned_conv_grouped_bwd": 0})
-        meters = tested["meters"].meters
-        if meters["collate_dropped"].global_avg or \
-                meters["oob_points"].global_avg:
-            raise AssertionError("test.py lost points")
-        n_test = KITTI_FRAMES["08"]
-        res["test_ms_a_scan"] = res["test_s"] * 1e3 / n_test
-        res["test_batch_ms"] = meters["time"].global_avg * 1e3
-        res["test_captures"] = tested["captures"]
-        res["test_iou"] = {m: ev.overall_iou
-                           for m, ev in tested["evaluators"].items()}
-        # The same checkpoint through an in-process validate: the same
-        # matrices, and every prediction a raw SemanticKITTI id.
-        tcfg = load_cfg(CONFIG, dirs)
-        model = build_model(tcfg, "cuda")
-        model.load_state_dict(torch.load(ckpt, map_location="cpu",
-                                         weights_only=True)["model"])
-        runner = StepRunner(tcfg, model, next(model.parameters()).device,
-                            logging.getLogger("chip_smoke"))
-        loader = build_dataloader(tcfg, "test")
-        mapped = []
-        inverse = loader.dataset.map_inverse_label
-        loader.dataset.map_inverse_label = \
-            lambda x: mapped.append(inverse(x)) or mapped[-1]
-        again = dict(validate(tcfg, runner.run_eval_batch, loader,
-                              MetricLogger(), log_tables=False))
-        raw_ids = set(L.LABELS)
-        if not mapped or any(set(np.unique(m)) - raw_ids for m in mapped):
-            raise AssertionError("a validated prediction is not a raw "
-                                 "SemanticKITTI id")
-        for m, ev in again.items():
-            if not np.array_equal(ev.confusion_matrix,
-                                  tested["evaluators"][m].confusion_matrix):
-                raise AssertionError(f"test.py's {m} confusion matrix "
-                                     f"differs from an in-process validate")
-        del runner, model
-        torch.cuda.empty_cache()
+    n_test = KITTI_FRAMES["08"]
+    res.update(test_cli_run(CONFIG, dirs, ckpt, n_test, k3_name))
     log(f"  test.py on the checkpoint: {n_test} scans at batch 1 in "
         f"{res['test_s']:.1f} s (model build, checkpoint load and "
         f"{res['test_captures']} eval captures included; "
@@ -3146,14 +3203,14 @@ def phase_kitti(card, convs_per_step, k3_name, k3e8_name):
         f"{res['test_iou']}, its confusion matrices equal an in-process "
         f"validate's; every prediction a raw SemanticKITTI id; launches "
         f"{res['test_launches']}; {card}")
+    res["kitti_dirs"] = (raw, pre)
     return res
 
 
-def phase_nuscenes(card, convs_per_step, k3_name, k3e8_name):
+def phase_nuscenes(card, convs_per_step, k3_name, k3e8_name, work):
     """Phase 19: ``configs/nuscenes/middlefusion.yaml`` on a NuScenes-format
-    database."""
+    database, made under ``work`` (phase 20 reads it again)."""
     import os
-    import tempfile
 
     import numpy as np
     import torch
@@ -3163,54 +3220,53 @@ def phase_nuscenes(card, convs_per_step, k3_name, k3e8_name):
     from fusiontransformer_tpu_torch.tools.fabricate import FakeNuScenes
     from fusiontransformer_tpu_torch.train import load_cfg
     res = {"card": card}
-    with tempfile.TemporaryDirectory(prefix="ftx_nuscenes_") as work:
-        root, out = os.path.join(work, "nusc"), os.path.join(work, "out")
-        t0 = time.perf_counter()
-        nusc = FakeNuScenes(root, NUSCENES_SCENES, rays=NUSCENES_RAYS)
-        res["fabricate_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        preprocess(nusc, ["train", "test"], root, out, location="boston",
-                   subset_name="usa")
-        preprocess(nusc, ["train", "val", "test"], root, out,
-                   location="singapore", subset_name="singapore")
-        res["preprocess_ms_a_sample"] = (time.perf_counter() - t0) * 1e3 \
-            / len(nusc.sample)
-        dirs = ["OUTPUT_DIR", os.path.join(work, "logs"),
-                "DATASET.NuScenesSCN.preprocess_dir",
-                os.path.join(out, "preprocess"),
-                "DATASET.NuScenesSCN.nuscenes_dir", root]
-        run = ["SCHEDULER.MAX_EPOCH", "1", "VAL.PERIOD", "1"]
-        cfg = load_cfg(NUSCENES_CONFIG, dirs + run)
-        steps = -(-NUSCENES_SCENES[0][3] // cfg.TRAIN.BATCH_SIZE)
-        trainer, launches, train_s = train_cli_run(
-            ["--cfg", NUSCENES_CONFIG, "--run_name", "nuscenes", *dirs,
-             *run])
-        losses, overflow, lost = trained_losses(trainer, steps)
-        captures = dict(trainer.captures)
-        check_launches("NuScenes training path", launches,
-                       trainer_launches_expected(captures, convs_per_step,
-                                                 k3_name, k3e8_name))
-        hb = next(iter(build_dataloader(cfg, "val")))
-        got = trainer.run_eval_batch(hb).numpy()
-        valid = hb["pt_valid"]
-        n_cls = cfg.MODEL.NUM_CLASSES
-        for key in ("pred_2d", "pred_3d", "pred_ensemble"):
-            p = got[key][valid]
-            if not (p.size and p.min() >= 0 and p.max() < n_cls):
-                raise AssertionError(f"{key} outside [0, {n_cls})")
-        ds = trainer.train_dataloader.dataset
-        t0 = time.perf_counter()
-        for i in range(len(ds)):
-            np.random.seed(i)
-            ds[i]
-        res.update(train_s=train_s, losses=losses, overflow=overflow,
-                   lost=lost, captures=captures, launches=launches,
-                   capture_s=graph_seconds(trainer),
-                   item_ms=(time.perf_counter() - t0) * 1e3 / len(ds),
-                   points_a_scan=float(hb["scan_count"].mean()),
-                   image=list(hb["img"].shape[1:3]))
-        del trainer
-        torch.cuda.empty_cache()
+    os.makedirs(work, exist_ok=True)
+    root, out = os.path.join(work, "nusc"), os.path.join(work, "out")
+    t0 = time.perf_counter()
+    nusc = FakeNuScenes(root, NUSCENES_SCENES, rays=NUSCENES_RAYS)
+    res["fabricate_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    preprocess(nusc, ["train", "test"], root, out, location="boston",
+               subset_name="usa")
+    preprocess(nusc, ["train", "val", "test"], root, out,
+               location="singapore", subset_name="singapore")
+    res["preprocess_ms_a_sample"] = (time.perf_counter() - t0) * 1e3 \
+        / len(nusc.sample)
+    dirs = ["OUTPUT_DIR", os.path.join(work, "logs"),
+            "DATASET.NuScenesSCN.preprocess_dir",
+            os.path.join(out, "preprocess"),
+            "DATASET.NuScenesSCN.nuscenes_dir", root]
+    cfg = load_cfg(NUSCENES_CONFIG, dirs + ONE_EPOCH)
+    steps = -(-NUSCENES_SCENES[0][3] // cfg.TRAIN.BATCH_SIZE)
+    trainer, launches, train_s = train_cli_run(
+        ["--cfg", NUSCENES_CONFIG, "--run_name", "nuscenes", *dirs,
+         *ONE_EPOCH])
+    losses, overflow, lost = trained_losses(trainer, steps)
+    captures = dict(trainer.captures)
+    check_launches("NuScenes training path", launches,
+                   trainer_launches_expected(captures, convs_per_step,
+                                             k3_name, k3e8_name))
+    hb = next(iter(build_dataloader(cfg, "val")))
+    got = trainer.run_eval_batch(hb).numpy()
+    valid = hb["pt_valid"]
+    n_cls = cfg.MODEL.NUM_CLASSES
+    for key in ("pred_2d", "pred_3d", "pred_ensemble"):
+        p = got[key][valid]
+        if not (p.size and p.min() >= 0 and p.max() < n_cls):
+            raise AssertionError(f"{key} outside [0, {n_cls})")
+    ds = trainer.train_dataloader.dataset
+    t0 = time.perf_counter()
+    for i in range(len(ds)):
+        np.random.seed(i)
+        ds[i]
+    res.update(train_s=train_s, losses=losses, overflow=overflow,
+               lost=lost, captures=captures, launches=launches,
+               capture_s=graph_seconds(trainer),
+               item_ms=(time.perf_counter() - t0) * 1e3 / len(ds),
+               points_a_scan=float(hb["scan_count"].mean()),
+               image=list(hb["img"].shape[1:3]))
+    del trainer
+    torch.cuda.empty_cache()
     log(f"  NuScenes-format database: {len(nusc.sample)} samples "
         f"fabricated in {res['fabricate_s']:.1f} s, preprocess "
         f"{res['preprocess_ms_a_sample']:.1f} ms a sample; item "
@@ -3220,6 +3276,260 @@ def phase_nuscenes(card, convs_per_step, k3_name, k3e8_name):
         f"{losses}, overflow {overflow}, validation lost {lost}, every "
         f"prediction in [0, {n_cls}); captures {captures} "
         f"({res['capture_s']} s); launches {launches}; {card}")
+    res["nuscenes_dirs"] = (root, os.path.join(out, "preprocess"))
+    return res
+
+
+# --------------------------------------------------------------------------- #
+# Phase 20: the uni-modal models, the paper's baselines, on the trees of
+# phases 18 and 19, each config as shipped but for its directories.
+
+LIDAR_CONFIG = "configs/semantic_kitti/lidar.yaml"
+NUSCENES_LIDAR_CONFIG = "configs/nuscenes/lidar.yaml"
+IMAGE_CONFIG = "configs/semantic_kitti/imageBilinear.yaml"
+STN_CONFIG = "configs/semantic_kitti/image.yaml"
+# The lidar engine's f32 logits, card (TF32 off) against the CPU: the
+# full-model bound of PARITY.md.
+PARITY_ATOL = 2e-3
+
+
+def first_train_batch(cfg, epoch=0):
+    """The first batch the trainer's loader gives at ``epoch``."""
+    from fusiontransformer_tpu_torch.data.build import build_dataloader
+    loader = build_dataloader(cfg, mode="train")
+    loader.set_epoch(epoch)
+    try:
+        return next(iter(loader))
+    finally:
+        loader.close()
+
+
+def unimodal_train(label, config, dirs, n_train):
+    """``train.py`` with ``config`` (one epoch of ``n_train`` scans and a
+    validation) as ``train_cli_run`` runs it: finite losses of the model's
+    one stream, no overflow, no lost point.  Returns (cfg, trainer, its
+    record)."""
+    import torch
+    from fusiontransformer_tpu_torch.train import load_cfg
+    cfg = load_cfg(config, dirs + ONE_EPOCH)
+    steps = -(-n_train // cfg.TRAIN.BATCH_SIZE)
+    torch.cuda.reset_peak_memory_stats()
+    trainer, launches, train_s = train_cli_run(
+        ["--cfg", config, "--run_name", label, *dirs, *ONE_EPOCH])
+    losses, overflow, lost = trained_losses(trainer, steps)
+    if trainer.modalities != (["3d"] if cfg.MODEL.USE_LIDAR else ["2d"]):
+        raise AssertionError(f"{label}: modalities {trainer.modalities}")
+    rec = {"train_s": train_s, "steps": steps, "losses": losses,
+           "overflow": overflow, "lost": lost,
+           "captures": dict(trainer.captures), "launches": launches,
+           "capture_s": graph_seconds(trainer),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"  {label}: train.py ({steps} steps of {cfg.TRAIN.BATCH_SIZE} + "
+        f"validation) in {train_s:.1f} s: losses {losses}, overflow "
+        f"{overflow}, validation lost {lost}; captures {rec['captures']} "
+        f"({rec['capture_s']} s); launches {launches}; peak device memory "
+        f"{rec['peak_memory_gb']:.1f} GB")
+    return cfg, trainer, rec
+
+
+def lidar_convs(trainer, cfg, hb):
+    """The slot-map convs of one step of ``trainer``'s model on ``hb``."""
+    from fusiontransformer_tpu_torch.modules.steps import (device_batch,
+                                                           hier_from_cfg)
+    hier = hier_from_cfg(cfg, device_batch(hb, trainer.device),
+                         trainer.level_caps(hb))
+    return len(slot_convs(trainer.model, hier))
+
+
+def no_launches(what, launches):
+    if any(launches.values()):
+        raise AssertionError(f"{what} launched hand-written kernels: "
+                             f"{dict(launches)}")
+
+
+def phase_lidar_only(card, k3_name, k3e8_name, kitti_dirs, work):
+    """Phase 20a: ``lidar.yaml`` (LidarSeg: SPVCNN cr 1.0 and one linear
+    head, batch 10, bf16) trained, validated and tested, then served."""
+    import os
+
+    import numpy as np
+    import torch
+    from fusiontransformer_tpu_torch.models.build import build_model
+    from fusiontransformer_tpu_torch.modules.steps import (device_batch,
+                                                           hier_from_cfg)
+    from fusiontransformer_tpu_torch.ops.kernels.binned_conv import (
+        FWD_CORE_NAME, FWD_MMA_NAME)
+    from fusiontransformer_tpu_torch.serving.engine import InferenceEngine
+    from fusiontransformer_tpu_torch.tools.fabricate import KITTI_FRAMES
+    from fusiontransformer_tpu_torch.train import load_cfg
+    out = os.path.join(work, "lidar")
+    dirs = kitti_args(kitti_dirs, out)
+    cfg, trainer, res = unimodal_train("lidar", LIDAR_CONFIG, dirs,
+                                       KITTI_FRAMES["00"])
+    hb = first_train_batch(cfg)
+    caps = trainer.level_caps(hb)
+    convs = lidar_convs(trainer, cfg, hb)
+    check_launches("lidar-only training path", res["launches"],
+                   trainer_launches_expected(res["captures"], convs,
+                                             k3_name, k3e8_name))
+    t0 = time.perf_counter()
+    trainer.validate_for_one_epoch(0)
+    torch.cuda.synchronize()
+    res["validate_ms_a_scan"] = (time.perf_counter() - t0) * 1e3 \
+        / len(trainer.val_dataloader.dataset)
+    replays_equal_eager(trainer, [hb])
+    res["replay"] = train_replay_kernels(trainer, hb, convs)
+    res["windows"] = kitti_windows(trainer, cfg, 6)
+    res["bf16_step_calls"] = bf16_step_calls(
+        trainer, "grouped", device_batch(hb, trainer.device), caps, convs)
+    res["convs_per_step"] = convs
+    del trainer
+    torch.cuda.empty_cache()
+    log(f"  lidar-only: one train replay bit for bit the eager step; "
+        f"replay {res['replay']['replay_ms']:.2f} ms, busy share "
+        f"{res['replay']['busy_share']:.3f}; validate "
+        f"{res['validate_ms_a_scan']:.1f} ms a scan; windows " + ", ".join(
+            f"{k}: {v['scans_per_s']:.3f} train scans/s"
+            for k, v in res["windows"].items()) + f"; {card}")
+    n_test = KITTI_FRAMES["08"]
+    res.update(test_cli_run(LIDAR_CONFIG, dirs, os.path.join(
+        out, "lidar", "model000000.pth"), n_test, k3_name))
+    log(f"  lidar-only test.py: {n_test} scans at batch 1 in "
+        f"{res['test_s']:.1f} s, IoU {res['test_iou']}, its matrix equal "
+        f"to an in-process validate's, raw ids; launches "
+        f"{res['test_launches']}")
+
+    # Serving: 8 requests at batch 1 through the engine's graphs.
+    scfg = load_cfg(LIDAR_CONFIG, [])
+    engine = InferenceEngine(scfg, batch_size=1, seed=0)
+    recs = records(N_REQUESTS, N_POINTS, engine.image_height,
+                   engine.image_width)
+    sample = engine.preprocess(recs[0])
+    shier = hier_from_cfg(scfg, device_batch(engine.collate([sample]),
+                                             engine.device))
+    per_request = len(slot_convs(engine.model, shier))
+    del shier
+    res["engine"] = drive_engine(engine, recs, card, {
+        "binned_conv_grouped_fwd": per_request, FWD_MMA_NAME: per_request,
+        FWD_CORE_NAME: 0, k3_name: 2}, replay_kernels(per_request))
+    for rec in recs:
+        got = engine.predict(rec)
+        if set(got) != {"labels", "labels_3d", "in_frustum", "num_voxels"} \
+                or not np.array_equal(got["labels"], got["labels_3d"]):
+            raise AssertionError("the lidar engine's pred is not its "
+                                 "pred_3d")
+    # f32 on the card (TF32 off) against the plain path on the CPU.
+    cfg32 = scfg.clone()
+    cfg32.TPU.COMPUTE_DTYPE = "float32"
+    cfg32.freeze()
+    state = {k: v.cpu() for k, v in engine.model.state_dict().items()}
+    del engine
+    torch.cuda.empty_cache()
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg32, dev)
+        model.load_state_dict(state)
+        eng = InferenceEngine(cfg32, model=model, device=dev)
+        outs[dev] = {k: v.float().cpu()
+                     for k, v in eng.forward([sample])[1].items()}
+        del eng, model
+    torch.cuda.empty_cache()
+    diff = {k: (outs["cuda"][k] - outs["cpu"][k]).abs().max().item()
+            for k in outs["cpu"]}
+    res["f32_card_vs_cpu_max_abs"] = diff
+    log(f"  lidar engine, f32 on the card vs the CPU: max abs {diff} "
+        f"(bound {PARITY_ATOL}); pred == pred_3d on every request")
+    if not diff["lidar_seg_logit"] <= PARITY_ATOL:
+        raise AssertionError(f"f32 lidar logits differ by {diff}")
+    return res
+
+
+def phase_nuscenes_lidar(card, k3_name, k3e8_name, nus_dirs, work):
+    """Phase 20b: ``nuscenes/lidar.yaml`` (LidarSeg, 5 merged classes,
+    batch 8)."""
+    import os
+
+    import torch
+    from fusiontransformer_tpu_torch.data.build import build_dataloader
+    root, pre = nus_dirs
+    dirs = ["OUTPUT_DIR", os.path.join(work, "nuscenes_lidar"),
+            "DATASET.NuScenesSCN.preprocess_dir", pre,
+            "DATASET.NuScenesSCN.nuscenes_dir", root]
+    cfg, trainer, res = unimodal_train("nuscenes lidar",
+                                       NUSCENES_LIDAR_CONFIG, dirs,
+                                       NUSCENES_SCENES[0][3])
+    convs = lidar_convs(trainer, cfg, first_train_batch(cfg))
+    check_launches("NuScenes lidar-only training path", res["launches"],
+                   trainer_launches_expected(res["captures"], convs,
+                                             k3_name, k3e8_name))
+    hb = next(iter(build_dataloader(cfg, "val")))
+    got = trainer.run_eval_batch(hb).numpy()
+    n_cls = cfg.MODEL.NUM_CLASSES
+    p = got["pred_3d"][hb["pt_valid"]]
+    if set(got) != {"pred_3d", "seg_loss_3d"} or not (
+            p.size and p.min() >= 0 and p.max() < n_cls):
+        raise AssertionError(f"eval results {sorted(got)}, pred_3d in "
+                             f"[{p.min()}, {p.max()}] of {n_cls} classes")
+    del trainer
+    torch.cuda.empty_cache()
+    log(f"  NuScenes lidar-only: every prediction in [0, {n_cls}); {card}")
+    return res
+
+
+def phase_image_only(card, kitti_dirs, work, config, label, serve):
+    """Phase 20c / 20d: an image-only config on the SemanticKITTI tree:
+    batches without slot maps or level counts (their host collate timed),
+    no hand-written kernel launched, one train replay bit for bit the
+    eager step; with ``serve`` the engine for 8 requests."""
+    import os
+
+    import torch
+    from fusiontransformer_tpu_torch.ops.kernels import (LAUNCHES,
+                                                         reset_launches)
+    from fusiontransformer_tpu_torch.serving.engine import InferenceEngine
+    from fusiontransformer_tpu_torch.tools.fabricate import KITTI_FRAMES
+    from fusiontransformer_tpu_torch.train import load_cfg
+    dirs = kitti_args(kitti_dirs, os.path.join(work, label))
+    cfg, trainer, res = unimodal_train(label, config, dirs,
+                                       KITTI_FRAMES["00"])
+    no_launches(f"{label} training path", res["launches"])
+    hb = first_train_batch(cfg)
+    maps = [k for k in hb if k.startswith(("gslot_", "level_counts"))]
+    if maps:
+        raise AssertionError(f"{label} batches carry {maps}")
+    loader = trainer.train_dataloader
+    items = [loader.dataset[i] for i in range(cfg.TRAIN.BATCH_SIZE)]
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        loader.collate_fn(items)
+        times.append((time.perf_counter() - t0) * 1e3)
+    res["collate_ms_a_batch"] = statistics.median(times)
+    reset_launches()
+    replays_equal_eager(trainer, [hb])
+    res["replay_ms"] = cuda_ms(trainer.train_graphs.get(graph_key(
+        trainer, hb)).graph.replay, iters=3, reps=3)
+    no_launches(f"{label} replay check", LAUNCHES)
+    del trainer, items
+    torch.cuda.empty_cache()
+    log(f"  {label}: batches carry no slot maps nor level counts; host "
+        f"collate {res['collate_ms_a_batch']:.1f} ms a batch of "
+        f"{cfg.TRAIN.BATCH_SIZE} (host clock); one train replay bit for "
+        f"bit the eager step, replay {res['replay_ms']:.2f} ms (CUDA "
+        f"events); no hand-written kernel launched; {card}")
+    if serve:
+        scfg = load_cfg(config, [])
+        engine = InferenceEngine(scfg, batch_size=1, seed=0)
+        if engine._slot_pool is not None:
+            raise AssertionError("the image-only engine builds slot maps")
+        recs = records(N_REQUESTS, N_POINTS, engine.image_height,
+                       engine.image_width)
+        res["engine"] = drive_engine(engine, recs, card, {}, {
+            "binned_conv_fwd_mma_kernel": 0,
+            "sorted_segment_weighted_sum_kernel": 0})
+        no_launches(f"{label} engine", res["engine"]["launches"])
+        del engine
+        torch.cuda.empty_cache()
     return res
 
 
@@ -3533,14 +3843,48 @@ def main() -> int:
         "preprocess CLI -> train.py (middlefusion.yaml, batch "
         f"{TRAIN_BATCH}) -> validation -> test.py, bf16, through the "
         "trainer's CUDA graphs")
-    real = {"kitti": phase_kitti(card, convs_per_step, k3_name, k3e8_name)}
-    phase_end("18")
-    log("== 19. NuScenes-format data: fabricated database -> preprocess -> "
-        "train.py (nuscenes/middlefusion.yaml: 5 classes, 400 x 225, batch "
-        "8) -> validation, bf16")
-    real["nuscenes"] = phase_nuscenes(card, convs_per_step, k3_name,
-                                      k3e8_name)
-    phase_end("19")
+    import os
+    import shutil
+    import tempfile
+    work = tempfile.mkdtemp(prefix="ftx_real_")
+    try:
+        real = {"kitti": phase_kitti(card, convs_per_step, k3_name,
+                                     k3e8_name, os.path.join(work, "kitti"))}
+        phase_end("18")
+        log("== 19. NuScenes-format data: fabricated database -> preprocess "
+            "-> train.py (nuscenes/middlefusion.yaml: 5 classes, 400 x 225, "
+            "batch 8) -> validation, bf16")
+        real["nuscenes"] = phase_nuscenes(card, convs_per_step, k3_name,
+                                          k3e8_name,
+                                          os.path.join(work, "nuscenes"))
+        phase_end("19")
+
+        # ---- 20. the uni-modal models on the same trees
+        kitti_dirs = real["kitti"].pop("kitti_dirs")
+        nus_dirs = real["nuscenes"].pop("nuscenes_dirs")
+        unimodal = {}
+        log("== 20a. lidar.yaml (LidarSeg alone, batch 10, bf16): train.py "
+            "-> validation -> test.py, then InferenceEngine at batch 1")
+        unimodal["lidar"] = phase_lidar_only(card, k3_name, k3e8_name,
+                                             kitti_dirs, work)
+        phase_end("20a")
+        log("== 20b. nuscenes/lidar.yaml (LidarSeg, 5 classes, batch 8): "
+            "train.py -> validation")
+        unimodal["nuscenes_lidar"] = phase_nuscenes_lidar(
+            card, k3_name, k3e8_name, nus_dirs, work)
+        phase_end("20b")
+        log("== 20c. imageBilinear.yaml (ImageSegBilinear, DeiT-B/384, batch "
+            "10, bf16): train.py -> validation, then InferenceEngine")
+        unimodal["image_bilinear"] = phase_image_only(
+            card, kitti_dirs, work, IMAGE_CONFIG, "imageBilinear", True)
+        phase_end("20c")
+        log("== 20d. image.yaml (the STN ImageSeg, batch 10, bf16): train.py "
+            "-> validation")
+        unimodal["image_stn"] = phase_image_only(
+            card, kitti_dirs, work, STN_CONFIG, "image", False)
+        phase_end("20d")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     # ---- 12. the tool kernels behind the port's microbenches
     log("== 12. tool kernels: the port's microbenches (T1-T3 row gathers "
@@ -3638,7 +3982,8 @@ def main() -> int:
                         "flash_attention": flash_rows},
               "native_host": native_host, "graphs": graphs,
               "train_graphs": train_graphs,
-              "server": server, "real_format": real, "phase_s": phase_s}
+              "server": server, "real_format": real, "unimodal": unimodal,
+              "phase_s": phase_s}
     log("== 13. kernels (ms, plain_ms, bound_ms, library_ms: K1, K1' and K3 "
         "per inference request at batch 1 (K1 and K1' also per train step "
         "under train_step), K2, K2' and K3[E=8] per train "
@@ -3646,7 +3991,8 @@ def main() -> int:
         "bf16; launches from the path each entry is timed on: K1' from "
         "phase 10, K2' from phase 11 (the wrappers' in the trainer's eager "
         "runs and captures); train_replay_kernels: by name in one "
-        "train-graph replay, phase 17; T1-T3 one whole-level launch at L0 "
+        "train-graph replay, phase 17, and lidar_train_replay_kernels the "
+        "lidar-only model's, phase 20a; T1-T3 one whole-level launch at L0 "
         "plus one at L2, T4 12 chained calls at B=8, launches from the "
         "microbenches in phase 12)")
     log("detail: " + json.dumps(detail))
@@ -3656,9 +4002,22 @@ def main() -> int:
     per_replay = {c: train_graphs[c]["replay"]["by_name"]
                   for c in ("group-pooled", "per-voxel")}
 
+    lidar = unimodal["lidar"]
+
     def replay_of(config, *names):
-        return {"train_replay_kernels": {n: per_replay[config][n]
-                                         for n in names}}
+        """The kernels of one train replay by name: the flagship's in
+        ``config``, and for the group-pooled kernels the lidar-only
+        model's (phase 20a) with that path's launches."""
+        out = {"train_replay_kernels": {n: per_replay[config][n]
+                                        for n in names}}
+        if config == "group-pooled":
+            out["lidar_train_replay_kernels"] = {
+                n: lidar["replay"]["by_name"][n] for n in names}
+            out["lidar_launches"] = {
+                n: lidar["launches"].get(n, 0) for n in (
+                    "binned_conv_grouped_fwd", "binned_conv_grouped_bwd",
+                    k3_name, k3e8_name)}
+        return out
 
     fwd_names = ("binned_conv_fwd_mma_kernel",)
     bwd_names = ("bin_rows_kernel", "binned_conv_dw_mma_kernel",

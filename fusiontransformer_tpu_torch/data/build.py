@@ -9,10 +9,11 @@ other splits carry the original points' labels and inverse maps
 (``output_orig``) that validation scores.  A training ``bottom_crop``
 shrinks the batch's image buffer to the crop.  Then the padded collate with
 capacity buckets, per-level voxel counts when ``TPU.ADAPTIVE_LEVEL_CAPS`` is
-on, and host-built group-pooled slot maps when ``TPU.CONV_SLOT_POOL`` is on,
-in the loader: one prefetch thread with ``DATALOADER.NUM_WORKERS`` 0, else a
-pool of that many worker processes with max(1, NUM_WORKERS) batches of
-prefetch.  The real datasets read the trees their preprocessors write
+on, and host-built group-pooled slot maps when ``TPU.CONV_SLOT_POOL`` is on
+(both for the models with the 3D stream only), in the loader: one prefetch
+thread with ``DATALOADER.NUM_WORKERS`` 0, else a pool of that many worker
+processes with max(1, NUM_WORKERS) batches of prefetch.  The real datasets
+read the trees their preprocessors write
 (``data/semantic_kitti/preprocess.py``, ``data/nuscenes/preprocess.py``).
 """
 
@@ -38,10 +39,11 @@ DATASETS = {
 
 def slot_pool_spec(cfg, adaptive: bool):
     """The ``SlotPoolSpec`` of ``TPU.CONV_SLOT_POOL`` / ``CONV_TAP_SLOTS``,
-    or None when the config builds no group-pooled maps (then the batches
-    carry none, and the steps build per-voxel K-slot maps on the device)."""
+    or None when the config builds no group-pooled maps: then the batches
+    carry none, and the steps build per-voxel K-slot maps on the device, or
+    no hierarchy at all for a model without the 3D stream."""
     levels = [l for l, k in enumerate(cfg.TPU.CONV_TAP_SLOTS) if k]
-    if not (cfg.TPU.CONV_SLOT_POOL and levels):
+    if not (cfg.MODEL.USE_LIDAR and cfg.TPU.CONV_SLOT_POOL and levels):
         return None
     return SlotPoolSpec(levels, cfg.TPU.L0_CAPACITY_FRACTION,
                         cfg.TPU.LEVEL_CAPACITY_FRACTIONS,
@@ -83,7 +85,9 @@ def build_dataloader(cfg, mode="train", seed=0, batch_size=None):
     if buckets and max(buckets) != cfg.TPU.POINT_CAPACITY:
         raise ValueError(f"max(TPU.CAPACITY_BUCKETS)={max(buckets)} must "
                          f"equal TPU.POINT_CAPACITY={cfg.TPU.POINT_CAPACITY}")
-    adaptive = bool(cfg.TPU.ADAPTIVE_LEVEL_CAPS)
+    # Per-level voxel counts size the 3D stream's capacities; an image-only
+    # model builds no hierarchy and its batches carry none.
+    adaptive = bool(cfg.TPU.ADAPTIVE_LEVEL_CAPS and cfg.MODEL.USE_LIDAR)
     n_levels = 1 + len(cfg.TPU.LEVEL_CAPACITY_FRACTIONS)
     collate = get_collate(batch_size=batch_size,
                           point_capacity=cfg.TPU.POINT_CAPACITY,

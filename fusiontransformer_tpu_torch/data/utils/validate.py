@@ -12,8 +12,16 @@ import numpy as np
 
 from fusiontransformer_tpu_torch.data.utils.evaluate import Evaluator
 
-PREDICTIONS = (("2D", "pred_2d"), ("3D", "pred_3d"),
-               ("2D+3D", "pred_ensemble"))
+
+
+def predictions(cfg):
+    """``[(modality, result key), ...]`` of the config's model, in the JAX
+    package's order: 2D with the image stream, 3D with the 3D stream, and
+    the 2D+3D ensemble for a fusion model."""
+    m = cfg.MODEL
+    return [(mod, key) for use, mod, key in (
+        (m.USE_IMAGE, "2D", "pred_2d"), (m.USE_LIDAR, "3D", "pred_3d"),
+        (m.USE_FUSION, "2D+3D", "pred_ensemble")) if use]
 
 
 def map_sparse_to_org(x, inverse_map):
@@ -33,15 +41,17 @@ def map_sparse_to_org(x, inverse_map):
 
 def validate(cfg, run_batch, dataloader, val_metric_logger, log_tables=True,
              logger_name=None):
-    """Eval loop: per-class IoU of the 2D, 3D and 2D+3D ensemble predictions
-    on the original points (``fusiontransformer_tpu/data/utils/validate.py``
-    for the fusion models), with the dataset's inverse label map applied to
+    """Eval loop: per-class IoU on the original points of each prediction
+    the config's model makes (``predictions``: 2D, 3D and for a fusion
+    model the 2D+3D ensemble; ``fusiontransformer_tpu/data/utils/
+    validate.py``), with the dataset's inverse label map applied to
     predictions and labels (raw SemanticKITTI ids; ``map_inverse_label``
     None keeps the training ids).
 
     ``run_batch(host_batch)`` enqueues the eval step on one collated batch
-    and returns its results (``pred_2d``, ``pred_3d``, ``pred_ensemble``,
-    ``seg_loss_2d``, ``seg_loss_3d``) on their way to the host: a
+    and returns its results (the ``pred_*`` keys of ``predictions`` and the
+    present streams' ``seg_loss_2d`` / ``seg_loss_3d``) on their way to
+    the host: a
     ``modules.steps.Readback``, whose ``numpy()`` waits for them.  Batch k
     is read and scored after batch k+1 has been enqueued, so the card runs
     one batch while the host scores the one before (the JAX package's
@@ -52,8 +62,9 @@ def validate(cfg, run_batch, dataloader, val_metric_logger, log_tables=True,
     logger.info("Validation")
     dataset = dataloader.dataset
     inverse_label = dataset.map_inverse_label
+    preds = predictions(cfg)
     evaluators = {key: Evaluator(dataset.class_names, dataset.class_labels)
-                  for _, key in PREDICTIONS}
+                  for _, key in preds}
     totals = {"dropped": 0, "oob": 0, "points": 0}
 
     def consume(readback, batch, data_time, end, dispatched):
@@ -81,9 +92,9 @@ def validate(cfg, run_batch, dataloader, val_metric_logger, log_tables=True,
                 if inverse_label is not None:
                     pred = inverse_label(pred)
                 ev.update(pred, gt.copy())
-        val_metric_logger.update(time=batch_time, data=data_time,
-                                 seg_loss_3d=float(res["seg_loss_3d"]),
-                                 seg_loss_2d=float(res["seg_loss_2d"]))
+        val_metric_logger.update(time=batch_time, data=data_time, **{
+            k: float(res[k]) for k in ("seg_loss_3d", "seg_loss_2d")
+            if k in res})
 
     pending = None
     end = time.time()
@@ -107,9 +118,10 @@ def validate(cfg, run_batch, dataloader, val_metric_logger, log_tables=True,
         logger.warning("TPU.POINT_CAPACITY / CAPACITY_BUCKETS undersized for "
                        "this dataset: %d+%d points lost", dropped, oob)
     val_metric_logger.update(collate_dropped=dropped, oob_points=oob)
-    val_metric_logger.update(seg_iou_2d=evaluators["pred_2d"].overall_iou,
-                             seg_iou_3d=evaluators["pred_3d"].overall_iou)
-    eval_list = [(modality, evaluators[key]) for modality, key in PREDICTIONS]
+    val_metric_logger.update(**{
+        f"seg_iou_{key[-2:]}": evaluators[key].overall_iou
+        for key in ("pred_2d", "pred_3d") if key in evaluators})
+    eval_list = [(modality, evaluators[key]) for modality, key in preds]
     for modality, evaluator in (eval_list if log_tables else []):
         logger.info("%s overall accuracy=%.2f%%", modality,
                     100.0 * evaluator.overall_acc)

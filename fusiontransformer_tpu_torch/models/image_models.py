@@ -10,7 +10,8 @@ Port of ``fusiontransformer_tpu/models/image_models.py``:
   middle-block lifting that feeds the lidar stream.  ``_lift`` maps a
   point's full-resolution (row, col) to its token with integer
   ``(r * g) // H``, ``(c * g) // W``: the nearest-upsample-then-gather of
-  the reference, with no upsampled map in memory.
+  the reference, with no upsampled map in memory;
+* ``ImageSegBilinear`` — the image-only model around it.
 """
 
 from __future__ import annotations
@@ -129,3 +130,21 @@ class Net2DBilinear(nn.Module):
                 taps[str(self.middle_feat_block)])
             preds["img_middle_feats"] = self._lift(mid, img_indices, pt_batch)
         return preds
+
+
+class ImageSegBilinear(nn.Module):
+    """Image-only model: a ``Net2DBilinear`` named ``image_backbone``;
+    returns ``img_seg_logit`` (and ``img_seg_logit2`` with a dual head)."""
+
+    def __init__(self, num_classes: int, dual_head: bool, **kw):
+        super().__init__()
+        self.dual_head = dual_head
+        self.image_backbone = Net2DBilinear(num_classes=num_classes,
+                                            dual_head=dual_head, **kw)
+
+    def forward(self, batch, hier=None, generator=None):
+        preds = self.image_backbone(batch["img"], batch["img_indices"],
+                                    batch["pt_batch"])
+        keys = ("img_seg_logit", "img_seg_logit2") if self.dual_head \
+            else ("img_seg_logit",)
+        return {k: preds[k] for k in keys}

@@ -4,11 +4,12 @@ Port of ``fusiontransformer_tpu/modules/SemanticTrainer.py``: build the model
 (random weights from ``RNG_SEED``) and the train/val loaders, the optimizer
 and per-epoch LR schedule, the checkpointer (auto-resume); then per epoch:
 train (one train step per batch, capacities sized per batch from its voxel
-counts when ``TPU.ADAPTIVE_LEVEL_CAPS`` is on), log, validate (2D, 3D and
-the 2D+3D softmax-sum ensemble), track the best metric and checkpoint on
-it.  A non-finite loss stops the run with ``FloatingPointError``.  Metrics
-are read one step late, so the host queues the next step before it waits
-for the card.
+counts when ``TPU.ADAPTIVE_LEVEL_CAPS`` is on and the model has the 3D
+stream), log, validate (each present stream and, for a fusion model, the
+2D+3D softmax-sum ensemble), track the best metric of each present stream
+(``modalities``) and checkpoint on it.  A non-finite loss stops the run with
+``FloatingPointError``.  Metrics are read one step late, so the host queues
+the next step before it waits for the card.
 
 On the card the train and eval steps run as CUDA graphs, as the JAX trainer
 jits them once per input signature: one ``StepGraph`` per
@@ -75,7 +76,6 @@ from fusiontransformer_tpu_torch.utils.metric_logger import MetricLogger
 from fusiontransformer_tpu_torch.utils.torch_checkpoint import (
     load_pretrained_image)
 
-MODALITIES = ("2d", "3d")
 # Keys the port does not honour yet, the test that a key is set away from
 # its default, and the ROADMAP.md item that will port it.
 UNPORTED_KEYS = (
@@ -89,6 +89,15 @@ UNPORTED_KEYS = (
      "Queue 1 item 4 (tensor parallelism)"),
     ("TPU.ZERO_OPTIMIZER", bool, "Queue 1 item 4 (ZeRO)"),
 )
+
+
+def modalities(cfg):
+    """The streams the config's model has: ``["2d", "3d"]`` for a fusion
+    model, ``["3d"]`` for a lidar-only and ``["2d"]`` for an image-only
+    model (the JAX trainer's ``modalities``)."""
+    m = cfg.MODEL
+    return ["2d", "3d"] if m.USE_FUSION else ["3d"] if m.USE_LIDAR \
+        else ["2d"]
 
 
 def check_ported_keys(cfg):
@@ -114,7 +123,9 @@ class StepRunner:
         self.cfg, self.model, self.device = cfg, model, device
         self.logger = logger
         self.eval_step = make_eval_step(cfg, model)
-        self.adaptive_caps = bool(cfg.TPU.ADAPTIVE_LEVEL_CAPS)
+        # Capacities follow the batch only where there is a hierarchy.
+        self.adaptive_caps = bool(cfg.TPU.ADAPTIVE_LEVEL_CAPS
+                                  and cfg.MODEL.USE_LIDAR)
         self.eval_graphs = StepCache(cfg.TPU.STEP_CACHE_SIZE)
         self._pool = None
         self.captures = {"train": 0, "eval": 0, "update": 0}
@@ -182,9 +193,10 @@ class SemanticTrainer(StepRunner):
             self.logger.info("Loaded %d pretrained image tensors from %s",
                              load_pretrained_image(cfg, self.model),
                              cfg.MODEL.IMAGE_PRETRAINED_PATH)
-        n = cfg.MODEL.NUM_CLASSES
-        self.train_3d_metric = SegIoU(n, name="seg_iou_3d")
-        self.train_2d_metric = SegIoU(n, name="seg_iou_2d")
+        self.modalities = modalities(cfg)
+        self.train_metrics = {m: SegIoU(cfg.MODEL.NUM_CLASSES,
+                                        name=f"seg_iou_{m}")
+                              for m in self.modalities}
         self.train_dataloader = build_dataloader(cfg, mode="train")
         self.val_dataloader = (build_dataloader(cfg, mode="val")
                                if cfg.VAL.PERIOD > 0 else None)
@@ -219,12 +231,13 @@ class SemanticTrainer(StepRunner):
         self.start_epoch = int(self.checkpoint_data.get("epoch", 0))
         self.best_metric_name = f"best_{cfg.VAL.METRIC}"
         self.best_metric = {m: self.checkpoint_data.get(
-            f"{m}_{self.best_metric_name}") for m in MODALITIES}
-        self.best_metric_epoch = {m: -1 for m in MODALITIES}
+            f"{m}_{self.best_metric_name}") for m in self.modalities}
+        self.best_metric_epoch = {m: -1 for m in self.modalities}
 
         self.train_metric_logger = MetricLogger(delimiter="  ")
-        self.train_metric_logger.add_meters([self.train_3d_metric,
-                                             self.train_2d_metric])
+        self.train_metric_logger.add_meters(
+            [self.train_metrics[m] for m in ("3d", "2d")
+             if m in self.train_metrics])
         self.val_metric_logger = MetricLogger(delimiter="  ")
 
     # ------------------------------------------------------------------ #
@@ -300,8 +313,8 @@ class SemanticTrainer(StepRunner):
 
     def train_for_one_epoch(self, epoch):
         self.train_metric_logger.reset()
-        self.train_3d_metric.reset()
-        self.train_2d_metric.reset()
+        for metric in self.train_metrics.values():
+            metric.reset()
         self.train_dataloader.set_epoch(epoch)
         pending = None
         for batch in self.train_dataloader:
@@ -323,11 +336,11 @@ class SemanticTrainer(StepRunner):
             raise FloatingPointError(
                 f"non-finite loss at step {self.step}: {host}")
         host["slot_overflow"] = slot_overflow
-        if host["voxel_overflow"] > 0 or slot_overflow > 0:
+        if host.get("voxel_overflow", 0) > 0 or slot_overflow > 0:
             self.logger.warning(
                 "capacity overflow: %d voxels and %d conv slots dropped this "
                 "step — raise TPU.LEVEL_CAPACITY_FRACTIONS",
-                int(host["voxel_overflow"]), slot_overflow)
+                int(host.get("voxel_overflow", 0)), slot_overflow)
         if host.get("tap_overflow", 0) > 0:
             self.logger.warning(
                 "conv tap-slot overflow: %d live taps dropped this step — "
@@ -335,8 +348,8 @@ class SemanticTrainer(StepRunner):
                 "forward under overflow; raise TPU.CONV_TAP_SLOTS",
                 int(host["tap_overflow"]))
         self.train_metric_logger.update(**host)
-        self.train_3d_metric.update_matrix(metrics["cm_3d"])
-        self.train_2d_metric.update_matrix(metrics["cm_2d"])
+        for m, metric in self.train_metrics.items():
+            metric.update_matrix(metrics[f"cm_{m}"])
 
     def update_log(self, epoch):
         lp = self.cfg.TRAIN.LOG_PERIOD
@@ -370,13 +383,19 @@ class SemanticTrainer(StepRunner):
     def update_validation_logging_meters(self, epoch):
         self.logger.info("Epoch[%d]-Val %s", epoch,
                          self.val_metric_logger.summary_str)
-        for m in MODALITIES:
+        for m in self.modalities:
             name = f"{self.cfg.VAL.METRIC}_{m}"
             if name in self.val_metric_logger.meters:
                 cur = self.val_metric_logger.meters[name].global_avg
                 if self.best_metric[m] is None or self.best_metric[m] < cur:
                     self.best_metric[m] = cur
                     self.best_metric_epoch[m] = epoch
+        for m in self.modalities:
+            if self.best_metric[m] is not None:
+                self.logger.info("Best val-%s-%s = %.2f at epoch %d",
+                                 m.upper(), self.cfg.VAL.METRIC,
+                                 self.best_metric[m] * 100,
+                                 self.best_metric_epoch[m])
 
     def update_checkpoint(self, epoch):
         """Checkpoint after ``epoch``; its ``epoch`` field is the next epoch
@@ -385,7 +404,7 @@ class SemanticTrainer(StepRunner):
         the open window, so that a resumed run goes on as the uninterrupted
         one would."""
         extra = {f"{m}_{self.best_metric_name}": float(self.best_metric[m])
-                 for m in MODALITIES if self.best_metric[m] is not None}
+                 for m in self.modalities if self.best_metric[m] is not None}
         if self.accum_steps > 1:
             extra["grad_accum"] = [g.cpu() for g in self.train_step.grads]
             extra["grad_accum_window"] = self.window
@@ -411,7 +430,7 @@ class SemanticTrainer(StepRunner):
                     self.update_validation_logging_meters(epoch)
                 # As in the JAX trainer: a checkpoint on each new best epoch.
                 if any(self.best_metric_epoch[m] == epoch
-                       for m in MODALITIES):
+                       for m in self.modalities):
                     self.update_checkpoint(epoch)
         finally:
             self.close()

@@ -11,18 +11,20 @@ Port of ``fusiontransformer_tpu/modules/steps.py``:
   per-voxel K-slot maps built on the device (``TPU.CONV_TAP_SLOTS``);
   ``device_batch`` moves the array part of a collated batch to the device;
 * ``make_train_step``: forward in train mode, CE + lambda * KL per stream,
-  the two streams summed, one backward into the parameters' static
-  ``.grad``, the frozen-pattern mask, the optimizer step (every
-  ``TRAIN.GRAD_ACCUM_STEPS``-th call, on the mean of the accumulated
-  gradients); returns the losses, ``voxel_overflow`` (and ``tap_overflow``
-  with per-voxel maps) and the confusion matrices.  Image features are
-  detached before fusion and the KL teachers are detached, so the gradient
-  of the summed loss equals the reference's two accumulated backward passes
-  (as in the JAX step).  Its parts run in ``record_function`` ranges
-  (``train_step.forward`` / ``.backward`` / ``.optimizer`` / ``.metrics``),
-  which a ``torch.profiler`` trace shows;
-* ``make_eval_step``: per-point predictions of each stream and of the sum
-  of the 2D and 3D softmaxes, with the per-stream CE.
+  the two streams summed (one stream's CE for the uni-modal models, which
+  build no hierarchy without the 3D stream), one backward into the
+  parameters' static ``.grad``, the frozen-pattern mask, the optimizer
+  step (every ``TRAIN.GRAD_ACCUM_STEPS``-th call, on the mean of the
+  accumulated gradients); returns the losses, ``voxel_overflow`` (and
+  ``tap_overflow`` with per-voxel maps) and the confusion matrices.  Image
+  features are detached before fusion and the KL teachers are detached, so
+  the gradient of the summed loss equals the reference's two accumulated
+  backward passes (as in the JAX step).  Its parts run in
+  ``record_function`` ranges (``train_step.forward`` / ``.backward`` /
+  ``.optimizer`` / ``.metrics``), which a ``torch.profiler`` trace shows;
+* ``make_eval_step``: per-point predictions of each present stream and,
+  for a fusion model, of the sum of the 2D and 3D softmaxes, with the
+  per-stream CE.
 
 * ``StepGraph``: a step captured in one CUDA graph at one input signature
   (``batch_signature``), the role ``jax.jit`` plays in the JAX package;
@@ -339,9 +341,17 @@ def class_weights_of(cfg, device):
 
 
 def losses(cfg, out, batch, class_weights):
-    """``(total, parts)``: CE + lambda * KL per stream, summed over the two
-    streams (the fusion models' loss of the JAX ``_losses``)."""
+    """``(total, parts)``: the JAX ``_losses``.  A fusion model's loss is CE
+    + lambda * KL per stream, summed over the two streams; a lidar-only
+    model's the 3D CE (``seg_loss_3d``), an image-only model's the 2D CE
+    (``seg_loss_2d``)."""
     valid, label = batch["pt_valid"], batch["seg_label"]
+    m = cfg.MODEL
+    if not m.USE_FUSION:
+        key, logit = (("seg_loss_3d", "lidar_seg_logit") if m.USE_LIDAR
+                      else ("seg_loss_2d", "img_seg_logit"))
+        loss = weighted_cross_entropy(out[logit], label, valid, class_weights)
+        return loss, {key: loss}
     lam = cfg.TRAIN.FusionTransformer.lambda_xm
     loss_3d = weighted_cross_entropy(out["lidar_seg_logit"], label, valid,
                                      class_weights)
@@ -349,7 +359,7 @@ def losses(cfg, out, batch, class_weights):
                                      class_weights)
     parts = {"seg_loss_3d": loss_3d, "seg_loss_2d": loss_2d}
     if lam > 0:
-        dual = cfg.MODEL.DUAL_HEAD
+        dual = m.DUAL_HEAD
         logit_2d = out["img_seg_logit2" if dual else "img_seg_logit"]
         logit_3d = out["lidar_seg_logit2" if dual else "lidar_seg_logit"]
         xm_2d = kl_divergence(logit_2d, out["lidar_seg_logit"], valid)
@@ -362,17 +372,25 @@ def losses(cfg, out, batch, class_weights):
 
 
 def confusions(cfg, out, batch):
+    """Confusion matrices of the present streams: ``cm_3d`` with the 3D
+    stream, ``cm_2d`` with the image stream (the JAX ``_confusions``)."""
     n = cfg.MODEL.NUM_CLASSES
     valid, label = batch["pt_valid"], batch["seg_label"]
-    return {"cm_3d": confusion_matrix_from_logits(out["lidar_seg_logit"],
-                                                  label, valid, n),
-            "cm_2d": confusion_matrix_from_logits(out["img_seg_logit"],
-                                                  label, valid, n)}
+    cms = {}
+    if cfg.MODEL.USE_LIDAR:
+        cms["cm_3d"] = confusion_matrix_from_logits(out["lidar_seg_logit"],
+                                                    label, valid, n)
+    if cfg.MODEL.USE_IMAGE:
+        cms["cm_2d"] = confusion_matrix_from_logits(out["img_seg_logit"],
+                                                    label, valid, n)
+    return cms
 
 
-def _check_fusion(cfg):
-    if not cfg.MODEL.USE_FUSION:
-        raise NotImplementedError("only the fusion models' steps are ported")
+def step_hier(cfg, batch, level_caps=None):
+    """The hierarchy a step builds for ``batch``: ``hier_from_cfg`` for a
+    model with the 3D stream, None for an image-only model."""
+    return hier_from_cfg(cfg, batch, level_caps) if cfg.MODEL.USE_LIDAR \
+        else None
 
 
 class TrainStep:
@@ -381,9 +399,10 @@ class TrainStep:
     ``step(batch, generator, level_caps=None, update=True) -> metrics``:
     ``batch`` a ``device_batch``; ``generator`` the ``torch.Generator`` (on
     the batch's device) that dropout draws from.  The metrics are device
-    tensors: the losses, ``total_loss``, ``voxel_overflow``,
-    ``tap_overflow`` where the step built per-voxel slot maps, and the
-    confusion matrices ``cm_2d`` / ``cm_3d``.
+    tensors: the losses, ``total_loss``, with the 3D stream
+    ``voxel_overflow`` and ``tap_overflow`` where the step built per-voxel
+    slot maps, and the present streams' confusion matrices ``cm_2d`` /
+    ``cm_3d``.
 
     The gradients are static: each parameter's ``.grad`` is allocated once,
     here, outside any CUDA graph, and the backward adds into it, so every
@@ -404,7 +423,6 @@ class TrainStep:
     """
 
     def __init__(self, cfg, model, optimizer):
-        _check_fusion(cfg)
         self.cfg, self.model, self.optimizer = cfg, model, optimizer
         self.accum_steps = int(cfg.TRAIN.GRAD_ACCUM_STEPS)
         params = list(model.parameters())
@@ -421,7 +439,7 @@ class TrainStep:
         cfg = self.cfg
         self.model.train()
         with record_function("train_step.forward"):
-            hier = hier_from_cfg(cfg, batch, level_caps)
+            hier = step_hier(cfg, batch, level_caps)
             out = self.model(batch, hier, generator=generator)
             total, parts = losses(cfg, out, batch, self.class_weights)
         with record_function("train_step.backward"):
@@ -431,7 +449,8 @@ class TrainStep:
         with record_function("train_step.metrics"), torch.no_grad():
             metrics = {k: v.detach() for k, v in parts.items()}
             metrics["total_loss"] = total.detach()
-            metrics.update(overflow_metrics(cfg, batch, hier))
+            if hier is not None:
+                metrics.update(overflow_metrics(cfg, batch, hier))
             metrics.update(confusions(cfg, out, batch))
         return metrics
 
@@ -459,28 +478,30 @@ def make_train_step(cfg, model, optimizer):
 
 
 def make_eval_step(cfg, model):
-    """``step(batch, level_caps=None) -> results``: ``pred_3d``,
-    ``pred_2d``, ``pred_ensemble`` (argmax of the sum of the 2D and 3D
-    softmaxes) and the per-stream CE, as device tensors."""
-    _check_fusion(cfg)
+    """``step(batch, level_caps=None) -> results``, as device tensors: per
+    present stream its prediction and CE (``pred_3d`` / ``seg_loss_3d``
+    with the 3D stream, ``pred_2d`` / ``seg_loss_2d`` with the image
+    stream), and for a fusion model ``pred_ensemble``, the argmax of the
+    sum of the 2D and 3D softmaxes."""
     class_weights = class_weights_of(cfg, next(model.parameters()).device)
+    m = cfg.MODEL
 
     def step(batch, level_caps=None):
         model.eval()
         with torch.inference_mode():
-            hier = hier_from_cfg(cfg, batch, level_caps)
-            out = model(batch, hier)
-            lidar, img = out["lidar_seg_logit"], out["img_seg_logit"]
+            out = model(batch, step_hier(cfg, batch, level_caps))
             valid, label = batch["pt_valid"], batch["seg_label"]
-            probs = torch.softmax(img, -1) + torch.softmax(lidar, -1)
-            return {
-                "pred_3d": torch.argmax(lidar, -1),
-                "pred_2d": torch.argmax(img, -1),
-                "pred_ensemble": torch.argmax(probs, -1),
-                "seg_loss_3d": weighted_cross_entropy(lidar, label, valid,
-                                                      class_weights),
-                "seg_loss_2d": weighted_cross_entropy(img, label, valid,
-                                                      class_weights),
-            }
+            res = {}
+            for use, dim, key in ((m.USE_LIDAR, "3d", "lidar_seg_logit"),
+                                  (m.USE_IMAGE, "2d", "img_seg_logit")):
+                if use:
+                    res[f"pred_{dim}"] = torch.argmax(out[key], -1)
+                    res[f"seg_loss_{dim}"] = weighted_cross_entropy(
+                        out[key], label, valid, class_weights)
+            if m.USE_FUSION:
+                probs = (torch.softmax(out["img_seg_logit"], -1)
+                         + torch.softmax(out["lidar_seg_logit"], -1))
+                res["pred_ensemble"] = torch.argmax(probs, -1)
+            return res
 
     return step

@@ -10,11 +10,12 @@ Port of ``fusiontransformer_tpu/serving/engine.py`` for one device:
   is on, then the predict step on the device;
 * the predict step (``make_predict_step``) — hierarchy + slot maps (the
   batch's group-pooled maps, or per-voxel K-slot maps built on the device
-  when ``TPU.CONV_SLOT_POOL`` is off) -> model -> per-point argmax of each
-  stream and of the sum of the 2D and 3D softmaxes, packed with the
-  ``voxel_overflow`` health count (dropped voxels plus, with per-voxel maps,
-  dropped live taps) into one int32 array, so each batch needs one
-  device->host copy;
+  when ``TPU.CONV_SLOT_POOL`` is off; none for an image-only model) ->
+  model -> per-point argmax of each present stream and ``pred``: the
+  argmax of the sum of the 2D and 3D softmaxes for a fusion model, else the
+  one stream's; with the 3D stream packed with the ``voxel_overflow``
+  health count (dropped voxels plus, with per-voxel maps, dropped live
+  taps) into one int32 array, so each batch needs one device->host copy;
 * ``complete`` — de-voxelise the predictions back to every raw point
   (out-of-frustum and capacity-dropped points get class 0, the ignore id).
 
@@ -52,33 +53,55 @@ from fusiontransformer_tpu_torch.modules.steps import (Readback, StepCache,
                                                        StepGraph,
                                                        batch_signature,
                                                        device_batch,
-                                                       hier_from_cfg,
-                                                       overflow_metrics)
+                                                       overflow_metrics,
+                                                       step_hier)
 from fusiontransformer_tpu_torch.utils.checkpoint import Checkpointer
 from fusiontransformer_tpu_torch.utils.device import resolve_device
 
-PRED_KEYS = ("pred", "pred_2d", "pred_3d", "voxel_overflow")
+LABEL_KEYS = {"pred": "labels", "pred_2d": "labels_2d",
+              "pred_3d": "labels_3d"}
+
+
+def pred_keys(cfg):
+    """The predict step's columns for the config's model (the JAX
+    engine's): ``pred``, then ``pred_2d`` with the image stream, ``pred_3d``
+    and ``voxel_overflow`` with the 3D stream."""
+    m = cfg.MODEL
+    return ["pred"] + (["pred_2d"] if m.USE_IMAGE else []) + (
+        ["pred_3d", "voxel_overflow"] if m.USE_LIDAR else [])
 
 
 def make_predict_step(cfg, model):
     """Labels-only predict step: ``(step, keys)``; ``step(batch)`` returns
-    one [N, len(keys)] int32 tensor whose columns are ``keys``."""
+    one [N, len(keys)] int32 tensor whose columns are ``keys``
+    (``pred_keys``)."""
+    m = cfg.MODEL
+    keys = pred_keys(cfg)
 
     def step(batch):
         with torch.inference_mode():
-            hier = hier_from_cfg(cfg, batch)
+            hier = step_hier(cfg, batch)
             out = model(batch, hier)
-            lidar, img = out["lidar_seg_logit"], out["img_seg_logit"]
-            probs = torch.softmax(img, -1) + torch.softmax(lidar, -1)
-            # Live taps the per-voxel slot maps dropped count as overflow
-            # too (the JAX engine's rule).
-            overflow = sum(overflow_metrics(cfg, batch, hier).values())
-            pred = torch.argmax(probs, -1)
-            cols = [pred, torch.argmax(img, -1), torch.argmax(lidar, -1),
-                    overflow.expand(pred.shape)]
-            return torch.stack([c.to(torch.int32) for c in cols], dim=1)
+            res = {}
+            if m.USE_LIDAR:
+                res["pred_3d"] = torch.argmax(out["lidar_seg_logit"], -1)
+            if m.USE_IMAGE:
+                res["pred_2d"] = torch.argmax(out["img_seg_logit"], -1)
+            if m.USE_FUSION:
+                probs = (torch.softmax(out["img_seg_logit"], -1)
+                         + torch.softmax(out["lidar_seg_logit"], -1))
+                res["pred"] = torch.argmax(probs, -1)
+            else:
+                res["pred"] = res["pred_3d" if m.USE_LIDAR else "pred_2d"]
+            if hier is not None:
+                # Live taps the per-voxel slot maps dropped count as
+                # overflow too (the JAX engine's rule).
+                overflow = sum(overflow_metrics(cfg, batch, hier).values())
+                res["voxel_overflow"] = overflow.expand(res["pred"].shape)
+            return torch.stack([res[k].to(torch.int32) for k in keys],
+                               dim=1)
 
-    return step, list(PRED_KEYS)
+    return step, keys
 
 
 class InferenceEngine:
@@ -126,7 +149,8 @@ class InferenceEngine:
 
         # Host-built group-pooled slot maps at the levels CONV_TAP_SLOTS
         # names, at the static capacities of the bucket (None with
-        # CONV_SLOT_POOL off: the step builds per-voxel maps).
+        # CONV_SLOT_POOL off: the step builds per-voxel maps; None for a
+        # model without the 3D stream, which builds no hierarchy).
         self._slot_pool = slot_pool_spec(cfg, adaptive=False)
         self._device_lock = threading.Lock()
         self._stats_lock = threading.Lock()
@@ -234,7 +258,7 @@ class InferenceEngine:
         batch = self.collate(samples)
         with self._device_lock, torch.inference_mode():
             db = device_batch(batch, self.device)
-            out = self.model(db, hier_from_cfg(self.cfg, db))
+            out = self.model(db, step_hier(self.cfg, db))
         return batch, out
 
     def complete(self, handle, count_stats: bool = True) -> List[Dict]:
@@ -244,7 +268,7 @@ class InferenceEngine:
         packed = packed.numpy() if isinstance(packed, Readback) \
             else packed.cpu().numpy()
         res = {k: packed[:, j] for j, k in enumerate(self._pred_keys)}
-        overflow = int(res.pop("voxel_overflow")[0])
+        overflow = int(res.pop("voxel_overflow", np.zeros(1))[0])
 
         results = []
         oob_total = 0
@@ -254,14 +278,15 @@ class InferenceEngine:
             inverse_map = batch["inverse_map"][i]
             kept = batch["sparse_orig_points_idx"][i]
             out = {"in_frustum": kept, "num_voxels": n_vox}
-            for key in ("pred", "pred_2d", "pred_3d"):
+            for key, label_key in LABEL_KEYS.items():
+                if key not in res:
+                    continue
                 pt_pred, n_oob = map_sparse_to_org(res[key][sl], inverse_map)
                 if key == "pred":
                     oob_total += n_oob
                 full = np.zeros(s["num_input_points"], pt_pred.dtype)
                 full[kept] = pt_pred
-                out["labels" if key == "pred" else
-                    key.replace("pred", "labels")] = full
+                out[label_key] = full
             results.append(out)
 
         if count_stats:

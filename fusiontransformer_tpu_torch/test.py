@@ -9,12 +9,13 @@ the output directory; without it the newest one the output directory's
 manifest names) into the model of the config, runs ``validate`` over the
 test split (``DATASET.TEST``, ``TEST.BATCH_SIZE``) through the eval step's
 CUDA graphs (``modules/SemanticTrainer.py::StepRunner``, as the trainer
-validates), and logs the per-class accuracy and IoU of the 2D, 3D and 2D+3D
-predictions on the original points, through the dataset's inverse label
-map.  With an output directory each modality's table is also written there
-(``test_<modality>.tsv``, ``Evaluator.save_table``).  The '@' in OUTPUT_DIR
-is replaced with the config path.  Runs on the CUDA card unless ``--device
-cpu`` is given; with no card and no ``--device cpu`` it raises.
+validates), and logs the per-class accuracy and IoU of the model's
+predictions on the original points (2D with the image stream, 3D with the 3D
+stream, 2D+3D for a fusion model), through the dataset's inverse label map.
+With an output directory each of those modalities' tables is also written
+there (``test_<modality>.tsv``, ``Evaluator.save_table``).  The '@' in
+OUTPUT_DIR is replaced with the config path.  Runs on the CUDA card unless
+``--device cpu`` is given; with no card and no ``--device cpu`` it raises.
 """
 
 from __future__ import annotations

@@ -20,8 +20,10 @@ size, captured at warm-up or on first use) unless ``--device cpu`` is given.
 The request is an .npz of ``points`` [N, 3] float32, ``feats`` [N, <=4]
 float32, ``img`` HxWx3 float32 or uint8 and ``points_img`` [N, 2] int (row,
 col); the response an .npz of ``labels`` [N] (0, the ignore id, for points
-outside the camera frustum), ``labels_2d``, ``labels_3d``, ``in_frustum``
-and ``num_voxels``: the JAX package's schema.
+outside the camera frustum), ``labels_2d`` (a model with the image stream),
+``labels_3d`` (a model with the 3D stream), ``in_frustum`` and
+``num_voxels``: the JAX package's schema.  A uni-modal model's ``labels``
+are its one stream's, a fusion model's the 2D+3D ensemble's.
 """
 
 from __future__ import annotations
@@ -200,7 +202,10 @@ def selftest(cfg, engine, port, n_scans, clients=1, n_points=0):
         want = engine.predict(rec)
         n = len(rec["points"])
         for out in got:
-            for key in ("labels", "labels_2d", "labels_3d", "in_frustum"):
+            if set(out[i]) != set(want):
+                raise AssertionError(f"request {i}: keys {sorted(out[i])} "
+                                     f"over HTTP, {sorted(want)} serially")
+            for key in want:
                 if not np.array_equal(out[i][key], want[key]):
                     raise AssertionError(f"request {i}: {key} over HTTP "
                                          f"differs from the serial "

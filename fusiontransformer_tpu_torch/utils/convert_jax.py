@@ -5,8 +5,11 @@
 the module's ``state_dict``.  The port names its submodules, parameters and
 buffers after the flax names and keeps the JAX layouts (x-slowest ks3 tap
 order, ``[in, out]`` linear kernels), so each flax path joined with dots is
-a ``state_dict`` key and every array copies across unpermuted.  A missing or
-extra key, or a shape that differs, raises.
+a ``state_dict`` key and every array copies across unpermuted: the STN's
+flax convs keep their ``[kh, kw, Cin, Cout]`` kernels as the parameter
+(``models/image_models_stn.py::FlaxConv`` permutes in ``forward``) and its
+raw ``fc2_kernel`` / ``fc2_bias`` params are parameters of those names.  A
+missing or extra key, or a shape that differs, raises.
 
 ``jax_leaf_paths(module)`` is the map the other way: each parameter and
 buffer name of the port to its collection (``params`` / ``batch_stats``) and

@@ -97,9 +97,11 @@ def load_pretrained_vit(vit, path):
 
 def load_pretrained_image(cfg, model):
     """``MODEL.IMAGE_PRETRAINED_PATH`` into the ViT of ``model``'s image
-    stream (``model.image_backbone.backbone``), as the JAX trainer loads it
-    into ``params["image_backbone"]["backbone"]``; returns the count of
-    tensors replaced (0 when no path is set)."""
+    stream (``model.image_backbone.backbone``: the fusion models',
+    ``ImageSegBilinear``'s and the STN ``ImageSegSTN``'s), as the JAX
+    trainer loads it into ``params["image_backbone"]["backbone"]``; returns
+    the count of tensors replaced (0 when no path is set).  A model without
+    a ViT (``LidarSeg``) raises."""
     path = cfg.MODEL.IMAGE_PRETRAINED_PATH
     if not path:
         return 0
