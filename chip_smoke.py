@@ -178,7 +178,28 @@ kernels:
     graphs of new slot-pool sizes), each response equal to the engine's
     serial prediction, ``/stats`` and ``/healthz``;
 
-13. (printed after 14-16) a ``{"kernels": [...]}`` line: launches, errors
+then ahead-of-time serving and the trainer's last single-device keys:
+
+21. ``tools/export_model.py`` on ``middlefusion.yaml`` with phase 10's
+    weights: one ``torch.export`` program per bucket (seconds and bytes
+    each, under 1% of the weights' bytes: no parameter in it); the
+    exported engine's packed outputs on the 8 records bit for bit the live
+    per-voxel engine's, both through their graphs; the startup of each
+    (the programs' load and captures against the live step's captures);
+    the exported engine through phase 10's drive (K1' / K3 launches held
+    exactly against its captures, each replay's kernels by name); then
+    ``tools/serve.py --exported-dir ... --selftest 16``;
+22. at the flagship's widths, bf16, batch 10: ``TPU.REMAT_VIT`` off and on
+    (gradients and updated parameters bit for bit, each eager step's peak
+    memory and each train replay's time); an SGD trainer's replays bit for
+    bit its eager steps, its replay timed; an asynchronous checkpoint taken
+    while three more replays run, loading back to the parameters at save
+    time (how long ``save`` blocks, the write's seconds); summaries where
+    ``tensorboard`` imports, else the trainer's raise (printed); a
+    SIGTERM'd ``train.py`` (``synthetic.yaml``): exit 0, a ``preempt*.pth``
+    and a trainer resuming into that epoch;
+
+13. (printed after 14-16, 21, 22) a ``{"kernels": [...]}`` line: launches, errors
     and times of each kernel; K1 and K1' also carry their device time over
     CUDA-graph replays, the CUDA-core kernel's times on the same operands,
     the tensor-core forward's launches on the path, the engine's captures
@@ -191,7 +212,8 @@ kernels:
     their kernels in one train-graph replay (``train_replay_kernels``),
     and K1 / K2 / K3 / K3' those of the lidar-only model's replay and its
     training path's launches (``lidar_train_replay_kernels``,
-    ``lidar_launches``, phase 20a).
+    ``lidar_launches``, phase 20a); K1' and K3 their kernels in the
+    exported engine's 8 replays (``exported_replay_launches``, phase 21).
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -3533,6 +3555,342 @@ def phase_image_only(card, kitti_dirs, work, config, label, serve):
     return res
 
 
+# --------------------------------------------------------------------------- #
+# Phases 21 and 22: ahead-of-time serving through torch.export, and the
+# trainer's last single-device keys.
+
+EXPORT_SELFTEST = 16
+
+
+def phase_export(pcfg, serve_state, recs, k1p_per_request, card, work):
+    """Phase 21: ``tools/export_model.py`` on ``middlefusion.yaml`` with
+    phase 10's weights (one ``torch.export`` program per bucket; seconds and
+    bytes each, none holding a parameter); ``InferenceEngine(exported_dir
+    =...)`` with those weights through ``drive_engine`` (K1' and K3
+    launches held against its captures and counted by name in the 8
+    replays, as phase 10); its packed outputs on the 8 records bit for bit
+    the live per-voxel engine's, both through their graphs; the startup of
+    each (construction + warmup: the programs' load and one capture a
+    bucket, against the live step's capture); then ``tools/serve.py
+    --exported-dir ... --selftest 16``."""
+    import os
+
+    import numpy as np
+    import torch
+    from fusiontransformer_tpu_torch.models.build import build_model
+    from fusiontransformer_tpu_torch.ops.kernels.binned_conv import (
+        FWD_CORE_NAME, FWD_MMA_NAME)
+    from fusiontransformer_tpu_torch.ops.kernels.segment_sum import (
+        launch_name)
+    from fusiontransformer_tpu_torch.serving.engine import InferenceEngine
+    from fusiontransformer_tpu_torch.tools import export_model, serve
+    from fusiontransformer_tpu_torch.utils.checkpoint import Checkpointer
+
+    ckpt = Checkpointer(os.path.join(work, "weights")).save(
+        "model", model=serve_state)
+    out = os.path.join(work, "artifact")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        manifest = export_model.main(["--cfg", CONFIG, "--ckpt", ckpt,
+                                      "--out", out])
+    export_s = time.perf_counter() - t0
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in serve_state.values())
+    for cap, st in manifest["stats"].items():
+        log(f"  bucket {cap}: exported in {st['export_s']:.1f} s, "
+            f"{st['bytes']} bytes ({st['bytes'] / state_bytes:.2e} of the "
+            f"{state_bytes} bytes of weights)")
+        if st["bytes"] >= 0.01 * state_bytes:
+            raise AssertionError(f"the artifact of bucket {cap} holds "
+                                 f"{st['bytes']} bytes")
+    if manifest["platforms"] != ["cuda"]:
+        raise AssertionError(f"platforms {manifest['platforms']}")
+
+    def engine(exported, warm=True):
+        model = build_model(pcfg, "cuda")
+        model.load_state_dict(serve_state)
+        t0 = time.perf_counter()
+        eng = InferenceEngine(pcfg, model=model,
+                              exported_dir=out if exported else "")
+        built = time.perf_counter() - t0
+        if not warm:
+            return eng, None
+        warm = eng.warmup()
+        return eng, {"construct_s": built, "warmup_s": warm,
+                     "startup_s": built + sum(warm.values())}
+
+    live, live_start = engine(False)
+    exported, exp_start = engine(True)
+    load_s = exported.exported.load_s
+    log(f"  startup: exported engine {exp_start['startup_s']:.1f} s (load "
+        f"{ {k: round(v, 1) for k, v in load_s.items()} } s, warmup "
+        f"{ {k: round(v, 2) for k, v in exp_start['warmup_s'].items()} } "
+        f"s), live per-voxel engine {live_start['startup_s']:.1f} s (warmup "
+        f"{ {k: round(v, 2) for k, v in live_start['warmup_s'].items()} } s)")
+    same = 0
+    for rec in recs:
+        outs = []
+        for eng in (live, exported):
+            sample = eng.preprocess(rec)
+            with eng._device_lock:
+                batch = eng.collate([sample])
+                outs.append(eng.graph_for(batch).replay(batch).numpy())
+        if not np.array_equal(*outs):
+            raise AssertionError(f"exported packed output differs from the "
+                                 f"live per-voxel engine's in "
+                                 f"{int((outs[0] != outs[1]).any(1).sum())} "
+                                 f"rows")
+        same += 1
+    log(f"  {same} requests: the exported engine's packed outputs equal "
+        f"the live per-voxel engine's bit for bit (graph replays)")
+    del live
+    # drive_engine captures anew (the loaded programs are kept).
+    exported.graphs.clear()
+    exported.counters["captures"] = 0
+    torch.cuda.empty_cache()
+    k3_name = launch_name(1)
+    res = drive_engine(exported, recs, card, {
+        "binned_conv_slots_fwd": k1p_per_request,
+        FWD_MMA_NAME: k1p_per_request, FWD_CORE_NAME: 0,
+        "binned_conv_grouped_fwd": 0, k3_name: 2},
+        replay_kernels(k1p_per_request))
+    del exported
+    torch.cuda.empty_cache()
+    log(f"  tools/serve.py --exported-dir --selftest {EXPORT_SELFTEST}")
+    report = serve.main(["--cfg", CONFIG, "--ckpt", ckpt, "--exported-dir",
+                         out, "--selftest", str(EXPORT_SELFTEST), "--points",
+                         str(N_POINTS), "--port", "0"])
+    st = report["stats"]
+    # The per-voxel maps (K = 16) may drop live taps of a scan, which the
+    # engine counts as overflow (the JAX engine's rule): the live per-voxel
+    # engine must count the same on the same records.
+    live, _ = engine(False, warm=False)
+    for rec in serve.selftest_records(live.cfg, EXPORT_SELFTEST, N_POINTS):
+        live.predict(rec)
+    live_overflow = live.stats()["voxel_overflow"]
+    del live
+    if not report["matches_serial"] or st["collate_dropped_points"] \
+            or st["voxel_overflow"] != len(report["passes"]) * live_overflow:
+        raise AssertionError(f"exported server self-test (the live "
+                             f"per-voxel engine's overflow on its records "
+                             f"{live_overflow}): {report}")
+    for i, run in enumerate(report["passes"]):
+        lat = run["client_latency_ms"]
+        log(f"  pass {i + 1}: p50 {lat['p50']:.1f} ms, p99 "
+            f"{lat['p99']:.1f} ms, {run['scans_per_s']:.2f} scans/s, "
+            f"{run['captures']} captures")
+    log(f"  dropped live taps counted as overflow: {st['voxel_overflow']} "
+        f"over both passes, the live per-voxel engine's {live_overflow} a "
+        f"pass")
+    return {"export_s": export_s, "buckets": manifest["stats"],
+            "state_bytes": state_bytes, "startup": {
+                "exported": {**exp_start, "load_s": load_s},
+                "live_per_voxel": live_start},
+            "packed_equal_requests": same, "engine": res,
+            "server": {**{k: report[k] for k in ("passes", "warmup_s",
+                                                 "selftest_scans_ok")},
+                       "voxel_overflow": st["voxel_overflow"],
+                       "live_voxel_overflow_a_pass": live_overflow}}
+
+
+def remat_pair(tcfg, hb, caps):
+    """``TPU.REMAT_VIT`` off and on, one bf16 train step each at batch 10
+    from the same weights and generator: the gradients and the parameters
+    after the update bit for bit, each step's peak device memory, then the
+    step captured and its replay timed (CUDA events)."""
+    import torch
+    from fusiontransformer_tpu_torch.models.build import build_model
+    from fusiontransformer_tpu_torch.modules.steps import (StepGraph,
+                                                           device_batch,
+                                                           make_train_step)
+    from fusiontransformer_tpu_torch.solver.build import build_optimizer
+
+    out, runs = {}, {}
+    db = device_batch(hb, "cuda")
+    for remat in (False, True):
+        cfg = tcfg.clone()
+        cfg.TPU.REMAT_VIT = remat
+        cfg.freeze()
+        model = build_model(cfg, "cuda", seed=cfg.RNG_SEED)
+        opt, _ = build_optimizer(cfg, model.parameters())
+        step = make_train_step(cfg, model, opt)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step(db, gen, caps, update=False)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        grads = [g.clone() for g in step.grads]
+        step.update()
+        params = [p.detach().clone() for p in model.parameters()]
+        pool = torch.cuda.graph_pool_handle()
+        graph = StepGraph(lambda b: step(b, gen, caps), hb,
+                          torch.device("cuda"), pool, gen)
+        replay_ms = cuda_ms(graph.graph.replay, iters=3, reps=5)
+        runs[remat] = (grads, params)
+        out["on" if remat else "off"] = {
+            "peak_step_GB": peak / 1e9, "replay_ms": replay_ms}
+        log(f"  REMAT_VIT {remat}: eager step's peak {peak / 1e9:.2f} GB "
+            f"above its {base / 1e9:.2f} GB; train replay {replay_ms:.2f} ms")
+        del graph, step, opt, model, pool
+        torch.cuda.empty_cache()
+    for i, name in enumerate(("gradients", "parameters after the update")):
+        bad = sum(not torch.equal(a, b)
+                  for a, b in zip(runs[False][i], runs[True][i]))
+        if bad:
+            raise AssertionError(f"REMAT_VIT changes {bad} {name}")
+    log("  gradients and updated parameters with REMAT_VIT bit for bit "
+        "those without")
+    return out
+
+
+def train_subprocess(argv, stop_after=None, timeout=600):
+    """``train.py`` with ``argv`` in a process of its own (its output merged
+    into one text): run to its end, or with ``stop_after`` sent SIGTERM
+    once a line holds that text.  Returns (exit code, output)."""
+    import signal
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "fusiontransformer_tpu_torch.train",
+         *argv], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    lines = []
+    try:
+        if stop_after is not None:
+            for line in proc.stdout:
+                lines.append(line)
+                if stop_after in line:
+                    proc.send_signal(signal.SIGTERM)
+                    break
+        rest, _ = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return proc.returncode, "".join(lines) + rest
+
+
+def phase_trainer_keys(tcfg, work):
+    """Phase 22 at the flagship's widths, bf16, batch 10: first, in
+    processes of their own, ``train.py`` (``synthetic.yaml``) with
+    summaries and histograms (an event file where ``tensorboard`` imports,
+    else the trainer's raise naming it) and a SIGTERM'd ``train.py`` (exit
+    0, a ``preempt*.pth``, a trainer resuming into that epoch); then
+    ``remat_pair``; an SGD trainer (the port's capturable SGD) whose
+    replays are bit for bit its eager steps, its replay timed; and an
+    asynchronous checkpoint taken with later replays running, which loads
+    back to the parameters at save time (how long ``save`` blocks, the
+    write's seconds)."""
+    import glob
+    import os
+
+    import torch
+    from fusiontransformer_tpu_torch.modules.SemanticTrainer import (
+        SemanticTrainer)
+    from fusiontransformer_tpu_torch.train import load_cfg
+
+    res = {}
+    synthetic = "configs/semantic_kitti/synthetic.yaml"
+    batch10 = ["DATASET.SyntheticSCN.num_scans", str(TRAIN_BATCH),
+               "TRAIN.BATCH_SIZE", str(TRAIN_BATCH), "VAL.PERIOD", "0"]
+    torch.cuda.empty_cache()
+    log(f"  this process holds {torch.cuda.memory_reserved() / 1e9:.2f} GB "
+        f"of the card")
+    out_dir = os.path.join(work, "summaries")
+    t0 = time.perf_counter()
+    rc, text = train_subprocess(
+        ["--cfg", synthetic, "--run_name", "tb", "OUTPUT_DIR", out_dir,
+         *batch10, "SCHEDULER.MAX_EPOCH", "1", "TRAIN.SUMMARY_PERIOD", "1",
+         "TRAIN.LOG_HISTOGRAM", "True"])
+    events = glob.glob(os.path.join(out_dir, "tb", "tb.tb", "events*"))
+    if rc == 0 and len(events) == 1:
+        res["summaries"] = (f"tensorboard imports: train.py wrote "
+                            f"{os.path.getsize(events[0])} bytes of "
+                            f"scalars and histograms")
+    elif rc != 0 and "needs the tensorboard package" in text:
+        res["summaries"] = ("tensorboard missing: the trainer raised, "
+                            "naming it")
+    else:
+        raise AssertionError(f"train.py with summaries: exit {rc}, event "
+                             f"files {events}: {text[-3000:]}")
+    log(f"  summaries: {res['summaries']} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    run_dir = os.path.join(work, "preempt")
+    argv = ["OUTPUT_DIR", run_dir, *batch10, "SCHEDULER.MAX_EPOCH", "1000"]
+    t0 = time.perf_counter()
+    rc, text = train_subprocess(["--cfg", synthetic, "--run_name", "r",
+                                 *argv], stop_after="Epoch 1 took")
+    saved = glob.glob(os.path.join(run_dir, "r", "preempt*.pth"))
+    if rc != 0 or "Preemption checkpoint written" not in text \
+            or len(saved) != 1:
+        raise AssertionError(f"SIGTERM'd train.py: exit {rc}, {saved}: "
+                             f"{text[-3000:]}")
+    epoch = int(torch.load(saved[0], weights_only=True)["epoch"])
+    resumed = SemanticTrainer(load_cfg(synthetic,
+                                       argv + ["AUTO_RESUME", "True"]),
+                              os.path.join(run_dir, "r"))
+    if resumed.start_epoch != epoch or epoch < 2:
+        raise AssertionError(f"resume at epoch {resumed.start_epoch}, the "
+                             f"preempt checkpoint holds {epoch}")
+    res["preempt"] = {"epoch": epoch, "seconds": time.perf_counter() - t0,
+                      "file": os.path.basename(saved[0])}
+    log(f"  SIGTERM'd train.py: exit 0, {res['preempt']['file']}, a trainer "
+        f"resumes at epoch {epoch} ({res['preempt']['seconds']:.1f} s)")
+    del resumed
+    torch.cuda.empty_cache()
+
+    scfg = tcfg.clone()
+    scfg.OPTIMIZER.TYPE = "SGD"
+    scfg.freeze()
+    trainer = SemanticTrainer(scfg, os.path.join(work, "sgd"))
+    ds = trainer.train_dataloader.dataset
+    hb = trainer.train_dataloader.collate_fn(
+        [ds[i] for i in range(TRAIN_BATCH)])
+    caps = trainer.level_caps(hb)
+    log("  REMAT_VIT off / on:")
+    res["remat"] = remat_pair(tcfg, hb, caps)
+
+    trainer.run_train_step(hb).numpy()          # captures
+    replays_equal_eager(trainer, [hb, hb])
+    graph = trainer.train_graphs.get(graph_key(trainer, hb))
+    res["sgd_replay_ms"] = cuda_ms(graph.graph.replay, iters=3, reps=5)
+    log(f"  SGD: 2 replays bit for bit 2 eager steps; replay "
+        f"{res['sgd_replay_ms']:.2f} ms")
+
+    ck = trainer.checkpointer
+    if not ck.async_save:
+        raise AssertionError("TRAIN.ASYNC_CHECKPOINT is off")
+    want = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    t0 = time.perf_counter()
+    trainer.update_checkpoint(0)
+    blocked = time.perf_counter() - t0
+    for _ in range(3):
+        trainer.run_train_step(hb).numpy()
+    t1 = time.perf_counter()
+    ck.wait()
+    waited = time.perf_counter() - t1
+    payload = ck.load()
+    bad = [k for k, v in want.items()
+           if not torch.equal(payload["model"][k], v.cpu())]
+    moved = [k for k, v in want.items()
+             if not torch.equal(trainer.model.state_dict()[k], v)]
+    if bad or not moved:
+        raise AssertionError(f"async checkpoint: {len(bad)} tensors differ "
+                             f"from the state at save time, {len(moved)} "
+                             f"moved since")
+    res["async_checkpoint"] = {"save_blocked_s": blocked,
+                               "write_s": ck.last_write_s,
+                               "wait_after_3_replays_s": waited}
+    log(f"  async checkpoint: save blocked the loop {blocked:.2f} s, the "
+        f"background write took {ck.last_write_s:.2f} s (3 replays ran "
+        f"meanwhile, then {waited:.2f} s of wait); it loads back to the "
+        f"parameters at save time")
+    del trainer, graph, payload, want
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3918,6 +4276,24 @@ def main() -> int:
     server = phase_server()
     phase_end("16")
 
+    # ---- 21. / 22. ahead-of-time serving; the trainer's last keys
+    log("== 21. torch.export serving: tools/export_model.py (one program a "
+        "bucket), InferenceEngine(exported_dir=...) with phase 10's weights "
+        "against the live per-voxel engine, then tools/serve.py "
+        f"--exported-dir --selftest {EXPORT_SELFTEST}")
+    work = tempfile.mkdtemp(prefix="ftx_export_")
+    try:
+        exported = phase_export(pcfg, serve_state, recs, k1p_per_request,
+                                card, work)
+        phase_end("21")
+        log(f"== 22. trainer keys at the flagship's widths (bf16, batch "
+            f"{TRAIN_BATCH}): REMAT_VIT, SGD through the graphs, an async "
+            "checkpoint, summaries, SIGTERM")
+        trainer_keys = phase_trainer_keys(tcfg, work)
+        phase_end("22")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
     # ---- 13. kernels line (printed after phases 14-16)
     def entry(name, source, replaces, m, library_ms, launches_of):
         return {"name": name, "route": "cuda", "source": source,
@@ -3983,6 +4359,7 @@ def main() -> int:
               "native_host": native_host, "graphs": graphs,
               "train_graphs": train_graphs,
               "server": server, "real_format": real, "unimodal": unimodal,
+              "exported": exported, "trainer_keys": trainer_keys,
               "phase_s": phase_s}
     log("== 13. kernels (ms, plain_ms, bound_ms, library_ms: K1, K1' and K3 "
         "per inference request at batch 1 (K1 and K1' also per train step "
@@ -4031,6 +4408,8 @@ def main() -> int:
                  serve["launches"]), "graph_ms": k3["graph_ms"],
          "replay_launches": serve["replay_launches"][
              "sorted_segment_weighted_sum_kernel"],
+         "exported_replay_launches": exported["engine"]["replay_launches"][
+             "sorted_segment_weighted_sum_kernel"],
          "train_step": {k: k3t[k] for k in (
              "ms", "graph_ms", "plain_ms", "bound_ms", "library_ms")},
          **replay_of("group-pooled", "K3 (E=1)")},
@@ -4038,7 +4417,9 @@ def main() -> int:
                  tlaunches), "graph_ms": k3e8["graph_ms"],
          **replay_of("group-pooled", "K3' (E=8)")},
         {**fwd_entry("binned_conv_slots_fwd", k1p, k1pt, pserve),
-         **replay_of("per-voxel", *fwd_names)},
+         **replay_of("per-voxel", *fwd_names),
+         "exported_replay_launches": exported["engine"]["replay_launches"][
+             "binned_conv_fwd_mma_kernel"]},
         {**bwd_entry("binned_conv_slots_bwd", k2p, ptlaunches),
          **replay_of("per-voxel", *bwd_names)},
         *({**entry(name, GATHER_SOURCE, TOOL_KERNELS[name], m,

@@ -52,7 +52,8 @@ def _construct(cfg):
                late_feat_block=late if late is not None else 11,
                vit_img_size=m.VIT_IMG_SIZE, vit_patch=m.VIT_PATCH,
                vit_embed_dim=m.VIT_EMBED_DIM, vit_depth=m.VIT_DEPTH,
-               vit_heads=m.VIT_HEADS, compute_dtype=cdt, **dims)
+               vit_heads=m.VIT_HEADS, compute_dtype=cdt,
+               remat_vit=bool(cfg.TPU.REMAT_VIT), **dims)
     if m.USE_FUSION:
         if m.TYPE not in _FUSION:
             raise KeyError(f"{m.TYPE} is not a fusion model")

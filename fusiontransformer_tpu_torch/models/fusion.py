@@ -59,7 +59,8 @@ class FusionTransformerBase(nn.Module):
                  image_height: int = 370, image_width: int = 1226,
                  vit_img_size: int = 384, vit_patch: int = 16,
                  vit_embed_dim: int = 768, vit_depth: int = 12,
-                 vit_heads: int = 12, compute_dtype=torch.bfloat16):
+                 vit_heads: int = 12, compute_dtype=torch.bfloat16,
+                 remat_vit: bool = False):
         super().__init__()
         self.fusion = fusion
         self.dual_head = dual_head
@@ -70,7 +71,8 @@ class FusionTransformerBase(nn.Module):
             image_height=image_height, image_width=image_width,
             vit_img_size=vit_img_size, vit_patch=vit_patch,
             vit_embed_dim=vit_embed_dim, vit_depth=vit_depth,
-            vit_heads=vit_heads, compute_dtype=compute_dtype)
+            vit_heads=vit_heads, compute_dtype=compute_dtype,
+            remat_vit=remat_vit)
         self.lidar_backbone = Net3DSeg(
             num_classes=num_classes, dual_head=dual_head, fusion=fusion,
             cr=cr, compute_dtype=compute_dtype)

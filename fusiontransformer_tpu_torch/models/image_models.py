@@ -82,7 +82,8 @@ class Net2DBilinear(nn.Module):
                  image_height: int = 370, image_width: int = 1226,
                  vit_img_size: int = 384, vit_patch: int = 16,
                  vit_embed_dim: int = 768, vit_depth: int = 12,
-                 vit_heads: int = 12, compute_dtype=torch.bfloat16):
+                 vit_heads: int = 12, compute_dtype=torch.bfloat16,
+                 remat_vit: bool = False):
         super().__init__()
         cdt = compute_dtype
         self.image_height = image_height
@@ -94,7 +95,7 @@ class Net2DBilinear(nn.Module):
         self.backbone = VisionTransformer2D(
             img_size=vit_img_size, patch_size=vit_patch,
             embed_dim=vit_embed_dim, depth=vit_depth, num_heads=vit_heads,
-            compute_dtype=cdt)
+            compute_dtype=cdt, remat=remat_vit)
         self.add_module(f"up_{late_feat_block}",
                         TokenBilinearModule(vit_embed_dim, FEAT_CHANNELS, cdt))
         self.linear = TorchLinear(FEAT_CHANNELS, num_classes,

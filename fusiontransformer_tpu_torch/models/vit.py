@@ -1,11 +1,15 @@
 """Vision transformer (DeiT-Base distilled @384) with per-block feature taps.
 
 Port of ``fusiontransformer_tpu/models/vit.py`` at one rank (no tensor
-parallelism, no remat): patch embedding as one GEMM over HWC-flattened
+parallelism): patch embedding as one GEMM over HWC-flattened
 patches, cls + distillation tokens, pre-norm blocks (LayerNorm eps 1e-6,
 exact GELU), attention scores and values in the compute dtype with an f32
 softmax.  ``forward`` returns every block's output with the prefix tokens
-stripped, keyed by block index.
+stripped, keyed by block index.  With ``remat`` (``TPU.REMAT_VIT``) each
+block of a module in train mode runs under
+``torch.utils.checkpoint.checkpoint``, as JAX's ``nn.remat(Block)``: its
+activations are recomputed in the backward instead of kept, with the same
+values (the ViT draws no random numbers, so no generator state is kept).
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 from torch import nn
 
 from fusiontransformer_tpu_torch.models.layers import (LayerNorm, TorchLinear,
@@ -72,8 +77,9 @@ class VisionTransformer2D(nn.Module):
     n_prefix = 2
 
     def __init__(self, img_size=384, patch_size=16, embed_dim=768, depth=12,
-                 num_heads=12, compute_dtype=torch.bfloat16):
+                 num_heads=12, compute_dtype=torch.bfloat16, remat=False):
         super().__init__()
+        self.remat = remat
         self.img_size = img_size
         self.patch_size = patch_size
         self.depth = depth
@@ -104,6 +110,11 @@ class VisionTransformer2D(nn.Module):
                       dim=1) + self.pos_embed
         outputs = {}
         for i in range(self.depth):
-            x = getattr(self, f"block{i}")(x)
+            block = getattr(self, f"block{i}")
+            if self.remat and self.training:
+                x = checkpoint(block, x, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = block(x)
             outputs[str(i)] = x[:, self.n_prefix:, :]
         return outputs

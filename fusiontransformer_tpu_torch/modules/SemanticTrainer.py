@@ -37,11 +37,35 @@ as in the JAX trainer: it carries the previous validation's meters.
 
 Runs on the card unless it is given ``device="cpu"``; with no CUDA device
 and no explicit CPU it raises.  ``MODEL.IMAGE_PRETRAINED_PATH`` loads a
-DeiT / SimCLR checkpoint into the ViT (``utils/torch_checkpoint.py``).  Not
-ported (ROADMAP.md, Queue 1): wandb and TensorBoard, gradient histograms
-(``make_grads_fn``), asynchronous checkpoints, the preemption handler, the
-ViT's rematerialisation, and more than one device; the keys that would ask
-for them raise (``check_ported_keys``).
+DeiT / SimCLR checkpoint into the ViT (``utils/torch_checkpoint.py``).
+
+As the JAX trainer, it also:
+
+* writes TensorBoard summaries every ``TRAIN.SUMMARY_PERIOD`` epochs into
+  ``tb.<run_name>`` under the output directory (``update_summary``): the
+  train meters whose names hold ``loss``, ``acc`` or ``iou`` as scalars
+  ``train/<meter>``, and with ``TRAIN.LOG_HISTOGRAM`` each parameter's
+  values and gradient as histograms ``params/<flax path>`` /
+  ``grads/<flax path>``.  The gradients come from a gradients-only pass
+  (``gradient_pass``) on the epoch's last batch with per-voxel maps, which
+  leaves the BatchNorm statistics, the optimizer, the static gradients, the
+  open accumulation window and the dropout generator as they were.  Where
+  a summary is asked for and ``torch.utils.tensorboard`` cannot be
+  imported, the trainer raises at construction (the JAX trainer goes on
+  without a writer);
+* writes checkpoints from a background thread with
+  ``TRAIN.ASYNC_CHECKPOINT`` (``utils/checkpoint.py``: the snapshot to
+  host memory is taken before ``save`` returns);
+* stops at a step boundary on SIGTERM (a flag set by the handler, which is
+  installed from the main thread only), writes ``preempt<epoch>`` with the
+  interrupted epoch's index (a resume runs that epoch again), the open
+  accumulation window and the generator, and returns;
+* logs the host's resident set after every epoch (``utils/memdiag.py``)
+  and writes it to ``metrics.jsonl`` as ``host_rss_mb``.
+
+More than one device is not ported (ROADMAP.md, Queue 1); the keys that
+would ask for it raise (``check_ported_keys``).  ``TPU.REMAT_VIT`` is
+honoured by the model (``models/vit.py``).
 """
 
 from __future__ import annotations
@@ -50,6 +74,8 @@ import json
 import logging
 import math
 import os.path as osp
+import signal
+import threading
 import time
 
 import torch
@@ -63,14 +89,17 @@ from fusiontransformer_tpu_torch.modules.steps import (StepCache,
                                                        batch_level_caps,
                                                        batch_signature,
                                                        device_batch,
+                                                       losses,
                                                        make_eval_step,
                                                        make_train_step,
-                                                       read_back)
+                                                       read_back, step_hier)
 from fusiontransformer_tpu_torch.solver.build import (build_optimizer,
                                                       get_learning_rate,
                                                       load_optimizer_state,
                                                       set_learning_rate)
+from fusiontransformer_tpu_torch.utils import memdiag
 from fusiontransformer_tpu_torch.utils.checkpoint import Checkpointer
+from fusiontransformer_tpu_torch.utils.convert_jax import jax_leaf_path
 from fusiontransformer_tpu_torch.utils.device import resolve_device
 from fusiontransformer_tpu_torch.utils.metric_logger import MetricLogger
 from fusiontransformer_tpu_torch.utils.torch_checkpoint import (
@@ -79,11 +108,6 @@ from fusiontransformer_tpu_torch.utils.torch_checkpoint import (
 # Keys the port does not honour yet, the test that a key is set away from
 # its default, and the ROADMAP.md item that will port it.
 UNPORTED_KEYS = (
-    ("TRAIN.SUMMARY_PERIOD", lambda v: v > 0,
-     "Queue 1 item 2 (TensorBoard scalars)"),
-    ("TRAIN.LOG_HISTOGRAM", bool,
-     "Queue 1 item 2 (weight/grad histograms)"),
-    ("TPU.REMAT_VIT", bool, "Queue 1 item 2 (ViT rematerialisation)"),
     ("TPU.NUM_DEVICES", lambda v: v > 1, "Queue 1 item 3 (data parallelism)"),
     ("TPU.MODEL_PARALLEL", lambda v: v > 1,
      "Queue 1 item 4 (tensor parallelism)"),
@@ -180,11 +204,28 @@ class StepRunner:
                          host_batch)
 
 
+def summary_writer(cfg, output_dir, run_name):
+    """The TensorBoard writer of ``tb.<run_name>`` under ``output_dir``
+    when the config asks for summaries there, else None.  Raises where
+    ``torch.utils.tensorboard`` (the ``tensorboard`` package) cannot be
+    imported: the run would write none of what it asks for."""
+    if not (output_dir and cfg.TRAIN.SUMMARY_PERIOD > 0):
+        return None
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError as e:
+        raise ImportError(
+            f"TRAIN.SUMMARY_PERIOD = {cfg.TRAIN.SUMMARY_PERIOD} needs the "
+            f"tensorboard package (torch.utils.tensorboard): {e}") from e
+    return SummaryWriter(osp.join(output_dir, f"tb.{run_name}"))
+
+
 class SemanticTrainer(StepRunner):
     def __init__(self, cfg, output_dir="", run_name="", device=None):
         check_ported_keys(cfg)
         self.output_dir = output_dir
         self.run_name = run_name
+        self.summary_writer = summary_writer(cfg, output_dir, run_name)
         device = resolve_device(device)
         logger = logging.getLogger(f"FusionTransformer.{cfg.MODEL.TYPE}.train")
         model = build_model(cfg, device, seed=cfg.RNG_SEED)
@@ -225,8 +266,9 @@ class SemanticTrainer(StepRunner):
         self.train_graphs = StepCache(cfg.TPU.STEP_CACHE_SIZE)
         self.update_graph = None
 
-        self.checkpointer = Checkpointer(output_dir, self.logger,
-                                         cfg.TRAIN.MAX_TO_KEEP)
+        self.checkpointer = Checkpointer(
+            output_dir, self.logger, cfg.TRAIN.MAX_TO_KEEP,
+            async_save=bool(cfg.TRAIN.ASYNC_CHECKPOINT))
         self.checkpoint_data = self._load_checkpoint()
         self.start_epoch = int(self.checkpoint_data.get("epoch", 0))
         self.best_metric_name = f"best_{cfg.VAL.METRIC}"
@@ -239,6 +281,9 @@ class SemanticTrainer(StepRunner):
             [self.train_metrics[m] for m in ("3d", "2d")
              if m in self.train_metrics])
         self.val_metric_logger = MetricLogger(delimiter="  ")
+        self.last_batch = None      # the epoch's last host batch
+        self.host_rss_mb = 0.0
+        self.preempted = False
 
     # ------------------------------------------------------------------ #
     def _load_checkpoint(self):
@@ -319,11 +364,16 @@ class SemanticTrainer(StepRunner):
         pending = None
         for batch in self.train_dataloader:
             metrics = self.run_train_step(batch)
+            self.last_batch = batch
             if pending is not None:
                 self._consume_step_metrics(*pending)
             pending = (metrics, int(batch.get("gslot_overflow", 0)))
+            if self.preempted:
+                break       # SIGTERM: stop at a step boundary
         if pending is not None:
             self._consume_step_metrics(*pending)
+        if self.preempted:
+            return
         # Per-epoch scheduler step.
         set_learning_rate(self.optimizer,
                           self.lr_schedule((epoch + 1) * self.steps_per_epoch))
@@ -359,7 +409,8 @@ class SemanticTrainer(StepRunner):
                              get_learning_rate(self.optimizer))
         if not self.output_dir:
             return
-        rec = {"epoch": epoch, "lr": get_learning_rate(self.optimizer)}
+        rec = {"epoch": epoch, "lr": get_learning_rate(self.optimizer),
+               "host_rss_mb": self.host_rss_mb}
         for prefix, ml in (("train/", self.train_metric_logger),
                            ("val/", self.val_metric_logger)):
             for name, meter in ml.meters.items():
@@ -403,42 +454,156 @@ class SemanticTrainer(StepRunner):
         generator's state, and with GRAD_ACCUM_STEPS > 1 the gradients of
         the open window, so that a resumed run goes on as the uninterrupted
         one would."""
+        self._save(f"model{epoch:06d}", epoch + 1)
+
+    def _save(self, name, next_epoch):
+        """Save the trainer's state as checkpoint ``name`` that resumes at
+        epoch ``next_epoch`` (the checkpointer copies every tensor to the
+        host before it returns)."""
         extra = {f"{m}_{self.best_metric_name}": float(self.best_metric[m])
                  for m in self.modalities if self.best_metric[m] is not None}
         if self.accum_steps > 1:
-            extra["grad_accum"] = [g.cpu() for g in self.train_step.grads]
+            extra["grad_accum"] = list(self.train_step.grads)
             extra["grad_accum_window"] = self.window
         self.checkpointer.save(
-            f"model{epoch:06d}",
-            model={k: v.cpu() for k, v in self.model.state_dict().items()},
+            name, model=self.model.state_dict(),
             optimizer=self.optimizer.state_dict(), step=self.step,
-            epoch=epoch + 1, grad_accum_steps=self.accum_steps,
+            epoch=next_epoch, grad_accum_steps=self.accum_steps,
             generator=self.generator.get_state(), **extra)
 
+    def _save_preemption_checkpoint(self, epoch):
+        """``preempt<epoch>``, which resumes into the interrupted epoch
+        (plain checkpoints store ``epoch + 1``); written before returning."""
+        self._save(f"preempt{epoch:06d}", epoch)
+        self.checkpointer.wait()
+        self.logger.warning("Preemption checkpoint written for epoch %d",
+                            epoch)
+
+    def _install_preemption_handler(self):
+        """SIGTERM sets ``preempted``; the current step finishes and the
+        epoch loop stops after it.  Returns the handler it replaced (None
+        off the main thread, where no handler can be installed)."""
+        self.preempted = False
+        if threading.current_thread() is not threading.main_thread():
+            return None
+
+        def on_sigterm(signum, frame):
+            self.preempted = True
+            self.logger.warning("SIGTERM received: will checkpoint and stop "
+                                "after the current step")
+
+        return signal.signal(signal.SIGTERM, on_sigterm)
+
+    def _log_host_memory(self, epoch):
+        """The per-epoch host RSS line (``FTX_MEMDIAG=1``: the whole
+        snapshot, and with ``FTX_MEMDIAG_TRACE=1`` the growing allocation
+        sites) and the malloc trim (``FTX_MALLOC_TRIM``)."""
+        import os
+        if os.environ.get("FTX_MEMDIAG", "") == "1":
+            snap = memdiag.snapshot()
+            self.logger.info("memdiag[%d]: %s", epoch,
+                             memdiag.format_snapshot(snap))
+            report = memdiag.trace_report()
+            if report:
+                self.logger.info("memdiag[%d]: %s", epoch, report)
+            self.host_rss_mb = snap.get("rss_mb", 0.0)
+        else:
+            self.host_rss_mb = memdiag.rss_mb()
+            self.logger.info("host RSS after epoch %d: %.0f MB", epoch,
+                             self.host_rss_mb)
+        if memdiag.maybe_trim():
+            self.logger.info("malloc_trim released pages; RSS now %.0f MB",
+                             memdiag.rss_mb())
+
+    # ------------------------------------------------------------------ #
+    def gradient_pass(self, host_batch):
+        """``{parameter name: gradient}`` of the train loss at the current
+        weights on ``host_batch``, with per-voxel maps (its ``gslot_*``
+        maps stripped, the capacities sized from its buffer), as the JAX
+        package's ``make_grads_fn``: an eager forward in train mode and
+        ``torch.autograd.grad``, so the static ``.grad`` tensors, the
+        optimizer and the open window are not touched; the BatchNorm
+        statistics and the dropout generator are put back as they were.  A
+        parameter the loss does not reach gets zeros."""
+        hb = {k: v for k, v in host_batch.items()
+              if not k.startswith(("gslot_src_", "gslot_bin_"))}
+        batch = device_batch(hb, self.device)
+        named = list(self.model.named_parameters())
+        buffers = list(self.model.buffers())
+        saved = [b.clone() for b in buffers]
+        gen_state = self.generator.get_state()
+        self.model.train()
+        try:
+            out = self.model(batch, step_hier(self.cfg, batch),
+                             generator=self.generator)
+            total, _ = losses(self.cfg, out, batch,
+                              self.train_step.class_weights)
+            grads = torch.autograd.grad(total, [p for _, p in named],
+                                        allow_unused=True)
+        finally:
+            with torch.no_grad():
+                for b, s in zip(buffers, saved):
+                    b.copy_(s)
+            self.generator.set_state(gen_state)
+        return {n: torch.zeros_like(p) if g is None else g
+                for (n, p), g in zip(named, grads)}
+
+    def update_summary(self, epoch):
+        """TensorBoard summaries of ``epoch`` every SUMMARY_PERIOD epochs
+        (the JAX trainer's ``update_summary``)."""
+        sw, period = self.summary_writer, self.cfg.TRAIN.SUMMARY_PERIOD
+        if sw is None or period <= 0 or epoch % period:
+            return
+        for name, meter in self.train_metric_logger.meters.items():
+            if any(k in name for k in ("loss", "acc", "iou")):
+                sw.add_scalar("train/" + name, meter.avg, global_step=epoch)
+        if self.cfg.TRAIN.LOG_HISTOGRAM:
+            for name, p in self.model.named_parameters():
+                sw.add_histogram("params/" + "/".join(jax_leaf_path(name)),
+                                 p.detach().float().cpu().numpy().ravel(),
+                                 global_step=epoch)
+            if self.last_batch is not None:
+                for name, g in self.gradient_pass(self.last_batch).items():
+                    sw.add_histogram(
+                        "grads/" + "/".join(jax_leaf_path(name)),
+                        g.float().cpu().numpy().ravel(), global_step=epoch)
+        sw.flush()
+
     def train(self):
+        previous = self._install_preemption_handler()
         try:
             for epoch in range(self.start_epoch,
                                int(self.cfg.SCHEDULER.MAX_EPOCH)):
                 t0 = time.time()
                 self.train_for_one_epoch(epoch)
+                if self.preempted:
+                    self._save_preemption_checkpoint(epoch)
+                    break
                 self.logger.info("Epoch %d took %.1fs", epoch,
                                  time.time() - t0)
+                self._log_host_memory(epoch)
                 # As in the JAX trainer: the log line first, so epoch e's
                 # carries the validation of an earlier epoch (none at 0).
                 self.update_log(epoch)
+                self.update_summary(epoch)
                 if self.validate_for_one_epoch(epoch):
                     self.update_validation_logging_meters(epoch)
                 # As in the JAX trainer: a checkpoint on each new best epoch.
                 if any(self.best_metric_epoch[m] == epoch
                        for m in self.modalities):
                     self.update_checkpoint(epoch)
+            self.checkpointer.wait()    # the write in flight, if any
         finally:
+            if previous is not None:
+                signal.signal(signal.SIGTERM, previous)
             self.close()
         return self.model
 
     def close(self):
         """Stop the loaders' worker pools (a later epoch starts them
-        again)."""
+        again) and flush the summaries."""
         for loader in (self.train_dataloader, self.val_dataloader):
             if loader is not None:
                 loader.close()
+        if self.summary_writer is not None:
+            self.summary_writer.flush()

@@ -31,6 +31,8 @@ are float32.  Each launch routes on the operand dtype alone:
   slot codes, the dW kernel per 32x32 tile).
 
 There is no fallback between the routes: a failed build or launch raises.
+Each wrapper reaches its launch through a custom op of the ``ftx``
+namespace (``torch.ops.ftx.<name>``), which ``torch.export`` can trace.
 """
 
 from __future__ import annotations
@@ -175,6 +177,9 @@ def binned_conv_slots_bwd_ref(dout, feats, src, tap, w):
 
 
 def _check_operands(feats, w):
+    # The ops' fake kernels would answer on another device (meta).
+    if feats.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {feats.device}")
     if feats.dim() != 2 or w.dim() != 3 or w.shape[0] != 27:
         raise ValueError(f"expected feats [V, Cin], w [27, Cin, Cout]; got "
                          f"{tuple(feats.shape)}, {tuple(w.shape)}")
@@ -420,9 +425,57 @@ def _run_bwd(name, symbol, dout, feats, src, codes, w, stream, sched=None):
     return dx, dw
 
 
+# The four launches as custom ops of the ``ftx`` namespace: the CPU kernel
+# is the plain version, the CUDA kernel the launch, and the fake kernel
+# gives the result's shape and dtype, so that ``torch.export`` traces a step
+# through them with fake tensors, which have no data pointer.  No op writes
+# to an input or returns a view of one.
+_FWD_SCHEMA = "(Tensor feats, Tensor src, Tensor codes, Tensor w) -> Tensor"
+_BWD_SCHEMA = ("(Tensor dout, Tensor feats, Tensor src, Tensor codes, "
+               "Tensor w) -> (Tensor, Tensor)")
+
+
+def _fwd_fake(feats, src, codes, w):
+    return feats.new_empty((feats.shape[0], w.shape[2]), dtype=torch.float32)
+
+
+def _bwd_fake(dout, feats, src, codes, w):
+    return (feats.new_empty(feats.shape, dtype=torch.float32),
+            w.new_empty(w.shape, dtype=torch.float32))
+
+
+def _custom_op(name, schema, ref, cuda, fake):
+    op = torch.library.custom_op(f"ftx::{name}", ref, mutates_args=(),
+                                 device_types="cpu", schema=schema)
+    op.register_kernel("cuda")(cuda)
+    op.register_fake(fake)
+    return op
+
+
+_custom_op(NAME, _FWD_SCHEMA, binned_conv_grouped_ref,
+           lambda feats, src, codes, w: _launch_fwd(
+               NAME, "ftx_binned_conv_grouped_fwd", feats, src, codes, w),
+           _fwd_fake)
+_custom_op(SLOTS_NAME, _FWD_SCHEMA, binned_conv_slots_ref,
+           lambda feats, src, codes, w: _launch_fwd(
+               SLOTS_NAME, "ftx_binned_conv_slots_fwd", feats, src, codes,
+               w),
+           _fwd_fake)
+_custom_op(BWD_NAME, _BWD_SCHEMA, binned_conv_grouped_bwd_ref,
+           lambda dout, feats, src, codes, w: _launch_bwd(
+               BWD_NAME, "ftx_binned_conv_grouped_bwd", dout, feats, src,
+               codes, w),
+           _bwd_fake)
+_custom_op(SLOTS_BWD_NAME, _BWD_SCHEMA, binned_conv_slots_bwd_ref,
+           lambda dout, feats, src, codes, w: _launch_bwd(
+               SLOTS_BWD_NAME, "ftx_binned_conv_slots_bwd", dout, feats, src,
+               codes, w),
+           _bwd_fake)
+
+
 def binned_conv_grouped_fwd(feats, src_pack, bin_pack, w):
     """[V, Cout] float32 from group-pooled maps (K1; see the module
-    docstring).
+    docstring), through the op ``torch.ops.ftx.binned_conv_grouped_fwd``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel of
     their dtype (bf16 the tensor-core one, f32 the CUDA-core one), which
@@ -430,15 +483,14 @@ def binned_conv_grouped_fwd(feats, src_pack, bin_pack, w):
     at most 1024.
     """
     _check(feats, src_pack, bin_pack, w)
-    if feats.device.type == "cpu":
-        return binned_conv_grouped_ref(feats, src_pack, bin_pack, w)
-    return _launch_fwd(NAME, "ftx_binned_conv_grouped_fwd", feats, src_pack,
-                       bin_pack, w)
+    return torch.ops.ftx.binned_conv_grouped_fwd(feats, src_pack, bin_pack,
+                                                 w)
 
 
 def binned_conv_grouped_bwd(dout, feats, src_pack, bin_pack, w):
     """Backward of ``binned_conv_grouped_fwd``: ``(dX [V, Cin], dW [27, Cin,
-    Cout])``, float32 (K2; see ``binned_conv_grouped_bwd_ref`` for the math).
+    Cout])``, float32 (K2; see ``binned_conv_grouped_bwd_ref`` for the math),
+    through ``torch.ops.ftx.binned_conv_grouped_bwd``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernels of
     their dtype (bf16 on the tensor cores, f32 on the CUDA cores), which
@@ -448,15 +500,14 @@ def binned_conv_grouped_bwd(dout, feats, src_pack, bin_pack, w):
     """
     _check(feats, src_pack, bin_pack, w)
     _check_dout(dout, feats, w)
-    if feats.device.type == "cpu":
-        return binned_conv_grouped_bwd_ref(dout, feats, src_pack, bin_pack, w)
-    return _launch_bwd(BWD_NAME, "ftx_binned_conv_grouped_bwd", dout, feats,
-                       src_pack, bin_pack, w)
+    return torch.ops.ftx.binned_conv_grouped_bwd(dout, feats, src_pack,
+                                                 bin_pack, w)
 
 
 def binned_conv_slots_fwd(feats, src, tap, w):
     """[V, Cout] float32 from per-voxel K-slot maps src, tap [V, K] int32
-    (K1'; see ``binned_conv_slots_ref`` for the math).
+    (K1'; see ``binned_conv_slots_ref`` for the math), through
+    ``torch.ops.ftx.binned_conv_slots_fwd``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel of
     their dtype (as ``binned_conv_grouped_fwd``), which reads the maps as
@@ -464,21 +515,16 @@ def binned_conv_slots_fwd(feats, src, tap, w):
     contiguous, Cin and Cout at most 1024.
     """
     _check_slots(feats, src, tap, w)
-    if feats.device.type == "cpu":
-        return binned_conv_slots_ref(feats, src, tap, w)
-    return _launch_fwd(SLOTS_NAME, "ftx_binned_conv_slots_fwd", feats, src,
-                       tap, w)
+    return torch.ops.ftx.binned_conv_slots_fwd(feats, src, tap, w)
 
 
 def binned_conv_slots_bwd(dout, feats, src, tap, w):
     """Backward of ``binned_conv_slots_fwd`` as the JAX package computes it:
     ``(dX [V, Cin], dW [27, Cin, Cout])``, float32 (K2'; see
-    ``binned_conv_slots_bwd_ref``).  Takes what ``binned_conv_slots_fwd``
-    takes, dout in the operands' dtype; dX and dW are bitwise
-    repeatable."""
+    ``binned_conv_slots_bwd_ref``), through
+    ``torch.ops.ftx.binned_conv_slots_bwd``.  Takes what
+    ``binned_conv_slots_fwd`` takes, dout in the operands' dtype; dX and dW
+    are bitwise repeatable."""
     _check_slots(feats, src, tap, w)
     _check_dout(dout, feats, w)
-    if feats.device.type == "cpu":
-        return binned_conv_slots_bwd_ref(dout, feats, src, tap, w)
-    return _launch_bwd(SLOTS_BWD_NAME, "ftx_binned_conv_slots_bwd", dout,
-                       feats, src, tap, w)
+    return torch.ops.ftx.binned_conv_slots_bwd(dout, feats, src, tap, w)

@@ -13,7 +13,9 @@ kernel needs neither.  It splits the point stream into chunks of
 ``points_per_chunk`` points, which the blocks of one cooperative launch
 take in turn; a row that crosses a chunk's edge is summed in pieces that
 the same launch adds in chunk order after a grid barrier, so the result is
-the same bits on every launch (design in ``csrc/segment_sum.cu``).
+the same bits on every launch (design in ``csrc/segment_sum.cu``).  The
+wrapper reaches its plain version or its launch through the custom op
+``torch.ops.ftx.sorted_segment_weighted_sum``.
 """
 
 from __future__ import annotations
@@ -43,6 +45,9 @@ def sorted_segment_weighted_sum_ref(g, w, ids, num_out, precise=False):
 
 
 def _check(g, w, ids, num_out):
+    # The op's fake kernel would answer on another device (meta).
+    if g.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {g.device}")
     if g.dim() != 2 or w.dim() != 2 or ids.dim() != 1:
         raise ValueError("expected g [N, C], w [N, E], ids [N]")
     n = g.shape[0]
@@ -56,14 +61,18 @@ def _check(g, w, ids, num_out):
 
 
 def sorted_segment_weighted_sum(g, w, ids, num_out: int, precise=False):
-    """[num_out, E*C] float32 (see the module docstring).
+    """[num_out, E*C] float32 (see the module docstring), through the op
+    ``torch.ops.ftx.sorted_segment_weighted_sum``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
     which needs g and w float32, ids int32, all contiguous.
     """
     _check(g, w, ids, num_out)
-    if g.device.type == "cpu":
-        return sorted_segment_weighted_sum_ref(g, w, ids, num_out, precise)
+    return torch.ops.ftx.sorted_segment_weighted_sum(g, w, ids, int(num_out),
+                                                     bool(precise))
+
+
+def _launch(g, w, ids, num_out, precise):
     if g.device.type != "cuda":
         raise ValueError(f"unsupported device {g.device}")
     if g.dtype != torch.float32 or w.dtype != torch.float32:
@@ -84,11 +93,27 @@ def sorted_segment_weighted_sum(g, w, ids, num_out: int, precise=False):
     stream = torch.cuda.current_stream(g.device).cuda_stream
     rc = _kernel()(g.data_ptr(), w.data_ptr(), ids.data_ptr(),
                    out.data_ptr(), scratch.data_ptr(), n, c, e, num_out,
-                   chunk, int(bool(precise)), stream)
+                   chunk, int(precise), stream)
     if rc != 0:
         raise RuntimeError(f"{NAME} launch failed: CUDA error {rc}")
     LAUNCHES[launch_name(e)] += 1
     return out
+
+
+# The custom op: the plain version on the CPU (its result a copy of its
+# own, not a view of the sums' padded buffer), the launch on the card, and
+# the result's shape for ``torch.export``'s fake tensors.  The scratch
+# buffer is allocated inside; no input is written.
+_op = torch.library.custom_op(
+    f"ftx::{NAME}",
+    lambda g, w, ids, num_out, precise: sorted_segment_weighted_sum_ref(
+        g, w, ids, num_out, precise).clone(),
+    mutates_args=(), device_types="cpu",
+    schema="(Tensor g, Tensor w, Tensor ids, int num_out, bool precise) "
+           "-> Tensor")
+_op.register_kernel("cuda")(_launch)
+_op.register_fake(lambda g, w, ids, num_out, precise: g.new_empty(
+    (num_out, w.shape[1] * g.shape[1]), dtype=torch.float32))
 
 
 @functools.cache

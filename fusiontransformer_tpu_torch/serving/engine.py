@@ -19,6 +19,10 @@ Port of ``fusiontransformer_tpu/serving/engine.py`` for one device:
 * ``complete`` — de-voxelise the predictions back to every raw point
   (out-of-frustum and capacity-dropped points get class 0, the ignore id).
 
+With ``exported_dir`` the predict step is the per-bucket ``torch.export``
+program of ``serving/export.py`` (always the per-voxel path: no host slot
+maps), called with this engine's weights; everything else is the same.
+
 On the card the step runs as CUDA graphs, the role ``jax.jit`` plays in the
 JAX engine: one ``StepGraph`` (``modules/steps.py``) per input signature
 (``batch_signature``: the bucket, the batch size and each level's slot-pool
@@ -104,6 +108,25 @@ def make_predict_step(cfg, model):
     return step, keys
 
 
+def dummy_sample(n_points: int, image_height: int, image_width: int) -> Dict:
+    """Synthetic record preprocessed to exactly fill ``n_points``."""
+    rng = np.random.RandomState(0)
+    side = int(np.ceil(n_points ** (1 / 3))) + 1
+    grid = np.stack(np.meshgrid(*[np.arange(side)] * 3,
+                                indexing="ij"), -1).reshape(-1, 3)
+    return {
+        "coords": grid[:n_points].astype(np.int32),
+        "feats": rng.rand(n_points, 4).astype(np.float32),
+        "seg_label": np.zeros(n_points, np.int32),
+        "img_indices": np.zeros((n_points, 2), np.int32),
+        "img": np.zeros((image_height, image_width, 3), np.float32),
+        "orig_seg_label": np.zeros(n_points, np.int32),
+        "sparse_orig_points_idx": np.ones(n_points, bool),
+        "inverse_map": np.arange(n_points),
+        "num_input_points": n_points,
+    }
+
+
 class InferenceEngine:
     """Owns the model and answers requests, one batch at a time.
 
@@ -111,13 +134,15 @@ class InferenceEngine:
     ``utils.convert_jax.load_jax_variables``); or ``checkpoint_path``, a
     checkpoint of the port's trainer (``utils/checkpoint.py``) whose
     ``model`` state dict is loaded; by default one is built from ``cfg``
-    with random weights from ``seed``.  Thread-safe for concurrent
-    ``predict`` calls: captures and replays run under a lock, host
-    preprocessing and the wait for a result outside it.
+    with random weights from ``seed``.  ``exported_dir``: serve through the
+    ahead-of-time programs of ``serving/export.py`` with those weights.
+    Thread-safe for concurrent ``predict`` calls: captures and replays run
+    under a lock, host preprocessing and the wait for a result outside it.
     """
 
     def __init__(self, cfg, model=None, batch_size: int = 1, device=None,
-                 seed: int = 0, checkpoint_path: str = ""):
+                 seed: int = 0, checkpoint_path: str = "",
+                 exported_dir: str = ""):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.batch_size = int(batch_size)
@@ -141,17 +166,21 @@ class InferenceEngine:
         self.image_normalizer = ds.get("image_normalizer", None)
         self.buckets = tuple(sorted(cfg.TPU.CAPACITY_BUCKETS)) or (
             cfg.TPU.POINT_CAPACITY,)
-        self.point_capacity = max(self.buckets)
-        self._step, self._pred_keys = make_predict_step(cfg, self.model)
-        # One captured step per input signature, on the card.
-        self.graphs = StepCache(cfg.TPU.STEP_CACHE_SIZE)
-        self._pool = None
-
         # Host-built group-pooled slot maps at the levels CONV_TAP_SLOTS
         # names, at the static capacities of the bucket (None with
         # CONV_SLOT_POOL off: the step builds per-voxel maps; None for a
         # model without the 3D stream, which builds no hierarchy).
         self._slot_pool = slot_pool_spec(cfg, adaptive=False)
+        self.exported = None
+        if exported_dir:
+            self._use_exported(exported_dir)
+        else:
+            self._step, self._pred_keys = make_predict_step(cfg, self.model)
+        self.point_capacity = max(self.buckets)
+        # One captured step per input signature, on the card.
+        self.graphs = StepCache(cfg.TPU.STEP_CACHE_SIZE)
+        self._pool = None
+
         self._device_lock = threading.Lock()
         self._stats_lock = threading.Lock()
         self.counters = {
@@ -159,6 +188,30 @@ class InferenceEngine:
             "oob_points": 0, "voxel_overflow": 0, "captures": 0,
             "bucket_hits": {int(b): 0 for b in self.buckets},
         }
+
+    def _use_exported(self, exported_dir):
+        """Serve through the programs of ``serving/export.py`` (the JAX
+        engine's ``exported_dir``): the buckets, the image size and the
+        output columns come from the artifact's manifest, the weights from
+        this engine's model, and there are no host slot maps (a program
+        takes none)."""
+        from fusiontransformer_tpu_torch.serving.export import ExportedPredict
+        exported = ExportedPredict(exported_dir, self.device,
+                                   self.batch_size)
+        m = exported.manifest
+        self.buckets = tuple(sorted(int(b) for b in m["buckets"]))
+        self.image_height = int(m["image_height"])
+        self.image_width = int(m["image_width"])
+        self._pred_keys = list(m["pred_keys"])
+        self._slot_pool = None
+        self.exported = exported
+        state = dict(self.model.state_dict())
+
+        def step(batch):
+            with torch.inference_mode():
+                return exported(state, batch)
+
+        self._step = step
 
     # ------------------------------------------------------------------ #
     def preprocess(self, record: Dict) -> Dict:
@@ -317,23 +370,7 @@ class InferenceEngine:
         return times
 
     def _dummy_sample(self, n_points: int) -> Dict:
-        """Synthetic record preprocessed to exactly fill ``n_points``."""
-        rng = np.random.RandomState(0)
-        side = int(np.ceil(n_points ** (1 / 3))) + 1
-        grid = np.stack(np.meshgrid(*[np.arange(side)] * 3,
-                                    indexing="ij"), -1).reshape(-1, 3)
-        return {
-            "coords": grid[:n_points].astype(np.int32),
-            "feats": rng.rand(n_points, 4).astype(np.float32),
-            "seg_label": np.zeros(n_points, np.int32),
-            "img_indices": np.zeros((n_points, 2), np.int32),
-            "img": np.zeros((self.image_height, self.image_width, 3),
-                            np.float32),
-            "orig_seg_label": np.zeros(n_points, np.int32),
-            "sparse_orig_points_idx": np.ones(n_points, bool),
-            "inverse_map": np.arange(n_points),
-            "num_input_points": n_points,
-        }
+        return dummy_sample(n_points, self.image_height, self.image_width)
 
     def stats(self) -> Dict:
         with self._stats_lock:

@@ -6,7 +6,9 @@ Port of ``fusiontransformer_tpu/solver/build.py``:
   the moment updates) is ``torch.optim.Adam(weight_decay=wd, eps=1e-8)``:
   the same update as the JAX package's ``add_decayed_weights(wd)`` +
   ``scale_by_adam(eps=1e-8)`` + ``scale_by_learning_rate``;
-* SGD: momentum with dampening 0 (``optax.trace``), coupled L2 likewise;
+* SGD: momentum with dampening 0 (``optax.trace``), coupled L2 likewise,
+  is the port's own ``SGD``, which reads its tensor learning rate on the
+  device (torch's reads it back to the host);
 * schedules are per-epoch factors (StepLR / MultiStepLR /
   WarmupMultiStepLR) floored by ClipLR; the trainer applies one per epoch
   with ``set_learning_rate``.
@@ -84,17 +86,54 @@ def build_optimizer(cfg, params, steps_per_epoch: int = 1):
         opt = torch.optim.Adam(params, lr=lr, betas=(b1, b2), eps=1e-8,
                                weight_decay=wd, capturable=on_card)
     elif name == "SGD":
-        if on_card:
-            raise NotImplementedError(
-                "SGD on the card is not ported: torch's SGD reads a tensor "
-                "learning rate back to the host, which the train step's CUDA "
-                "graph refuses (ROADMAP.md, Queue 1)")
-        opt = torch.optim.SGD(params, lr=lr,
-                              momentum=cfg.OPTIMIZER.SGD.momentum,
-                              dampening=0.0, weight_decay=wd)
+        opt = SGD(params, lr=lr, momentum=cfg.OPTIMIZER.SGD.momentum,
+                  weight_decay=wd)
     else:
         raise ValueError(f"Unsupported type of optimizer: {name!r}")
     return opt, schedule
+
+
+class SGD(torch.optim.Optimizer):
+    """SGD with momentum (dampening 0) and coupled L2, as the JAX package's
+    ``add_decayed_weights(wd)`` + ``trace(momentum)`` +
+    ``scale_by_learning_rate``:
+
+        d = g + wd * p;   buf = momentum * buf + d;   p -= lr * buf
+
+    (``buf`` starts at zero, so the first step's is ``d``; momentum 0 keeps
+    no buffer).  ``lr`` is a one-element tensor read on the device: torch's
+    SGD reads a tensor rate back to the host, which a CUDA-graph capture
+    refuses.  The buffers are made here, before any capture, and live in
+    the optimizer's state (``momentum_buffer``), so ``state_dict`` saves
+    and ``load_state_dict`` restores them.  Every update is a foreach op
+    on the parameters' device: capturable.
+    """
+
+    def __init__(self, params, lr, momentum=0.0, weight_decay=0.0):
+        super().__init__(params, dict(lr=lr, momentum=momentum,
+                                      weight_decay=weight_decay))
+        for group in self.param_groups:
+            if group["momentum"]:
+                for p in group["params"]:
+                    self.state[p]["momentum_buffer"] = torch.zeros_like(p)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("SGD.step takes no closure")
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            d = [p.grad for p in params]
+            if group["weight_decay"]:
+                d = torch._foreach_add(d, params, alpha=group["weight_decay"])
+            if group["momentum"]:
+                bufs = [self.state[p]["momentum_buffer"] for p in params]
+                torch._foreach_mul_(bufs, group["momentum"])
+                torch._foreach_add_(bufs, d)
+                d = bufs
+            torch._foreach_sub_(params, torch._foreach_mul(d, group["lr"]))
 
 
 def set_learning_rate(optimizer, lr: float):

@@ -15,6 +15,12 @@
         --cfg configs/semantic_kitti/middlefusion.yaml --selftest 32 \\
         --clients 4 --points 18000 --port 0
 
+    # The ahead-of-time programs of tools/export_model.py instead of the
+    # live step (the per-voxel path, one graph per bucket):
+    python -m fusiontransformer_tpu_torch.tools.serve \
+        --cfg configs/semantic_kitti/middlefusion.yaml --ckpt model.pth \
+        --exported-dir export_dir
+
 Runs on the CUDA card (one CUDA graph per capacity bucket and slot-pool
 size, captured at warm-up or on first use) unless ``--device cpu`` is given.
 The request is an .npz of ``points`` [N, 3] float32, ``feats`` [N, <=4]
@@ -46,6 +52,9 @@ def parse_args(argv=None):
                    help="0 picks a free port")
     p.add_argument("--batch", type=int, default=1, help="device batch size")
     p.add_argument("--preproc-workers", type=int, default=2)
+    p.add_argument("--exported-dir", default="", help="artifact directory "
+                   "of tools/export_model.py: serve its programs (exported "
+                   "on this device type) with the --ckpt weights")
     p.add_argument("--no-warmup", action="store_true",
                    help="capture each bucket's graph on its first request "
                    "instead of before serving")
@@ -76,7 +85,8 @@ def main(argv=None):
     if not args.ckpt:
         print("WARNING: no --ckpt, serving random weights", file=sys.stderr)
     engine = InferenceEngine(cfg, batch_size=args.batch, device=args.device,
-                             seed=cfg.RNG_SEED, checkpoint_path=args.ckpt)
+                             seed=cfg.RNG_SEED, checkpoint_path=args.ckpt,
+                             exported_dir=args.exported_dir)
     warmup_s = {}
     if not args.no_warmup:
         print("warmup (one captured step per capacity bucket)...",

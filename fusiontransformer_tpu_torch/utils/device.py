@@ -9,6 +9,7 @@ tables on the device.
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import unset_fake_temporarily
 
 
 def resolve_device(device=None) -> torch.device:
@@ -35,5 +36,9 @@ def device_constant(name: str, values, device) -> torch.Tensor:
     key = (name, str(device))
     t = _constants.get(key)
     if t is None:
-        t = _constants[key] = torch.as_tensor(values, device=device)
+        # Made outside any fake mode: under ``torch.export``'s tracing the
+        # table is a real constant of the program, and the cache never
+        # holds a fake tensor.
+        with unset_fake_temporarily():
+            t = _constants[key] = torch.as_tensor(values, device=device)
     return t
