@@ -199,7 +199,30 @@ then ahead-of-time serving and the trainer's last single-device keys:
     SIGTERM'd ``train.py`` (``synthetic.yaml``): exit 0, a ``preempt*.pth``
     and a trainer resuming into that epoch;
 
-13. (printed after 14-16, 21, 22) a ``{"kernels": [...]}`` line: launches, errors
+and data parallelism (run after 20d, on phase 18's tree):
+
+23. (a) ``python -m torch.distributed.run --standalone --nproc_per_node
+    N -m fusiontransformer_tpu_torch.train --distributed 1`` with
+    ``middlefusion.yaml`` per-voxel, N the cards (at most as many as the
+    global batch of 10 divides over), NCCL: one epoch of 2 steps and a
+    3-batch sharded validation, exit 0 and ``max-MeanIoU-000000.pth``;
+    the trainer's logged medians of its replays (local step, reductions,
+    update) beside phase 17b's single-device replay; then
+    ``--use_torchpack_test 1``: the checkpoint restored, one
+    ``predictions/*.npz`` a test scan with the JAX package's keys, the
+    tables; (b) two gloo ranks, each a spawned process on cuda:0 (NCCL
+    refuses two ranks on one card: a check of the arithmetic on the card,
+    not of NCCL), full width, bf16, global batch 10: the K1' / K2' / K3 /
+    K3' launches of each rank's first step held against its capture, the
+    parameters and buffers after it bit for bit the same on both ranks and
+    held against one process running both shards' eager steps and
+    averaging (rank 0), each rank's replay bit for bit its eager
+    data-parallel step, 5 replays' parts timed; (c) ``InferenceEngine``
+    with two replicas on cuda:0 at batch 2 against one replica, f32: the
+    labels, the overflow summed over the replicas, the launches held
+    against the replicas' captures;
+
+13. (printed after 14-16, 21-23) a ``{"kernels": [...]}`` line: launches, errors
     and times of each kernel; K1 and K1' also carry their device time over
     CUDA-graph replays, the CUDA-core kernel's times on the same operands,
     the tensor-core forward's launches on the path, the engine's captures
@@ -213,7 +236,9 @@ then ahead-of-time serving and the trainer's last single-device keys:
     and K1 / K2 / K3 / K3' those of the lidar-only model's replay and its
     training path's launches (``lidar_train_replay_kernels``,
     ``lidar_launches``, phase 20a); K1' and K3 their kernels in the
-    exported engine's 8 replays (``exported_replay_launches``, phase 21).
+    exported engine's 8 replays (``exported_replay_launches``, phase 21);
+    K1' / K2' / K3 / K3' their launches in phase 23 (``dp_launches``: each
+    gloo rank's first data-parallel step, the two-replica engine).
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -3891,6 +3916,409 @@ def phase_trainer_keys(tcfg, work):
     return res
 
 
+# --------------------------------------------------------------------------- #
+# Phase 23: data parallelism, one process per card over torch.distributed.
+
+DP_VAL_BATCH = 4        # 10 validation frames: a 3-batch sharded validation
+DP_GLOO_RANKS = 2
+DP_TIMED_REPLAYS = 5
+DP_DEVICE = "cuda:0"    # (b): every gloo rank on the one card
+DP_RE_STEP = re.compile(
+    r"data-parallel train steps, (\d+) replays, world (\d+) \((\w+)\): "
+    r"local step ([\d.]+) ms, reductions ([\d.]+) ms, update ([\d.]+) ms, "
+    r"step ([\d.]+) ms")
+# Phase 23 (c) labels, two replicas against one at batch 2 (f32, TF32 off:
+# the same arithmetic in GEMMs of other row counts): as phase 5's.
+DP_LABEL_AGREEMENT = LABEL_AGREEMENT
+
+
+def dp_world(n_cards, batch):
+    """The ranks of phase 23 (a): one a card, at most as many as the global
+    batch divides over."""
+    return max(d for d in range(1, n_cards + 1) if batch % d == 0)
+
+
+def run_killable(cmd, timeout):
+    """``cmd`` in a session of its own, output merged: (exit code, text,
+    seconds); on its time limit the whole session is killed (torchrun's
+    workers with it) and it raises."""
+    import os
+    import signal
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        text, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    return proc.returncode, text, time.perf_counter() - t0
+
+
+def torchrun_train(n, argv, timeout=600):
+    """``train.py`` under ``torch.distributed.run --standalone`` with ``n``
+    processes: (exit code, output, seconds)."""
+    return run_killable(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(n), "-m", "fusiontransformer_tpu_torch.train",
+         *argv], timeout)
+
+
+def phase_dp_torchrun(kitti_dirs, work, card, single_replay_ms):
+    """Phase 23 (a): ``train.py --distributed 1`` under torchrun, one NCCL
+    process a card, ``middlefusion.yaml`` per-voxel on the SemanticKITTI
+    tree: one epoch of 2 steps at global batch 10 and a 3-batch sharded
+    validation; then ``--use_torchpack_test 1``: the best-IoU checkpoint
+    restored, every test scan dumped, the tables.  The trainer's logged
+    medians of its replays: local step, reductions, update."""
+    import os
+    import torch
+    n = dp_world(torch.cuda.device_count(), TRAIN_BATCH)
+    out = os.path.join(work, "dp")
+    args = ["--run_name", "dp", *kitti_args(kitti_dirs, out),
+            "SCHEDULER.MAX_EPOCH", "1", "VAL.PERIOD", "1", "VAL.BATCH_SIZE",
+            str(DP_VAL_BATCH), "TPU.CONV_SLOT_POOL", "False"]
+    res = {"world": n}
+    rc, text, res["train_s"] = torchrun_train(
+        n, ["--cfg", CONFIG, "--distributed", "1", *args])
+    run = os.path.join(out, "dp")
+    saved = sorted(os.listdir(run)) if os.path.isdir(run) else []
+    found = DP_RE_STEP.search(text)
+    if rc != 0 or "max-MeanIoU-000000.pth" not in saved or not found:
+        raise AssertionError(f"torchrun train.py --distributed 1: exit {rc},"
+                             f" {saved}: {text[-4000:]}")
+    replays, world, backend = (int(found.group(1)), int(found.group(2)),
+                               found.group(3))
+    res["steps_ms"] = dict(zip(("local", "reduce", "update", "step"),
+                               map(float, found.groups()[3:])))
+    res.update(replays=replays, backend=backend)
+    if world != n or backend != "nccl":
+        raise AssertionError(f"the run reports world {world}, {backend}")
+    log(f"  torchrun, {n} NCCL process(es): train.py --distributed 1 "
+        f"(2 steps of {TRAIN_BATCH} + a {DP_VAL_BATCH}-scan-batch sharded "
+        f"validation) exit 0 in {res['train_s']:.1f} s, "
+        f"max-MeanIoU-000000.pth written; the step's parts (local: "
+        f"the batch's copy in and the replay) "
+        f"({replays} replay): {res['steps_ms']}; against phase 17b's "
+        f"single-device per-voxel replay {single_replay_ms:.2f} ms; {card}")
+    rc, text, res["test_s"] = torchrun_train(
+        n, ["--cfg", CONFIG, "--use_torchpack_test", "1", *args])
+    from fusiontransformer_tpu_torch.tools.fabricate import KITTI_FRAMES
+    pred_dir = os.path.join(run, "predictions")
+    dumps = sorted(os.listdir(pred_dir)) if os.path.isdir(pred_dir) else []
+    n_test = KITTI_FRAMES["08"]
+    if rc != 0 or len(dumps) != n_test or "overall IOU" not in text \
+            or "max-MeanIoU-000000.pth" not in text:
+        raise AssertionError(f"torchrun --use_torchpack_test 1: exit {rc}, "
+                             f"{len(dumps)} dumps of {n_test}: "
+                             f"{text[-4000:]}")
+    import numpy as np
+    keys = sorted(np.load(os.path.join(pred_dir, dumps[0])).files)
+    if keys != sorted(["targets", "coords", "predictions_3d",
+                       "predictions_2d", "img_indices", "img"]):
+        raise AssertionError(f"prediction dump keys {keys}")
+    res["dumps"] = len(dumps)
+    log(f"  torchrun --use_torchpack_test 1: exit 0 in {res['test_s']:.1f} "
+        f"s, max-MeanIoU-000000.pth restored, {len(dumps)} "
+        f"predictions/*.npz ({', '.join(keys)}), the tables logged")
+    return res
+
+
+def _digest(tensors):
+    """SHA-256 of the tensors' bytes."""
+    import hashlib
+    import torch
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().view(-1).view(
+            torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def eager_dp_step(tr, host_batch):
+    """The data-parallel step of ``DistributedTrainer.run_train_step``
+    without its graph: the eager local step, the reductions, the update;
+    the reduced metrics on the host."""
+    from fusiontransformer_tpu_torch.modules.steps import (device_batch,
+                                                           read_back)
+    host_batch, caps = tr.agree(host_batch)
+    metrics = tr.train_step(device_batch(host_batch, tr.device),
+                            tr.generator, caps)
+    tr.step += 1
+    return read_back(metrics).numpy()
+
+
+def leaf_shares(got, want):
+    """Per tensor: max |got - want| over max |want| (0 where both are 0),
+    and how many are bit for bit equal."""
+    import torch
+    shares, equal = [], 0
+    for a, b in zip(got, want):
+        equal += int(torch.equal(a, b))
+        scale = float(b.abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        shares.append(err / scale if scale else (0.0 if err == 0 else 1.0))
+    return shares, equal
+
+
+def dp_gloo_rank(rank, world, port, out_tmpl, convs_per_step):
+    """Phase 23 (b), one of ``world`` gloo ranks sharing cuda:0 (a spawned
+    process): its result, or its traceback, to ``out_tmpl % rank``."""
+    import os
+    import traceback
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world))
+    try:
+        res = {"ok": True, **_dp_gloo_rank(rank, world, convs_per_step)}
+    except BaseException:
+        res = {"ok": False, "error": traceback.format_exc()}
+    with open(out_tmpl % rank, "w") as f:
+        json.dump(res, f)
+
+
+def _dp_gloo_rank(rank, world, convs_per_step):
+    import numpy as np
+    import torch
+    from fusiontransformer_tpu_torch.data.build import build_dataset
+    from fusiontransformer_tpu_torch.data.collate import get_collate
+    from fusiontransformer_tpu_torch.models.build import build_model
+    from fusiontransformer_tpu_torch.modules.DistributedTrainer import (
+        DistributedTrainer)
+    from fusiontransformer_tpu_torch.modules.steps import (
+        adaptive_level_caps, device_batch, make_train_step)
+    from fusiontransformer_tpu_torch.ops.kernels import (LAUNCHES,
+                                                         reset_launches)
+    from fusiontransformer_tpu_torch.ops.kernels.segment_sum import (
+        launch_name)
+    from fusiontransformer_tpu_torch.parallel.data_parallel import (
+        rank_seed, shard_of)
+    from fusiontransformer_tpu_torch.solver.build import build_optimizer
+
+    res = {}
+    cfg = per_voxel(train_cfg())
+    dev = torch.device(DP_DEVICE)
+    tr = DistributedTrainer(cfg, "", device=dev, backend="gloo")
+    # The global batch of 10 scans, the same on every rank; this rank's 5.
+    ds = build_dataset(cfg, "train")
+    sc = cfg.DATASET.SyntheticSCN
+    collate = get_collate(TRAIN_BATCH, cfg.TPU.POINT_CAPACITY,
+                          sc.image_height, sc.image_width,
+                          tuple(cfg.TPU.CAPACITY_BUCKETS),
+                          level_counts=1 + len(
+                              cfg.TPU.LEVEL_CAPACITY_FRACTIONS))
+    np.random.seed(23)
+    gb = collate([ds[i] for i in range(TRAIN_BATCH)])
+    local = shard_of(gb, rank, world)
+    start = {k: v.detach().cpu().clone()
+             for k, v in tr.model.state_dict().items()} if rank == 0 else None
+    averaged = {}
+    update = tr._update
+
+    def keep_grads():
+        averaged["grads"] = [g.clone() for g in tr.train_step.grads]
+        update()
+
+    tr._update = keep_grads
+    reset_launches()
+    t0 = time.perf_counter()
+    tr.run_train_step(local).numpy()        # eager run, then its capture
+    res["first_step_s"] = time.perf_counter() - t0
+    tr._update = update
+    launches = dict(LAUNCHES)
+    check_launches(f"rank {rank}'s data-parallel step", launches,
+                   trainer_launches_expected(
+                       dict(tr.captures), convs_per_step,
+                       launch_name(1), launch_name(8), "slots"))
+    res["launches"] = launches
+    res["digest"] = _digest(list(tr.model.parameters())
+                            + list(tr.model.buffers()))
+    res["same_on_every_rank"] = len(set(tr.reducer.gather_objects(
+        res["digest"]))) == 1
+
+    if rank == 0:
+        # One process: both shards' eager steps from the same state and
+        # generators, the gradients and buffers averaged, one update.
+        ref = build_model(cfg, dev)
+        ref.load_state_dict(start)
+        opt, _ = build_optimizer(cfg, ref.parameters())
+        step = make_train_step(cfg, ref, opt)
+        shards = [shard_of(gb, r, world) for r in range(world)]
+        cap = len(shards[0]["pt_valid"]) // len(shards[0]["scan_count"])
+        caps = adaptive_level_caps(cfg, len(shards[0]["scan_count"]) * cap,
+                                   tuple(np.max([s["level_counts"]
+                                                 for s in shards], 0)))
+        b0 = [b.clone() for b in step.buffers]
+        grads, bufs = [], []
+        for r, shard in enumerate(shards):
+            with torch.no_grad():
+                for b, s in zip(step.buffers, b0):
+                    b.copy_(s)
+            gen = torch.Generator(device=dev).manual_seed(
+                rank_seed(cfg.RNG_SEED, r))
+            step(device_batch(shard, dev), gen, caps, update=False)
+            grads.append([g.clone() for g in step.grads])
+            bufs.append([b.clone() for b in step.buffers])
+            torch._foreach_zero_(step.grads)
+        with torch.no_grad():
+            for i, g in enumerate(step.grads):
+                g.copy_(sum(x[i] for x in grads) / world)
+            for i, b in enumerate(step.buffers):
+                b.copy_(sum(x[i] for x in bufs) / world)
+        ref_grads = [g.clone() for g in step.grads]
+        step.update()
+        torch.cuda.synchronize()
+        g_sh, g_eq = leaf_shares(averaged["grads"], ref_grads)
+        b_sh, b_eq = leaf_shares(tr.train_step.buffers, step.buffers)
+        p_err = max(float((a.detach() - b.detach()).abs().max())
+                    for a, b in zip(tr.model.parameters(),
+                                    ref.parameters()))
+        p_eq = sum(torch.equal(a, b) for a, b in zip(tr.model.parameters(),
+                                                     ref.parameters()))
+        res["vs_one_process"] = {
+            "grad_leaves": len(g_sh), "grad_bitwise": g_eq,
+            "grad_worst_share": max(g_sh), "buffer_bitwise": b_eq,
+            "buffers": len(b_sh), "buffer_worst_share": max(b_sh),
+            "param_bitwise": p_eq, "params": len(g_sh),
+            "param_max_abs": p_err}
+        lr = cfg.OPTIMIZER.BASE_LR
+        if max(g_sh) > CARD_GATES["leaf"] or max(b_sh) > CARD_GATES["bn"] \
+                or p_err > 2 * lr:
+            raise AssertionError(f"the data-parallel step against one "
+                                 f"process averaging the shards: "
+                                 f"{res['vs_one_process']}")
+        del ref, step, opt, grads, bufs, start
+        torch.cuda.empty_cache()
+
+    # The replay against the eager data-parallel step, from one state.
+    s0 = train_state(tr)
+    replayed = tr.run_train_step(local).numpy()
+    after = train_state(tr)
+    set_train_state(tr, s0)
+    tr.step -= 1
+    eager = eager_dp_step(tr, local)
+    diffs = state_diffs(after, train_state(tr)) + metric_diffs(replayed,
+                                                               eager)
+    if diffs:
+        raise AssertionError(f"rank {rank}: the data-parallel replay "
+                             f"differs from the eager step in {diffs[:12]}")
+    tr.step_times()
+    for _ in range(DP_TIMED_REPLAYS):
+        tr.run_train_step(local).numpy()
+    res["steps_ms"] = tr.step_times()
+    res["peak_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    return res
+
+
+def phase_dp_gloo(card, convs_per_step, work):
+    """Phase 23 (b): ``DP_GLOO_RANKS`` gloo ranks, each a spawned process on
+    cuda:0 (NCCL refuses two ranks on one card), at the flagship's widths,
+    bf16, per-voxel, global batch 10."""
+    import multiprocessing as mp
+    import os
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    tmpl = os.path.join(work, "dp_gloo_rank%d.json")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=dp_gloo_rank,
+                         args=(r, DP_GLOO_RANKS, port, tmpl, convs_per_step))
+             for r in range(DP_GLOO_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + 600
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    seconds = time.perf_counter() - t0
+    ranks = []
+    for r in range(DP_GLOO_RANKS):
+        path = tmpl % r
+        ranks.append(json.load(open(path)) if os.path.exists(path)
+                     else {"ok": False, "error": "no result (killed?)"})
+    if not all(r["ok"] for r in ranks):
+        raise AssertionError("gloo ranks: " + " | ".join(
+            r.get("error", "ok") for r in ranks))
+    if not all(r["same_on_every_rank"] for r in ranks):
+        raise AssertionError("the ranks' parameters and buffers differ "
+                             "after one step")
+    one = ranks[0]["vs_one_process"]
+    log(f"  {DP_GLOO_RANKS} gloo ranks sharing cuda:0 (a shared-card check of"
+        f" the arithmetic, not NCCL), global batch {TRAIN_BATCH}: after one "
+        f"step parameters and buffers bit for bit the same on every rank; "
+        f"against one process running the shards' eager steps and "
+        f"averaging: {one}; every rank's replay bit for bit its eager "
+        f"data-parallel step; {seconds:.1f} s")
+    for r, out in enumerate(ranks):
+        log(f"  rank {r}: first step (eager + capture) "
+            f"{out['first_step_s']:.1f} s, launches {out['launches']}; "
+            f"{DP_TIMED_REPLAYS} replays on the shared card, gloo: "
+            f"{out['steps_ms']}; peak {out['peak_GB']:.2f} GB; {card}")
+    return {"ranks": ranks, "seconds": seconds}
+
+
+def phase_dp_engine(pcfg32, serve_state, recs, k1p_per_request, card):
+    """Phase 23 (c): ``InferenceEngine`` with two replicas on cuda:0 at
+    batch 2 against one replica at batch 2, f32 (TF32 off), per-voxel: the
+    labels, the overflow summed over the replicas, the launches held
+    against the replicas' captures."""
+    import numpy as np
+    import torch
+    from fusiontransformer_tpu_torch.models.build import build_model
+    from fusiontransformer_tpu_torch.ops.kernels import (LAUNCHES,
+                                                         reset_launches)
+    from fusiontransformer_tpu_torch.ops.kernels.segment_sum import (
+        launch_name)
+    from fusiontransformer_tpu_torch.serving.engine import InferenceEngine
+    model = build_model(pcfg32, "cuda")
+    model.load_state_dict(serve_state)
+    single = InferenceEngine(pcfg32, model=model, batch_size=2)
+    sharded = InferenceEngine(pcfg32, model=model, batch_size=2,
+                              devices=["cuda:0", "cuda:0"])
+    pairs = [recs[i:i + 2] for i in range(0, 4, 2)]
+    reset_launches()
+    t0 = time.perf_counter()
+    got = [sharded.predict_batch(p) for p in pairs]
+    torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    captures = sharded.stats()["captures"]
+    check_launches("sharded engine", launches, {
+        "binned_conv_slots_fwd": RUNS_PER_CAPTURE * captures
+        * k1p_per_request, launch_name(1): RUNS_PER_CAPTURE * captures * 2})
+    want = [single.predict_batch(p) for p in pairs]
+    agree = min(float(np.mean(a[k] == b[k]))
+                for ga, gw in zip(got, want) for a, b in zip(ga, gw)
+                for k in ("labels", "labels_2d", "labels_3d"))
+    if agree < DP_LABEL_AGREEMENT:
+        raise AssertionError(f"two replicas' labels agree with one's on "
+                             f"{agree}")
+    before = sharded.stats()["voxel_overflow"]
+    handle = sharded.dispatch_samples([sharded.preprocess(r)
+                                       for r in pairs[0]])
+    col = sharded._pred_keys.index("voxel_overflow")
+    parts = [int(p.numpy()[0, col]) for p in handle[2]]
+    sharded.complete(handle)
+    if sharded.stats()["voxel_overflow"] - before != sum(parts):
+        raise AssertionError("the replicas' overflow is not summed")
+    log(f"  two replicas on cuda:0 at batch 2 (f32): labels agree with one "
+        f"replica's on >= {agree:.6f} of points; overflow of a batch "
+        f"{sum(parts)} = the replicas' {parts}; {captures} captures, "
+        f"launches {launches}; 2 batches in {sharded_s:.2f} s (captures "
+        f"included); {card}")
+    del single, sharded, model
+    torch.cuda.empty_cache()
+    return {"label_agreement": agree, "overflow_parts": parts,
+            "captures": captures, "launches": launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4241,6 +4669,21 @@ def main() -> int:
         unimodal["image_stn"] = phase_image_only(
             card, kitti_dirs, work, STN_CONFIG, "image", False)
         phase_end("20d")
+
+        # ---- 23. data parallelism
+        log("== 23. data parallelism: (a) torchrun train.py --distributed 1 "
+            "(NCCL, one process a card) then --use_torchpack_test 1 on the "
+            "SemanticKITTI tree, per-voxel; (b) two gloo ranks sharing "
+            "cuda:0 at full width against one process averaging the "
+            "shards; (c) the engine with two replicas on cuda:0")
+        torch.cuda.empty_cache()
+        dp = {"torchrun": phase_dp_torchrun(
+            kitti_dirs, work, card,
+            train_graphs["per-voxel"]["replay"]["replay_ms"])}
+        dp["gloo"] = phase_dp_gloo(card, convs_per_step, work)
+        dp["engine"] = phase_dp_engine(per_voxel(cfg32), serve_state, recs,
+                                       k1p_per_request, card)
+        phase_end("23")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4360,7 +4803,7 @@ def main() -> int:
               "train_graphs": train_graphs,
               "server": server, "real_format": real, "unimodal": unimodal,
               "exported": exported, "trainer_keys": trainer_keys,
-              "phase_s": phase_s}
+              "data_parallel": dp, "phase_s": phase_s}
     log("== 13. kernels (ms, plain_ms, bound_ms, library_ms: K1, K1' and K3 "
         "per inference request at batch 1 (K1 and K1' also per train step "
         "under train_step), K2, K2' and K3[E=8] per train "
@@ -4397,6 +4840,14 @@ def main() -> int:
         return out
 
     fwd_names = ("binned_conv_fwd_mma_kernel",)
+
+    def dp_of(name):
+        """A kernel's launches in phase 23: each gloo rank's data-parallel
+        step (eager run and capture), and the two-replica engine's."""
+        out = {f"train_rank{r}": rank["launches"].get(name, 0)
+               for r, rank in enumerate(dp["gloo"]["ranks"])}
+        out["sharded_engine"] = dp["engine"]["launches"].get(name, 0)
+        return {"dp_launches": out}
     bwd_names = ("bin_rows_kernel", "binned_conv_dw_mma_kernel",
                  "reduce_chunks_kernel")
     print(json.dumps({"kernels": [
@@ -4412,16 +4863,18 @@ def main() -> int:
              "sorted_segment_weighted_sum_kernel"],
          "train_step": {k: k3t[k] for k in (
              "ms", "graph_ms", "plain_ms", "bound_ms", "library_ms")},
-         **replay_of("group-pooled", "K3 (E=1)")},
+         **replay_of("group-pooled", "K3 (E=1)"), **dp_of(k3_name)},
         {**entry(k3e8_name, K3_SOURCE, K3_REPLACES, k3e8, k3e8["library_ms"],
                  tlaunches), "graph_ms": k3e8["graph_ms"],
-         **replay_of("group-pooled", "K3' (E=8)")},
+         **replay_of("group-pooled", "K3' (E=8)"), **dp_of(k3e8_name)},
         {**fwd_entry("binned_conv_slots_fwd", k1p, k1pt, pserve),
          **replay_of("per-voxel", *fwd_names),
+         **dp_of("binned_conv_slots_fwd"),
          "exported_replay_launches": exported["engine"]["replay_launches"][
              "binned_conv_fwd_mma_kernel"]},
         {**bwd_entry("binned_conv_slots_bwd", k2p, ptlaunches),
-         **replay_of("per-voxel", *bwd_names)},
+         **replay_of("per-voxel", *bwd_names),
+         **dp_of("binned_conv_slots_bwd")},
         *({**entry(name, GATHER_SOURCE, TOOL_KERNELS[name], m,
                    m["library_ms"], tools["launches"]),
            **{k: m[k] for k in ("eager_ms", "gathered_GB_per_s", "levels")

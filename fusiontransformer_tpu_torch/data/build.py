@@ -1,5 +1,4 @@
-"""Dataloader factory (port of ``fusiontransformer_tpu/data/build.py`` for
-one device).
+"""Dataloader factory (port of ``fusiontransformer_tpu/data/build.py``).
 
 Builds the dataset of ``DATASET.TYPE`` (``SemanticKITTISCN``,
 ``DebugSemanticKITTISCN``, ``NuScenesSCN`` or ``SyntheticSCN``) for the
@@ -15,6 +14,12 @@ thread with ``DATALOADER.NUM_WORKERS`` 0, else a pool of that many worker
 processes with max(1, NUM_WORKERS) batches of prefetch.  The real datasets
 read the trees their preprocessors write
 (``data/semantic_kitti/preprocess.py``, ``data/nuscenes/preprocess.py``).
+
+Data parallelism (``use_distributed`` with ``world_size`` > 1): each
+process loads its share of the split, ``ShardedView`` (every
+``world_size``-th scan from ``rank``, the DistributedSampler of the
+reference), and past one device the batches carry no group-pooled maps
+(``slot_pool_spec``): each rank's steps build per-voxel K-slot maps.
 """
 
 from __future__ import annotations
@@ -37,13 +42,18 @@ DATASETS = {
 }
 
 
-def slot_pool_spec(cfg, adaptive: bool):
+def slot_pool_spec(cfg, adaptive: bool, world_size: int = 1):
     """The ``SlotPoolSpec`` of ``TPU.CONV_SLOT_POOL`` / ``CONV_TAP_SLOTS``,
     or None when the config builds no group-pooled maps: then the batches
     carry none, and the steps build per-voxel K-slot maps on the device, or
-    no hierarchy at all for a model without the 3D stream."""
+    no hierarchy at all for a model without the 3D stream.  Past one device
+    (``world_size`` > 1, or ``TPU.NUM_DEVICES`` > 1) there are none either,
+    as in the JAX package: the maps are pooled over the whole batch, and
+    each device holds a shard of it."""
     levels = [l for l, k in enumerate(cfg.TPU.CONV_TAP_SLOTS) if k]
     if not (cfg.MODEL.USE_LIDAR and cfg.TPU.CONV_SLOT_POOL and levels):
+        return None
+    if world_size > 1 or cfg.TPU.NUM_DEVICES > 1:
         return None
     return SlotPoolSpec(levels, cfg.TPU.L0_CAPACITY_FRACTION,
                         cfg.TPU.LEVEL_CAPACITY_FRACTIONS,
@@ -66,7 +76,34 @@ def build_dataset(cfg, mode):
                           output_orig=not is_train, **kwargs, **augmentation)
 
 
-def build_dataloader(cfg, mode="train", seed=0, batch_size=None):
+class ShardedView:
+    """One process's share of a dataset (the DistributedSampler of the
+    reference, ``_ShardedView`` of the JAX package): item i is the
+    dataset's ``i * world_size + rank``, wrapping past the end, so every
+    rank has ``ceil(len / world_size)`` items and as many batches."""
+
+    def __init__(self, dataset, rank, world_size):
+        self.dataset = dataset
+        self.rank = rank
+        self.world_size = world_size
+        for attr in ("class_names", "class_labels", "map_inverse_label",
+                     "image_height", "image_width"):
+            if hasattr(dataset, attr):
+                setattr(self, attr, getattr(dataset, attr))
+
+    def __len__(self):
+        return (len(self.dataset) + self.world_size - 1) // self.world_size
+
+    def __getitem__(self, i):
+        return self.dataset[(i * self.world_size + self.rank)
+                            % len(self.dataset)]
+
+
+def build_dataloader(cfg, mode="train", seed=0, batch_size=None,
+                     use_distributed=False, rank=0, world_size=1):
+    """The loader of ``mode``'s split; with ``use_distributed`` and
+    ``world_size`` > 1, of rank ``rank``'s ``ShardedView`` of it (the
+    caller passes the per-rank ``batch_size`` and ``seed``)."""
     if mode not in ("train", "val", "test"):
         raise ValueError(f"unknown mode {mode!r}")
     is_train = mode == "train"
@@ -74,6 +111,10 @@ def build_dataloader(cfg, mode="train", seed=0, batch_size=None):
         batch_size = {"train": cfg.TRAIN.BATCH_SIZE, "val": cfg.VAL.BATCH_SIZE,
                       "test": cfg.TEST.BATCH_SIZE}[mode]
     dataset = build_dataset(cfg, mode)
+    if not use_distributed:
+        world_size = 1
+    if world_size > 1:
+        dataset = ShardedView(dataset, rank, world_size)
     image_width, image_height = dataset.image_width, dataset.image_height
     # bottom_crop shrinks the training images to (crop_w, crop_h); the batch
     # buffer follows (the ViT reads the crop).
@@ -94,7 +135,8 @@ def build_dataloader(cfg, mode="train", seed=0, batch_size=None):
                           image_height=image_height, image_width=image_width,
                           capacity_buckets=buckets,
                           level_counts=n_levels if adaptive else 0,
-                          slot_pool=slot_pool_spec(cfg, adaptive))
+                          slot_pool=slot_pool_spec(cfg, adaptive,
+                                                   world_size))
     workers = int(cfg.DATALOADER.NUM_WORKERS)
     if workers > 0:
         # The collate's native host code, built here once: the workers

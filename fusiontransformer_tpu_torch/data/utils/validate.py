@@ -40,7 +40,7 @@ def map_sparse_to_org(x, inverse_map):
 
 
 def validate(cfg, run_batch, dataloader, val_metric_logger, log_tables=True,
-             logger_name=None):
+             logger_name=None, cm_allreduce=None):
     """Eval loop: per-class IoU on the original points of each prediction
     the config's model makes (``predictions``: 2D, 3D and for a fusion
     model the 2D+3D ensemble; ``fusiontransformer_tpu/data/utils/
@@ -56,6 +56,13 @@ def validate(cfg, run_batch, dataloader, val_metric_logger, log_tables=True,
     is read and scored after batch k+1 has been enqueued, so the card runs
     one batch while the host scores the one before (the JAX package's
     ``consume``).  Returns ``[(modality, Evaluator), ...]``.
+
+    ``cm_allreduce``: with data parallelism each process scores its own
+    shard of the split, and this callable sums a confusion matrix over the
+    processes (the JAX package's argument of the same name): the IoU meters
+    and tables then come from the global matrices, the same on every
+    rank.  The loss meters stay the process's own.  ``log_tables=False``
+    (ranks past 0) logs no table.
     """
     logger = logging.getLogger(
         logger_name or f"FusionTransformer.{cfg['MODEL']['TYPE']}.validate")
@@ -118,6 +125,9 @@ def validate(cfg, run_batch, dataloader, val_metric_logger, log_tables=True,
         logger.warning("TPU.POINT_CAPACITY / CAPACITY_BUCKETS undersized for "
                        "this dataset: %d+%d points lost", dropped, oob)
     val_metric_logger.update(collate_dropped=dropped, oob_points=oob)
+    if cm_allreduce is not None:
+        for ev in evaluators.values():
+            ev.confusion_matrix = cm_allreduce(ev.confusion_matrix)
     val_metric_logger.update(**{
         f"seg_iou_{key[-2:]}": evaluators[key].overall_iou
         for key in ("pred_2d", "pred_3d") if key in evaluators})

@@ -63,9 +63,15 @@ As the JAX trainer, it also:
 * logs the host's resident set after every epoch (``utils/memdiag.py``)
   and writes it to ``metrics.jsonl`` as ``host_rss_mb``.
 
-More than one device is not ported (ROADMAP.md, Queue 1); the keys that
-would ask for it raise (``check_ported_keys``).  ``TPU.REMAT_VIT`` is
-honoured by the model (``models/vit.py``).
+Data parallelism is ``modules/DistributedTrainer.py``, a subclass: this
+class holds its rank guards (``rank`` / ``world_size``, 0 / 1 here): only
+rank 0 writes summaries, ``metrics.jsonl``, checkpoints and the per-class
+tables, and each rank's dropout generator has a seed of its own
+(``parallel.data_parallel.rank_seed``; rank 0's is ``RNG_SEED``).
+``TPU.NUM_DEVICES``, where set, must equal the number of processes.
+Tensor parallelism and ZeRO are not ported (ROADMAP.md, Queue 1 item 4);
+their keys raise (``check_ported_keys``).  ``TPU.REMAT_VIT`` is honoured by
+the model (``models/vit.py``).
 """
 
 from __future__ import annotations
@@ -93,6 +99,7 @@ from fusiontransformer_tpu_torch.modules.steps import (StepCache,
                                                        make_eval_step,
                                                        make_train_step,
                                                        read_back, step_hier)
+from fusiontransformer_tpu_torch.parallel.data_parallel import rank_seed
 from fusiontransformer_tpu_torch.solver.build import (build_optimizer,
                                                       get_learning_rate,
                                                       load_optimizer_state,
@@ -108,7 +115,6 @@ from fusiontransformer_tpu_torch.utils.torch_checkpoint import (
 # Keys the port does not honour yet, the test that a key is set away from
 # its default, and the ROADMAP.md item that will port it.
 UNPORTED_KEYS = (
-    ("TPU.NUM_DEVICES", lambda v: v > 1, "Queue 1 item 3 (data parallelism)"),
     ("TPU.MODEL_PARALLEL", lambda v: v > 1,
      "Queue 1 item 4 (tensor parallelism)"),
     ("TPU.ZERO_OPTIMIZER", bool, "Queue 1 item 4 (ZeRO)"),
@@ -124,9 +130,11 @@ def modalities(cfg):
         else ["2d"]
 
 
-def check_ported_keys(cfg):
+def check_ported_keys(cfg, world_size=1):
     """Raise ``NotImplementedError`` for a key of UNPORTED_KEYS that ``cfg``
-    sets away from its default: the port would ignore it."""
+    sets away from its default: the port would ignore it; and
+    ``ValueError`` where ``TPU.NUM_DEVICES`` is set to another number than
+    the run's ``world_size`` (one process a device)."""
     for key, is_set, item in UNPORTED_KEYS:
         node = cfg
         for part in key.split("."):
@@ -134,6 +142,13 @@ def check_ported_keys(cfg):
         if is_set(node):
             raise NotImplementedError(f"{key} = {node} is not ported yet "
                                       f"(ROADMAP.md, {item})")
+    n = int(cfg.TPU.NUM_DEVICES)
+    if n and n != world_size:
+        raise ValueError(
+            f"TPU.NUM_DEVICES = {n} but the run has {world_size} "
+            f"process(es) of one device each: launch {n} (python -m "
+            f"torch.distributed.run --nproc_per_node {n} ... --distributed "
+            f"1), or leave TPU.NUM_DEVICES at 0")
 
 
 class StepRunner:
@@ -163,24 +178,33 @@ class StepRunner:
             return None
         return batch_level_caps(self.cfg, host_batch)
 
-    def _run(self, kind, cache, step, host_batch, generator=None):
-        """``step`` on a collated host batch, read back (``Readback``): on
-        the card through the graph of the batch's signature and capacities,
-        captured after an eager run of this batch on a miss."""
+    def _run(self, kind, cache, step, host_batch, caps, generator=None):
+        """``step`` on a collated host batch at level capacities ``caps``,
+        read back (``Readback``)."""
+        return read_back(*self._launch(kind, cache, step, host_batch, caps,
+                                       generator))
+
+    def _launch(self, kind, cache, step, host_batch, caps, generator=None):
+        """``step`` on a collated host batch, enqueued: ``(output, graph)``,
+        the output on the device.  On the card through the graph of the
+        batch's signature and ``caps`` (its static output), captured after
+        an eager run of this batch on a miss; eagerly on the CPU (no
+        graph)."""
         if self.device.type == "cpu":
-            return read_back(step(device_batch(host_batch, self.device)))
-        caps = self.level_caps(host_batch)
+            return step(device_batch(host_batch, self.device)), None
         key = (batch_signature(host_batch), caps)
         graph = cache.get(key)
         if graph is not None:
-            return graph.replay(host_batch)
+            graph.load(host_batch)
+            graph.graph.replay()
+            return graph.out, graph
         graph = self._capture(step, host_batch, generator)
         cache[key] = graph
         self.captures[kind] += 1
         self.logger.info("captured the %s step for capacities %s in %.2f s",
                          kind, caps, graph.capture_s)
         first, graph.first = graph.first, None
-        return read_back(first, graph)
+        return first, graph
 
     def _capture(self, step, host_batch, generator=None):
         """``StepGraph`` of ``step`` into the runner's pool (a new pool
@@ -201,7 +225,7 @@ class StepRunner:
         caps = self.level_caps(host_batch)
         return self._run("eval", self.eval_graphs,
                          lambda batch: self.eval_step(batch, caps),
-                         host_batch)
+                         host_batch, caps)
 
 
 def summary_writer(cfg, output_dir, run_name):
@@ -221,11 +245,15 @@ def summary_writer(cfg, output_dir, run_name):
 
 
 class SemanticTrainer(StepRunner):
+    rank = 0            # this process's rank and the number of processes
+    world_size = 1      # (modules/DistributedTrainer.py sets both)
+
     def __init__(self, cfg, output_dir="", run_name="", device=None):
-        check_ported_keys(cfg)
+        check_ported_keys(cfg, self.world_size)
         self.output_dir = output_dir
         self.run_name = run_name
-        self.summary_writer = summary_writer(cfg, output_dir, run_name)
+        self.summary_writer = summary_writer(cfg, output_dir, run_name) \
+            if self.rank == 0 else None
         device = resolve_device(device)
         logger = logging.getLogger(f"FusionTransformer.{cfg.MODEL.TYPE}.train")
         model = build_model(cfg, device, seed=cfg.RNG_SEED)
@@ -238,8 +266,8 @@ class SemanticTrainer(StepRunner):
         self.train_metrics = {m: SegIoU(cfg.MODEL.NUM_CLASSES,
                                         name=f"seg_iou_{m}")
                               for m in self.modalities}
-        self.train_dataloader = build_dataloader(cfg, mode="train")
-        self.val_dataloader = (build_dataloader(cfg, mode="val")
+        self.train_dataloader = self.build_loader("train")
+        self.val_dataloader = (self.build_loader("val")
                                if cfg.VAL.PERIOD > 0 else None)
         self.steps_per_epoch = max(1, len(self.train_dataloader))
         self.accum_steps = int(cfg.TRAIN.GRAD_ACCUM_STEPS)
@@ -256,9 +284,10 @@ class SemanticTrainer(StepRunner):
                          sum(p.numel() for p in self.model.parameters()))
         self.train_step = make_train_step(cfg, self.model, self.optimizer)
         # Dropout's random stream: one generator on the device, seeded from
-        # RNG_SEED, advanced by every train step (and every replay).
+        # RNG_SEED (and the rank), advanced by every train step (and every
+        # replay).
         self.generator = torch.Generator(device=self.device).manual_seed(
-            int(cfg.RNG_SEED))
+            rank_seed(cfg.RNG_SEED, self.rank))
         self.step = 0
         self.window = 0         # micro-steps of the open accumulation window
         # The card's graphs beside the eval step's: the train step's per
@@ -286,6 +315,10 @@ class SemanticTrainer(StepRunner):
         self.preempted = False
 
     # ------------------------------------------------------------------ #
+    def build_loader(self, mode):
+        """The loader of ``mode``'s split for this process."""
+        return build_dataloader(self.cfg, mode=mode)
+
     def _load_checkpoint(self):
         """Restore the newest checkpoint (or ``RESUME_PATH``).  Loading
         replaces the state tensors a captured graph would keep updating, so
@@ -314,13 +347,22 @@ class SemanticTrainer(StepRunner):
                             payload.get("grad_accum", ())):
             g.copy_(saved)
         self.window = int(payload.get("grad_accum_window", 0))
-        if "generator" in payload:
+        # A data-parallel checkpoint holds every rank's generator; a rank
+        # whose state it lacks keeps its seeded one.
+        gens = payload.get("rank_generators")
+        if gens is not None and len(gens) == self.world_size:
+            self.generator.set_state(gens[self.rank])
+        elif "generator" in payload and self.rank == 0:
             self.generator.set_state(payload["generator"])
+        elif "generator" in payload:
+            self.logger.warning("the checkpoint holds no dropout generator "
+                                "of rank %d; it keeps its seeded one",
+                                self.rank)
         self.step = int(payload.get("step", 0))
         return {k: v for k, v in payload.items()
                 if k not in ("model", "optimizer", "step", "grad_accum",
                              "grad_accum_window", "grad_accum_steps",
-                             "generator")}
+                             "generator", "rank_generators")}
 
     def clear_graphs(self):
         super().clear_graphs()
@@ -337,7 +379,7 @@ class SemanticTrainer(StepRunner):
             "train", self.train_graphs,
             lambda batch: self.train_step(batch, self.generator, caps,
                                           update=k == 1),
-            host_batch, self.generator)
+            host_batch, caps, self.generator)
         self.step += 1
         if k > 1:
             self.window += 1
@@ -368,15 +410,19 @@ class SemanticTrainer(StepRunner):
             if pending is not None:
                 self._consume_step_metrics(*pending)
             pending = (metrics, int(batch.get("gslot_overflow", 0)))
-            if self.preempted:
+            if self._should_stop():
                 break       # SIGTERM: stop at a step boundary
         if pending is not None:
             self._consume_step_metrics(*pending)
-        if self.preempted:
+        if self._should_stop():
             return
         # Per-epoch scheduler step.
         set_learning_rate(self.optimizer,
                           self.lr_schedule((epoch + 1) * self.steps_per_epoch))
+
+    def _should_stop(self):
+        """Whether training stops after this step (SIGTERM)."""
+        return self.preempted
 
     def _consume_step_metrics(self, readback, slot_overflow):
         metrics = readback.numpy()
@@ -402,6 +448,8 @@ class SemanticTrainer(StepRunner):
             metric.update_matrix(metrics[f"cm_{m}"])
 
     def update_log(self, epoch):
+        if self.rank != 0:
+            return
         lp = self.cfg.TRAIN.LOG_PERIOD
         if epoch == 1 or (lp > 0 and epoch % lp == 0):
             self.logger.info("iter: %4d  %s  lr: %.2e", epoch,
@@ -428,8 +476,14 @@ class SemanticTrainer(StepRunner):
             return False
         self.val_metric_logger.reset()
         validate(self.cfg, self.run_eval_batch, self.val_dataloader,
-                 self.val_metric_logger)
+                 self.val_metric_logger, log_tables=self.rank == 0,
+                 cm_allreduce=self.cm_allreduce())
         return True
+
+    def cm_allreduce(self):
+        """The cross-process sum of a validation's confusion matrices
+        (None: one process)."""
+        return None
 
     def update_validation_logging_meters(self, epoch):
         self.logger.info("Epoch[%d]-Val %s", epoch,
@@ -459,9 +513,12 @@ class SemanticTrainer(StepRunner):
     def _save(self, name, next_epoch):
         """Save the trainer's state as checkpoint ``name`` that resumes at
         epoch ``next_epoch`` (the checkpointer copies every tensor to the
-        host before it returns)."""
+        host before it returns).  Every rank calls it; rank 0 writes."""
         extra = {f"{m}_{self.best_metric_name}": float(self.best_metric[m])
                  for m in self.modalities if self.best_metric[m] is not None}
+        extra.update(self._rank_states())
+        if self.rank != 0:
+            return
         if self.accum_steps > 1:
             extra["grad_accum"] = list(self.train_step.grads)
             extra["grad_accum_window"] = self.window
@@ -471,13 +528,18 @@ class SemanticTrainer(StepRunner):
             epoch=next_epoch, grad_accum_steps=self.accum_steps,
             generator=self.generator.get_state(), **extra)
 
+    def _rank_states(self):
+        """What a checkpoint holds of every rank (nothing on one device)."""
+        return {}
+
     def _save_preemption_checkpoint(self, epoch):
         """``preempt<epoch>``, which resumes into the interrupted epoch
         (plain checkpoints store ``epoch + 1``); written before returning."""
         self._save(f"preempt{epoch:06d}", epoch)
         self.checkpointer.wait()
-        self.logger.warning("Preemption checkpoint written for epoch %d",
-                            epoch)
+        if self.rank == 0:
+            self.logger.warning("Preemption checkpoint written for epoch %d",
+                                epoch)
 
     def _install_preemption_handler(self):
         """SIGTERM sets ``preempted``; the current step finishes and the
@@ -576,7 +638,7 @@ class SemanticTrainer(StepRunner):
                                int(self.cfg.SCHEDULER.MAX_EPOCH)):
                 t0 = time.time()
                 self.train_for_one_epoch(epoch)
-                if self.preempted:
+                if self._should_stop():
                     self._save_preemption_checkpoint(epoch)
                     break
                 self.logger.info("Epoch %d took %.1fs", epoch,

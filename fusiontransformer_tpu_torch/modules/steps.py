@@ -420,6 +420,15 @@ class TrainStep:
     every micro-step, as ``optax.MultiSteps`` does in the JAX package (which
     keeps a running mean where this keeps the sum, the same up to f32
     rounding).
+
+    ``reduce`` is the hook of data parallelism (None on one device): a
+    ``parallel.data_parallel.Reducer`` that a data-parallel trainer sets.
+    A step run with ``update=True`` then averages the gradients and the
+    BatchNorm buffers (``buffers``) over the ranks and reduces its metrics
+    (``sync``) between the backward and the update, where the JAX step
+    ``pmean``s / ``psum``s over its ``axis_name``.  The trainer calls
+    ``sync`` itself after its CUDA graph's replay (``modules/
+    DistributedTrainer.py``), since a collective stays outside a capture.
     """
 
     def __init__(self, cfg, model, optimizer):
@@ -432,6 +441,8 @@ class TrainStep:
                 p.grad = torch.zeros_like(p)
         self.grads = [p.grad for p in params]
         torch._foreach_zero_(self.grads)
+        self.buffers = [b for b in model.buffers() if b.is_floating_point()]
+        self.reduce = None
         self.frozen_grads = [p.grad for p in frozen_params(
             model, cfg.TRAIN.FROZEN_PATTERNS)]
 
@@ -444,15 +455,29 @@ class TrainStep:
             total, parts = losses(cfg, out, batch, self.class_weights)
         with record_function("train_step.backward"):
             total.backward()
-        if update:
-            self.update()
         with record_function("train_step.metrics"), torch.no_grad():
             metrics = {k: v.detach() for k, v in parts.items()}
             metrics["total_loss"] = total.detach()
             if hier is not None:
                 metrics.update(overflow_metrics(cfg, batch, hier))
             metrics.update(confusions(cfg, out, batch))
+        if update:
+            metrics = self.sync(metrics)
+            self.update()
         return metrics
+
+    def sync(self, metrics, grads=True):
+        """The cross-rank reductions of ``reduce`` (none on one device): the
+        metrics reduced (returned), the BatchNorm buffers and, with
+        ``grads``, the gradients averaged in place."""
+        if self.reduce is None:
+            return metrics
+        with record_function("train_step.reduce"):
+            metrics = self.reduce.metrics(metrics)
+            self.reduce.mean_(self.buffers)
+            if grads:
+                self.reduce.mean_(self.grads)
+            return metrics
 
     def update(self):
         with record_function("train_step.optimizer"):

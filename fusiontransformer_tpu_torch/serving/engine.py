@@ -1,6 +1,6 @@
 """Inference engine: a resident model that answers per-scan requests.
 
-Port of ``fusiontransformer_tpu/serving/engine.py`` for one device:
+Port of ``fusiontransformer_tpu/serving/engine.py``:
 
 * ``preprocess`` — the dataloader's eval-time voxelisation of a raw record
   (``points`` [N, 3], ``feats`` [N, <=4], ``img`` HWC, ``points_img``
@@ -35,12 +35,24 @@ the CPU); ``forward`` is eager on either device.
 
 The engine runs on the card unless it is given ``device="cpu"``; with no
 CUDA device and no explicit CPU it raises.
+
+Data parallelism (the JAX engine's ``num_devices``): ``num_devices`` = n
+> 1 keeps one replica of the model on each of ``cuda:0`` .. ``cuda:n-1``
+(n replicas on the CPU with ``device="cpu"``), or ``devices=[...]`` names
+them, repeats allowed (replicas on one device share its model).  Each batch
+of ``batch_size`` scans (a multiple of n) is cut into n contiguous runs of
+whole scans (``parallel.data_parallel.shard_of``, scan ids re-based), each
+replica runs its run through its own graphs, and the per-point outputs are
+concatenated in order; the replicas' ``voxel_overflow`` counts are summed,
+as the JAX engine ``psum``s them.  Past one replica there are no host slot
+maps (per-voxel maps), and exported programs stay single-device.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -59,6 +71,7 @@ from fusiontransformer_tpu_torch.modules.steps import (Readback, StepCache,
                                                        device_batch,
                                                        overflow_metrics,
                                                        step_hier)
+from fusiontransformer_tpu_torch.parallel.data_parallel import shard_of
 from fusiontransformer_tpu_torch.utils.checkpoint import Checkpointer
 from fusiontransformer_tpu_torch.utils.device import resolve_device
 
@@ -127,6 +140,37 @@ def dummy_sample(n_points: int, image_height: int, image_width: int) -> Dict:
     }
 
 
+@dataclass
+class Replica:
+    """One device's copy of the engine's step: its model and predict step,
+    and the graphs captured from it into its own memory pool."""
+    device: torch.device
+    model: torch.nn.Module
+    step: object
+    graphs: StepCache
+    pool: object = None
+
+
+def replica_devices(device, num_devices, devices):
+    """The devices of the engine's replicas: ``devices`` as given, else
+    ``num_devices`` of ``device``'s type (the CPU n times, or ``cuda:0`` ..
+    ``cuda:n-1``)."""
+    if devices:
+        return [resolve_device(d) for d in devices]
+    n = int(num_devices)
+    if n < 1:
+        raise ValueError(f"num_devices = {n}")
+    first = resolve_device(device)
+    if n == 1:
+        return [first]
+    if first.type == "cpu":
+        return [first] * n
+    if torch.cuda.device_count() < n:
+        raise ValueError(f"num_devices = {n} but {torch.cuda.device_count()}"
+                         f" CUDA device(s) are visible")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
 class InferenceEngine:
     """Owns the model and answers requests, one batch at a time.
 
@@ -138,14 +182,25 @@ class InferenceEngine:
     ahead-of-time programs of ``serving/export.py`` with those weights.
     Thread-safe for concurrent ``predict`` calls: captures and replays run
     under a lock, host preprocessing and the wait for a result outside it.
+    ``num_devices`` / ``devices``: one replica per device (the module's
+    docstring); ``model`` lives on the first.
     """
 
     def __init__(self, cfg, model=None, batch_size: int = 1, device=None,
                  seed: int = 0, checkpoint_path: str = "",
-                 exported_dir: str = ""):
+                 exported_dir: str = "", num_devices: int = 1,
+                 devices: Optional[Sequence] = None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.devices = replica_devices(device, num_devices, devices)
+        self.device = self.devices[0]
         self.batch_size = int(batch_size)
+        n = len(self.devices)
+        if self.batch_size % n:
+            raise ValueError(f"batch_size {self.batch_size} does not divide "
+                             f"over {n} replicas")
+        if exported_dir and n > 1:
+            raise ValueError("exported programs are single-device; shard a "
+                             "live model over num_devices")
         if model is not None and checkpoint_path:
             raise ValueError("pass a model or a checkpoint_path, not both")
         if model is None:
@@ -170,16 +225,17 @@ class InferenceEngine:
         # names, at the static capacities of the bucket (None with
         # CONV_SLOT_POOL off: the step builds per-voxel maps; None for a
         # model without the 3D stream, which builds no hierarchy).
-        self._slot_pool = slot_pool_spec(cfg, adaptive=False)
+        self._slot_pool = slot_pool_spec(cfg, adaptive=False, world_size=n)
         self.exported = None
+        self.replicas = [Replica(self.device, self.model, None,
+                                 StepCache(cfg.TPU.STEP_CACHE_SIZE))]
         if exported_dir:
             self._use_exported(exported_dir)
         else:
             self._step, self._pred_keys = make_predict_step(cfg, self.model)
+        for dev in self.devices[1:]:
+            self.replicas.append(self._replica(dev))
         self.point_capacity = max(self.buckets)
-        # One captured step per input signature, on the card.
-        self.graphs = StepCache(cfg.TPU.STEP_CACHE_SIZE)
-        self._pool = None
 
         self._device_lock = threading.Lock()
         self._stats_lock = threading.Lock()
@@ -188,6 +244,37 @@ class InferenceEngine:
             "oob_points": 0, "voxel_overflow": 0, "captures": 0,
             "bucket_hits": {int(b): 0 for b in self.buckets},
         }
+
+    # The first replica's step and graphs (one captured step per input
+    # signature, on the card), as the engine's own.
+    @property
+    def _step(self):
+        return self.replicas[0].step
+
+    @_step.setter
+    def _step(self, step):
+        self.replicas[0].step = step
+
+    @property
+    def graphs(self):
+        return self.replicas[0].graphs
+
+    @property
+    def _pool(self):
+        return self.replicas[0].pool
+
+    def _replica(self, device):
+        """A replica on ``device``: the first replica's model where the
+        device is the same, else a copy of its weights there."""
+        first = self.replicas[0]
+        model, step = first.model, first.step
+        if device != first.device:
+            model = build_model(self.cfg, device)
+            model.load_state_dict(first.model.state_dict())
+            model.eval()
+            step, _ = make_predict_step(self.cfg, model)
+        return Replica(device, model, step,
+                       StepCache(self.cfg.TPU.STEP_CACHE_SIZE))
 
     def _use_exported(self, exported_dir):
         """Serve through the programs of ``serving/export.py`` (the JAX
@@ -277,37 +364,49 @@ class InferenceEngine:
             self.image_height, self.image_width, capacity_buckets=self.buckets, slot_pool=self._slot_pool)
 
     def dispatch_samples(self, samples: List[Dict]):
-        """Collate and enqueue the device step; returns a handle for
-        ``complete`` (the wait for the result is there)."""
+        """Collate and enqueue the device step (each replica's run of whole
+        scans on its device); returns a handle for ``complete`` (the wait
+        for the result is there)."""
         batch = self.collate(samples)
+        n = len(self.replicas)
         with self._device_lock:
-            if self.device.type == "cpu":
-                packed = self._step(device_batch(batch, self.device))
+            if n == 1:
+                packed = self._dispatch(self.replicas[0], batch)
             else:
-                packed = self.graph_for(batch).replay(batch)
+                packed = [self._dispatch(r, shard_of(batch, i, n))
+                          for i, r in enumerate(self.replicas)]
         return samples, batch, packed
 
-    def graph_for(self, batch) -> StepGraph:
-        """The captured step of ``batch``'s signature, captured now on a
-        miss.  Call under ``_device_lock``."""
+    def _dispatch(self, replica, batch):
+        if replica.device.type == "cpu":
+            return replica.step(device_batch(batch, replica.device))
+        with torch.cuda.device(replica.device):
+            return self.graph_for(batch, replica).replay(batch)
+
+    def graph_for(self, batch, replica=None) -> StepGraph:
+        """The captured step of ``batch``'s signature on ``replica`` (the
+        first by default), captured now on a miss.  Call under
+        ``_device_lock``."""
+        r = replica or self.replicas[0]
         sig = batch_signature(batch)
-        graph = self.graphs.get(sig)
+        graph = r.graphs.get(sig)
         if graph is None:
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
+            if r.pool is None:
+                r.pool = torch.cuda.graph_pool_handle()
             try:
-                graph = StepGraph(self._step, batch, self.device, self._pool)
+                graph = StepGraph(r.step, batch, r.device, r.pool)
             except BaseException:
-                self._pool = None   # unfit for another capture
+                r.pool = None   # unfit for another capture
                 raise
-            self.graphs[sig] = graph
+            r.graphs[sig] = graph
             with self._stats_lock:
                 self.counters["captures"] += 1
         return graph
 
     def forward(self, samples: List[Dict]):
         """The model's raw outputs (logit tensors on the device) for
-        already-preprocessed samples, with the host batch they came from."""
+        already-preprocessed samples, with the host batch they came from
+        (the whole batch on the first replica)."""
         batch = self.collate(samples)
         with self._device_lock, torch.inference_mode():
             db = device_batch(batch, self.device)
@@ -315,13 +414,19 @@ class InferenceEngine:
         return batch, out
 
     def complete(self, handle, count_stats: bool = True) -> List[Dict]:
-        """One device->host copy, then de-voxelise per scan."""
+        """One device->host copy a replica, then de-voxelise per scan (the
+        replicas' overflow counts summed)."""
         samples, batch, packed = handle
         cap = len(batch["pt_valid"]) // self.batch_size
-        packed = packed.numpy() if isinstance(packed, Readback) \
-            else packed.cpu().numpy()
+        parts = [p.numpy() if isinstance(p, Readback) else p.cpu().numpy()
+                 for p in (packed if isinstance(packed, list) else [packed])]
+        packed = np.concatenate(parts)
         res = {k: packed[:, j] for j, k in enumerate(self._pred_keys)}
-        overflow = int(res.pop("voxel_overflow", np.zeros(1))[0])
+        overflow = 0
+        if "voxel_overflow" in res:
+            col = self._pred_keys.index("voxel_overflow")
+            overflow = sum(int(p[0, col]) for p in parts)
+            del res["voxel_overflow"]
 
         results = []
         oob_total = 0

@@ -1,6 +1,5 @@
 #!/usr/bin/env python
-"""Training CLI of the port (``fusiontransformer_tpu/train.py`` for one
-device):
+"""Training CLI of the port (``fusiontransformer_tpu/train.py``):
 
     python -m fusiontransformer_tpu_torch.train --cfg configs/semantic_kitti/synthetic.yaml \\
         [--device cpu] [--run_name NAME] [KEY VALUE ...]
@@ -8,6 +7,17 @@ device):
 The '@' in OUTPUT_DIR is replaced with the config path; dotted-key overrides
 merge after the file.  Trains on the CUDA card unless ``--device cpu`` is
 given; with no card and no ``--device cpu`` it raises.
+
+Data parallelism, one process per card (``modules/DistributedTrainer.py``):
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \\
+        -m fusiontransformer_tpu_torch.train --cfg ... --distributed 1
+
+``--distributed 1`` or ``--use_torchpack 1`` trains, ``--use_torchpack_test
+1`` scores the test split with the newest best-IoU checkpoint and dumps the
+predictions (the JAX CLI's flags).  Each process takes ``cuda:LOCAL_RANK``
+(gloo with ``--device cpu``); rank 0's run name is every rank's, and only
+rank 0 logs INFO lines and writes the log file.
 """
 
 from __future__ import annotations
@@ -28,6 +38,14 @@ def parse_args(argv=None):
                         help="'cpu' to train with the plain PyTorch path; "
                         "the CUDA card otherwise")
     parser.add_argument("--run_name", default=None, help="name for the run")
+    parser.add_argument("--distributed", type=int, default=0,
+                        help="1: train data-parallel, one process per device "
+                        "(under torch.distributed.run)")
+    parser.add_argument("--use_torchpack", type=int, default=0,
+                        help="1: as --distributed 1 (the reference's flag)")
+    parser.add_argument("--use_torchpack_test", type=int, default=0,
+                        help="1: score the test split data-parallel with "
+                        "the newest best-IoU checkpoint, dumping predictions")
     parser.add_argument("opts", help="config overrides: KEY VALUE ...",
                         default=None, nargs=argparse.REMAINDER)
     return parser.parse_args(argv)
@@ -63,20 +81,50 @@ def resolve_output_dir(cfg, config_file, run_name=None):
 def main(argv=None):
     args = parse_args(argv)
     cfg = load_cfg(args.config_file, args.opts)
+    distributed = bool(args.distributed or args.use_torchpack
+                       or args.use_torchpack_test)
+    device, rank, run_name = args.device, 0, args.run_name
+    if distributed:
+        # This process's rank of torchrun's process group, on its device.
+        import torch.distributed as dist
+
+        from fusiontransformer_tpu_torch.parallel.data_parallel import (
+            init_distributed)
+        from fusiontransformer_tpu_torch.utils.device import resolve_device
+        device = resolve_device(device)
+        rank, _ = init_distributed(device)
+        names = [run_name or time.strftime(
+            "MONTH_%m_DAY_%d_HOUR_%H_MIN_%M_SEC_%S")]
+        dist.broadcast_object_list(names, src=0)
+        run_name = names[0]
     output_dir, run_name = resolve_output_dir(cfg, args.config_file,
-                                              args.run_name)
+                                              run_name)
+    handlers = [logging.StreamHandler()]
+    if rank == 0:
+        handlers.append(logging.FileHandler(
+            osp.join(output_dir, f"train.{run_name}.log")))
     logging.basicConfig(
-        level=logging.INFO, format="%(asctime)s %(name)s %(levelname)s: "
-        "%(message)s", handlers=[
-            logging.StreamHandler(),
-            logging.FileHandler(osp.join(output_dir, f"train.{run_name}.log"))])
+        level=logging.INFO if rank == 0 else logging.WARNING,
+        format="%(asctime)s %(name)s %(levelname)s: %(message)s",
+        handlers=handlers)
     logging.getLogger("FusionTransformer").info(
         "output dir %s; config %s:\n%s", output_dir, args.config_file, cfg)
 
-    from fusiontransformer_tpu_torch.modules.SemanticTrainer import (
-        SemanticTrainer)
-    trainer = SemanticTrainer(cfg, output_dir, run_name, device=args.device)
-    trainer.train()
+    if not distributed:
+        from fusiontransformer_tpu_torch.modules.SemanticTrainer import (
+            SemanticTrainer)
+        trainer = SemanticTrainer(cfg, output_dir, run_name, device=device)
+        trainer.train()
+        return trainer
+    from fusiontransformer_tpu_torch.modules.DistributedTrainer import (
+        DistributedTrainer)
+    trainer = DistributedTrainer(cfg, output_dir, run_name, device=device)
+    if args.use_torchpack_test and not (args.distributed
+                                        or args.use_torchpack):
+        trainer.test()
+    else:
+        trainer.train()
+    dist.destroy_process_group()
     return trainer
 
 

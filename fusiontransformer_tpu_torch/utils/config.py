@@ -126,6 +126,19 @@ class CfgNode(dict):
     def __repr__(self) -> str:
         return f"{self.__class__.__name__}({super().__repr__()})"
 
+    def __reduce__(self):
+        # Pickled as its plain dict and frozen flag (a config sent to
+        # another process): dict's own pickling would set items before the
+        # flag exists.
+        return _unpickle_cfg, (_to_plain_dict(self), self.is_frozen())
+
+
+def _unpickle_cfg(plain, frozen):
+    cfg = CfgNode(plain)
+    if frozen:
+        cfg.freeze()
+    return cfg
+
 
 # Alias matching yacs import style used across the reference.
 CN = CfgNode

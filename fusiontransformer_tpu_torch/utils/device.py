@@ -2,25 +2,40 @@
 
 Entry points run on the card unless the caller asks for the CPU by name.
 With no CUDA device and no explicit ``"cpu"`` they raise: nothing falls back
-to the CPU quietly.  ``device_constant`` keeps the steps' constant index
+to the CPU quietly.  Under ``torch.distributed.run`` (torchrun), which sets
+``LOCAL_RANK`` in each process it starts, the card is the process's own,
+``cuda:LOCAL_RANK``.  ``device_constant`` keeps the steps' constant index
 tables on the device.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 from torch._subclasses.fake_tensor import unset_fake_temporarily
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` means ``"cuda"``; a CUDA device must exist."""
+    """``None`` means ``"cuda"``; a CUDA device must exist.  A ``"cuda"``
+    with no index is ``cuda:LOCAL_RANK`` where the environment names a
+    local rank (torchrun), made the current device, so that the tables,
+    generators and graph pools made without an index land on the
+    process's own card; without a local rank it stays ``"cuda"`` (the
+    current device).  ``"cpu"`` stays the CPU."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cpu":
+        return dev
+    if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch path on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
+    local_rank = os.environ.get("LOCAL_RANK")
+    if dev.index is None and local_rank is not None:
+        dev = torch.device("cuda", int(local_rank))
+        torch.cuda.set_device(dev)
     return dev
 
 

@@ -52,6 +52,11 @@ def test_no_forbidden_imports_in_source():
 def test_importing_every_module_loads_no_jax():
     mods = _port_modules()
     assert len(mods) > 20, mods
+    assert {"fusiontransformer_tpu_torch.parallel.data_parallel",
+            "fusiontransformer_tpu_torch.modules.DistributedTrainer",
+            "fusiontransformer_tpu_torch.modules.TorchpackInterface",
+            "fusiontransformer_tpu_torch.modules.callbacks",
+            "fusiontransformer_tpu_torch.utils.sampler"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -70,6 +75,8 @@ def test_importing_every_module_loads_no_jax():
 def test_entry_points_raise_without_cuda(monkeypatch):
     from fusiontransformer_tpu_torch.config.defaults import get_default_cfg
     from fusiontransformer_tpu_torch.models.build import build_model
+    from fusiontransformer_tpu_torch.modules.DistributedTrainer import (
+        DistributedTrainer)
     from fusiontransformer_tpu_torch.serving.engine import InferenceEngine
     from fusiontransformer_tpu_torch.tools import serve
     from fusiontransformer_tpu_torch.utils.device import resolve_device
@@ -82,6 +89,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                  lambda: resolve_device("cuda"),
                  lambda: build_model(cfg),
                  lambda: InferenceEngine(cfg),
+                 lambda: InferenceEngine(cfg, batch_size=2, num_devices=2),
+                 lambda: DistributedTrainer(cfg),
                  lambda: serve.main(["--cfg", str(PKG.parent / "configs/"
                                                   "semantic_kitti/"
                                                   "middlefusion.yaml"),

@@ -404,8 +404,10 @@ def test_remat_vit_gradients_are_bitwise_those_without(monkeypatch):
 
 
 def test_only_the_parallelism_keys_remain_unported():
+    """Data parallelism (TPU.NUM_DEVICES) is ported; tensor parallelism and
+    ZeRO remain."""
     assert {k for k, _, _ in UNPORTED_KEYS} == {
-        "TPU.NUM_DEVICES", "TPU.MODEL_PARALLEL", "TPU.ZERO_OPTIMIZER"}
+        "TPU.MODEL_PARALLEL", "TPU.ZERO_OPTIMIZER"}
 
 
 def test_sgd_matches_torch_and_resumes_bitwise(tmp_path):
