@@ -104,8 +104,9 @@ then the flagship on real-format data, each path with every launch count
 set to 0 just before it and read just after (held exactly against the
 trainer's captures):
 
-18. SemanticKITTI-format: a raw tree (``tools/fabricate.py``: 20 train, 10
-    val and 4 test frames of ~21,000 in-frustum points, 370 x 1226 PNGs)
+18. SemanticKITTI-format: a raw tree (``tools/fabricate.py``: 20 train, 4
+    val and 2 test frames of ~21,000 in-frustum points, 370 x 1226 PNGs;
+    10 and 4 until PR 15)
     through the preprocess CLI, ``train.py`` with ``middlefusion.yaml``
     (only the directories, one epoch and a validation set: 2 steps of 10),
     finite losses, no overflow and no lost point; the item's host time,
@@ -119,8 +120,8 @@ trainer's captures):
     JPEGs (``tools/fabricate.py::FakeNuScenes``) through the preprocessor
     (USA train, Singapore validation subsets) and ``train.py`` with
     ``configs/nuscenes/middlefusion.yaml`` (5 classes, 400 x 225, batch 8):
-    2 steps and a validation, finite losses, no lost point, predictions in
-    [0, 5);
+    one step (two until PR 15) and a validation, finite losses, no lost
+    point, predictions in [0, 5);
 20. the uni-modal models on the same trees, each config as shipped but
     for its directories, each path's launch counts set to 0 just before it
     and read just after:
@@ -135,7 +136,7 @@ trainer's captures):
     K3 launches held against its captures and counted in the replays,
     ``pred`` == ``pred_3d``), its f32 logits on the card (TF32 off) within
     2e-3 of the CPU's;
-    20b ``nuscenes/lidar.yaml``: 2 steps and a validation, launches held
+    20b ``nuscenes/lidar.yaml``: one step and a validation, launches held
     as in 20a, predictions in [0, 5);
     20c ``imageBilinear.yaml`` (the ViT alone): 2 steps and a validation,
     batches without slot maps (their host collate timed), no hand-written
@@ -188,7 +189,7 @@ then ahead-of-time serving and the trainer's last single-device keys:
     (the programs' load and captures against the live step's captures);
     the exported engine through phase 10's drive (K1' / K3 launches held
     exactly against its captures, each replay's kernels by name); then
-    ``tools/serve.py --exported-dir ... --selftest 16``;
+    ``tools/serve.py --exported-dir ... --selftest 8`` (16 until PR 15);
 22. at the flagship's widths, bf16, batch 10: ``TPU.REMAT_VIT`` off and on
     (gradients and updated parameters bit for bit, each eager step's peak
     memory and each train replay's time); an SGD trainer's replays bit for
@@ -199,13 +200,14 @@ then ahead-of-time serving and the trainer's last single-device keys:
     SIGTERM'd ``train.py`` (``synthetic.yaml``): exit 0, a ``preempt*.pth``
     and a trainer resuming into that epoch;
 
-and data parallelism (run after 20d, on phase 18's tree):
+and data, ZeRO, tensor and pipeline parallelism (run after 20d; 23 on phase
+18's tree):
 
 23. (a) ``python -m torch.distributed.run --standalone --nproc_per_node
     N -m fusiontransformer_tpu_torch.train --distributed 1`` with
     ``middlefusion.yaml`` per-voxel, N the cards (at most as many as the
     global batch of 10 divides over), NCCL: one epoch of 2 steps and a
-    3-batch sharded validation, exit 0 and ``max-MeanIoU-000000.pth``;
+    sharded validation of 4 frames, exit 0 and ``max-MeanIoU-000000.pth``;
     the trainer's logged medians of its replays (local step, reductions,
     update) beside phase 17b's single-device replay; then
     ``--use_torchpack_test 1``: the checkpoint restored, one
@@ -221,8 +223,26 @@ and data parallelism (run after 20d, on phase 18's tree):
     with two replicas on cuda:0 at batch 2 against one replica, f32: the
     labels, the overflow summed over the replicas, the launches held
     against the replicas' captures;
+24. ZeRO-1, tensor parallelism and the GPipe ViT, two gloo ranks spawned
+    on cuda:0 as in 23 (b), full width, bf16, per-voxel, global batch 10:
+    (a) ZeRO at data 2: the replicated data-parallel trainer and the ZeRO
+    one, one step each from the same seeded state: parameters and buffers
+    bit for bit the same, the optimizer state's bytes (half), the ZeRO
+    replay bit for bit its eager step, 2 replays' parts, launches held
+    against the captures, peak memory; (b) the trainer at (data 1, model
+    2): one f32 step (TF32 off) against one process's tp=1 step from the
+    same state (phase 7's card-against-CPU gates, the parameters within 2
+    lr), the replicated parameters bit for bit equal on both ranks; then a
+    warm-up and 3 timed bf16 eager steps (CUDA events; the all-reduces'
+    host time from their ``tensor_parallel.psum`` ranges; one all-reduce
+    alone), launches held against the eager steps, peak memory; the
+    single-device eager step beside it on rank 0; (c) DeiT-B/384 in 2
+    stages, batch 8 in 4 microbatches, taps 5 and 11: f32 taps and
+    gradients against the sequential backbone (each rank its stage), the
+    seconds of a bf16 forward + backward of each; then whether gloo's
+    send / recv take CUDA tensors (two throwaway processes);
 
-13. (printed after 14-16, 21-23) a ``{"kernels": [...]}`` line: launches, errors
+13. (printed after 14-16, 21-24) a ``{"kernels": [...]}`` line: launches, errors
     and times of each kernel; K1 and K1' also carry their device time over
     CUDA-graph replays, the CUDA-core kernel's times on the same operands,
     the tensor-core forward's launches on the path, the engine's captures
@@ -238,7 +258,9 @@ and data parallelism (run after 20d, on phase 18's tree):
     ``lidar_launches``, phase 20a); K1' and K3 their kernels in the
     exported engine's 8 replays (``exported_replay_launches``, phase 21);
     K1' / K2' / K3 / K3' their launches in phase 23 (``dp_launches``: each
-    gloo rank's first data-parallel step, the two-replica engine).
+    gloo rank's first data-parallel step, the two-replica engine) and in
+    phase 24 (``zero_launches``: each rank's first ZeRO step;
+    ``tp_launches``: each rank's four tensor-parallel eager steps).
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -2932,8 +2954,14 @@ ONE_EPOCH = ["SCHEDULER.MAX_EPOCH", "1", "VAL.PERIOD", "1"]
 # Singapore validation scene.
 KITTI_RAYS = 36000
 NUSCENES_RAYS = 10500
-NUSCENES_SCENES = (("scene-0001", "day", "boston-seaport", 16),
-                   ("scene-0004", "day", "singapore-onenorth", 8))
+# Cut in depth to pay for phase 24 (frames, never widths): the validation
+# and test sequences of SemanticKITTI from 10 and 4 frames to 4 and 2 (the
+# train sequence keeps 20: two steps of 10, which phase 23 (a) needs for a
+# replay), NuScenes' scenes from 16 and 8 samples to 8 and 4 (one step of
+# 8).
+SMOKE_KITTI_FRAMES = {"00": 20, "07": 4, "08": 2}
+NUSCENES_SCENES = (("scene-0001", "day", "boston-seaport", 8),
+                   ("scene-0004", "day", "singapore-onenorth", 4))
 # SyntheticSCN's item a scan on the host (PERF.md section 5, the train cell).
 SYNTHETIC_ITEM_MS = 46.5
 PATH_KERNELS = ("binned_conv_grouped_fwd", "binned_conv_grouped_bwd")
@@ -2957,16 +2985,18 @@ def cli_logging():
 
 
 def trainer_launches_expected(captures, convs_per_step, k3_name, k3e8_name,
-                              kind="grouped"):
-    """The kernels' launches of a trainer's run with ``captures``: the
+                              kind="grouped", eager_steps=0):
+    """The kernels' launches of a trainer's run with ``captures`` and
+    ``eager_steps`` train steps run eagerly (tensor parallelism): the
     wrappers launch in the eager run and the capture of each new signature
-    (RUNS_PER_CAPTURE runs), a replay runs none; ``kind``'s binned-conv
-    pair on the tensor cores, none of the other pair's."""
+    (RUNS_PER_CAPTURE runs) and in each eager step, a replay runs none;
+    ``kind``'s binned-conv pair on the tensor cores, none of the other
+    pair's."""
     from fusiontransformer_tpu_torch.ops.kernels.binned_conv import (
         DW_MMA_NAME, FWD_CORE_NAME, FWD_MMA_NAME)
     kk = binned_kernels(kind)
     other = binned_kernels("slots" if kind == "grouped" else "grouped")
-    runs_t = RUNS_PER_CAPTURE * captures["train"]
+    runs_t = RUNS_PER_CAPTURE * captures["train"] + eager_steps
     runs_f = runs_t + RUNS_PER_CAPTURE * captures["eval"]
     return {kk["fwd"].__name__: convs_per_step * runs_f,
             kk["bwd"].__name__: convs_per_step * runs_t,
@@ -3165,16 +3195,15 @@ def phase_kitti(card, convs_per_step, k3_name, k3e8_name, work):
     from fusiontransformer_tpu_torch.data.build import build_dataloader
     from fusiontransformer_tpu_torch.modules.steps import (device_batch,
                                                            hier_from_cfg)
-    from fusiontransformer_tpu_torch.tools.fabricate import (KITTI_FRAMES,
-                                                             make_kitti)
+    from fusiontransformer_tpu_torch.tools.fabricate import make_kitti
     from fusiontransformer_tpu_torch.train import load_cfg
     res = {"card": card}
     os.makedirs(work, exist_ok=True)
     raw, pre, out = (os.path.join(work, d) for d in ("raw", "pre", "out"))
     t0 = time.perf_counter()
-    make_kitti(raw, KITTI_FRAMES, rays=KITTI_RAYS)
+    make_kitti(raw, SMOKE_KITTI_FRAMES, rays=KITTI_RAYS)
     res["fabricate_s"] = time.perf_counter() - t0
-    frames = sum(KITTI_FRAMES.values())
+    frames = sum(SMOKE_KITTI_FRAMES.values())
     t0 = time.perf_counter()
     subprocess.run([sys.executable, "-m", "fusiontransformer_tpu_torch."
                     "data.semantic_kitti.preprocess", "--root", raw,
@@ -3185,7 +3214,7 @@ def phase_kitti(card, convs_per_step, k3_name, k3e8_name, work):
         / frames
     dirs = kitti_args((raw, pre), out)
     cfg = load_cfg(CONFIG, dirs + ONE_EPOCH)
-    steps = -(-KITTI_FRAMES["00"] // cfg.TRAIN.BATCH_SIZE)
+    steps = -(-SMOKE_KITTI_FRAMES["00"] // cfg.TRAIN.BATCH_SIZE)
     trainer, launches, train_s = train_cli_run(
         ["--cfg", CONFIG, "--run_name", "kitti", *dirs, *ONE_EPOCH])
     losses, overflow, lost = trained_losses(trainer, steps)
@@ -3241,7 +3270,7 @@ def phase_kitti(card, convs_per_step, k3_name, k3e8_name, work):
         + f"; the eval replay of a real-format batch bit for bit the "
         f"eager eval step; {card}")
 
-    n_test = KITTI_FRAMES["08"]
+    n_test = SMOKE_KITTI_FRAMES["08"]
     res.update(test_cli_run(CONFIG, dirs, ckpt, n_test, k3_name))
     log(f"  test.py on the checkpoint: {n_test} scans at batch 1 in "
         f"{res['test_s']:.1f} s (model build, checkpoint load and "
@@ -3407,12 +3436,11 @@ def phase_lidar_only(card, k3_name, k3e8_name, kitti_dirs, work):
     from fusiontransformer_tpu_torch.ops.kernels.binned_conv import (
         FWD_CORE_NAME, FWD_MMA_NAME)
     from fusiontransformer_tpu_torch.serving.engine import InferenceEngine
-    from fusiontransformer_tpu_torch.tools.fabricate import KITTI_FRAMES
     from fusiontransformer_tpu_torch.train import load_cfg
     out = os.path.join(work, "lidar")
     dirs = kitti_args(kitti_dirs, out)
     cfg, trainer, res = unimodal_train("lidar", LIDAR_CONFIG, dirs,
-                                       KITTI_FRAMES["00"])
+                                       SMOKE_KITTI_FRAMES["00"])
     hb = first_train_batch(cfg)
     caps = trainer.level_caps(hb)
     convs = lidar_convs(trainer, cfg, hb)
@@ -3438,7 +3466,7 @@ def phase_lidar_only(card, k3_name, k3e8_name, kitti_dirs, work):
         f"{res['validate_ms_a_scan']:.1f} ms a scan; windows " + ", ".join(
             f"{k}: {v['scans_per_s']:.3f} train scans/s"
             for k, v in res["windows"].items()) + f"; {card}")
-    n_test = KITTI_FRAMES["08"]
+    n_test = SMOKE_KITTI_FRAMES["08"]
     res.update(test_cli_run(LIDAR_CONFIG, dirs, os.path.join(
         out, "lidar", "model000000.pth"), n_test, k3_name))
     log(f"  lidar-only test.py: {n_test} scans at batch 1 in "
@@ -3534,11 +3562,10 @@ def phase_image_only(card, kitti_dirs, work, config, label, serve):
     from fusiontransformer_tpu_torch.ops.kernels import (LAUNCHES,
                                                          reset_launches)
     from fusiontransformer_tpu_torch.serving.engine import InferenceEngine
-    from fusiontransformer_tpu_torch.tools.fabricate import KITTI_FRAMES
     from fusiontransformer_tpu_torch.train import load_cfg
     dirs = kitti_args(kitti_dirs, os.path.join(work, label))
     cfg, trainer, res = unimodal_train(label, config, dirs,
-                                       KITTI_FRAMES["00"])
+                                       SMOKE_KITTI_FRAMES["00"])
     no_launches(f"{label} training path", res["launches"])
     hb = first_train_batch(cfg)
     maps = [k for k in hb if k.startswith(("gslot_", "level_counts"))]
@@ -3584,7 +3611,9 @@ def phase_image_only(card, kitti_dirs, work, config, label, serve):
 # Phases 21 and 22: ahead-of-time serving through torch.export, and the
 # trainer's last single-device keys.
 
-EXPORT_SELFTEST = 16
+# Requests of the exported server's self-test (16 until PR 15; cut in depth
+# to pay for phase 24).
+EXPORT_SELFTEST = 8
 
 
 def phase_export(pcfg, serve_state, recs, k1p_per_request, card, work):
@@ -3597,7 +3626,7 @@ def phase_export(pcfg, serve_state, recs, k1p_per_request, card, work):
     the live per-voxel engine's, both through their graphs; the startup of
     each (construction + warmup: the programs' load and one capture a
     bucket, against the live step's capture); then ``tools/serve.py
-    --exported-dir ... --selftest 16``."""
+    --exported-dir ... --selftest 8``."""
     import os
 
     import numpy as np
@@ -3844,8 +3873,10 @@ def phase_trainer_keys(tcfg, work):
     run_dir = os.path.join(work, "preempt")
     argv = ["OUTPUT_DIR", run_dir, *batch10, "SCHEDULER.MAX_EPOCH", "1000"]
     t0 = time.perf_counter()
+    # SIGTERM after the first epoch (the second until PR 15; cut in depth
+    # to pay for phase 24).
     rc, text = train_subprocess(["--cfg", synthetic, "--run_name", "r",
-                                 *argv], stop_after="Epoch 1 took")
+                                 *argv], stop_after="Epoch 0 took")
     saved = glob.glob(os.path.join(run_dir, "r", "preempt*.pth"))
     if rc != 0 or "Preemption checkpoint written" not in text \
             or len(saved) != 1:
@@ -3855,7 +3886,7 @@ def phase_trainer_keys(tcfg, work):
     resumed = SemanticTrainer(load_cfg(synthetic,
                                        argv + ["AUTO_RESUME", "True"]),
                               os.path.join(run_dir, "r"))
-    if resumed.start_epoch != epoch or epoch < 2:
+    if resumed.start_epoch != epoch or epoch < 1:
         raise AssertionError(f"resume at epoch {resumed.start_epoch}, the "
                              f"preempt checkpoint holds {epoch}")
     res["preempt"] = {"epoch": epoch, "seconds": time.perf_counter() - t0,
@@ -3919,7 +3950,7 @@ def phase_trainer_keys(tcfg, work):
 # --------------------------------------------------------------------------- #
 # Phase 23: data parallelism, one process per card over torch.distributed.
 
-DP_VAL_BATCH = 4        # 10 validation frames: a 3-batch sharded validation
+DP_VAL_BATCH = 4        # 4 validation frames: a 1-batch sharded validation
 DP_GLOO_RANKS = 2
 DP_TIMED_REPLAYS = 5
 DP_DEVICE = "cuda:0"    # (b): every gloo rank on the one card
@@ -3970,8 +4001,8 @@ def torchrun_train(n, argv, timeout=600):
 def phase_dp_torchrun(kitti_dirs, work, card, single_replay_ms):
     """Phase 23 (a): ``train.py --distributed 1`` under torchrun, one NCCL
     process a card, ``middlefusion.yaml`` per-voxel on the SemanticKITTI
-    tree: one epoch of 2 steps at global batch 10 and a 3-batch sharded
-    validation; then ``--use_torchpack_test 1``: the best-IoU checkpoint
+    tree: one epoch of 2 steps at global batch 10 and a sharded validation
+    of 4 frames; then ``--use_torchpack_test 1``: the best-IoU checkpoint
     restored, every test scan dumped, the tables.  The trainer's logged
     medians of its replays: local step, reductions, update."""
     import os
@@ -4006,10 +4037,9 @@ def phase_dp_torchrun(kitti_dirs, work, card, single_replay_ms):
         f"single-device per-voxel replay {single_replay_ms:.2f} ms; {card}")
     rc, text, res["test_s"] = torchrun_train(
         n, ["--cfg", CONFIG, "--use_torchpack_test", "1", *args])
-    from fusiontransformer_tpu_torch.tools.fabricate import KITTI_FRAMES
     pred_dir = os.path.join(run, "predictions")
     dumps = sorted(os.listdir(pred_dir)) if os.path.isdir(pred_dir) else []
-    n_test = KITTI_FRAMES["08"]
+    n_test = SMOKE_KITTI_FRAMES["08"]
     if rc != 0 or len(dumps) != n_test or "overall IOU" not in text \
             or "max-MeanIoU-000000.pth" not in text:
         raise AssertionError(f"torchrun --use_torchpack_test 1: exit {rc}, "
@@ -4082,8 +4112,6 @@ def dp_gloo_rank(rank, world, port, out_tmpl, convs_per_step):
 def _dp_gloo_rank(rank, world, convs_per_step):
     import numpy as np
     import torch
-    from fusiontransformer_tpu_torch.data.build import build_dataset
-    from fusiontransformer_tpu_torch.data.collate import get_collate
     from fusiontransformer_tpu_torch.models.build import build_model
     from fusiontransformer_tpu_torch.modules.DistributedTrainer import (
         DistributedTrainer)
@@ -4102,15 +4130,7 @@ def _dp_gloo_rank(rank, world, convs_per_step):
     dev = torch.device(DP_DEVICE)
     tr = DistributedTrainer(cfg, "", device=dev, backend="gloo")
     # The global batch of 10 scans, the same on every rank; this rank's 5.
-    ds = build_dataset(cfg, "train")
-    sc = cfg.DATASET.SyntheticSCN
-    collate = get_collate(TRAIN_BATCH, cfg.TPU.POINT_CAPACITY,
-                          sc.image_height, sc.image_width,
-                          tuple(cfg.TPU.CAPACITY_BUCKETS),
-                          level_counts=1 + len(
-                              cfg.TPU.LEVEL_CAPACITY_FRACTIONS))
-    np.random.seed(23)
-    gb = collate([ds[i] for i in range(TRAIN_BATCH)])
+    gb = global_train_batch(cfg)
     local = shard_of(gb, rank, world)
     start = {k: v.detach().cpu().clone()
              for k, v in tr.model.state_dict().items()} if rank == 0 else None
@@ -4317,6 +4337,641 @@ def phase_dp_engine(pcfg32, serve_state, recs, k1p_per_request, card):
     torch.cuda.empty_cache()
     return {"label_agreement": agree, "overflow_parts": parts,
             "captures": captures, "launches": launches}
+
+
+# --------------------------------------------------------------------------- #
+# Phase 24: ZeRO-1, tensor parallelism and the GPipe ViT, on two gloo ranks
+# sharing cuda:0, as phase 23 (b).
+
+PAR_RANKS = 2
+PAR_TIMED_STEPS = 3
+ZERO_TIMED_REPLAYS = 2
+# (b) one f32 train step (TF32 off) of the tensor-parallel trainer against
+# one process's tp=1 step from the same state: the ViT's GEMMs split over
+# the model group and summed in another order.  The losses agree to ~1e-7,
+# but ReLUs and train-mode BatchNorm over the tokens and the voxels turn
+# such differences into gradients a median 2.4e-4 of their leaf's largest
+# apart, in both streams (the first two runs of this phase, which failed
+# phase 7's all-leaf median of 1e-4 and then an image-stream median of
+# 1e-4): the card's gates with the all-leaf median at 1e-3, the parameters
+# after the update within 2 lr (an element whose gradient is roundoff may
+# step either way).  The TP arithmetic itself is held on the ViT alone: its
+# taps and the gradients of their sum of squares (no ReLU, no BatchNorm),
+# each within TP_VIT_RTOL of its largest against tp=1.
+TP_GATES = {**CARD_GATES, "median": 1e-3}
+TP_VIT_BATCH, TP_VIT_RTOL = 2, 1e-4
+# (b) the stand-alone all-reduce of one ViT activation: rounds of the
+# step's 48 (2 forward, 2 backward a block).
+TP_PSUMS_A_STEP = 48
+# (c) DeiT-B/384 in 2 stages, batch 8 in 4 microbatches, the flagship's taps
+# (middle block 5, late block 11); f32, TF32 off, against the sequential
+# backbone: the same GEMMs at a quarter of the rows: each tap within this
+# share of its largest |value|, each gradient leaf within PP_GRAD_RTOL of
+# its largest |g|.
+PP_BATCH, PP_MICRO, PP_TAPS = 8, 4, (5, 11)
+PP_TAP_RTOL, PP_GRAD_RTOL = 1e-4, 1e-3
+
+
+def global_train_batch(cfg, seed=23):
+    """The global training batch of ``TRAIN_BATCH`` SyntheticSCN scans that
+    every rank of phases 23 (b) and 24 collates alike."""
+    import numpy as np
+    from fusiontransformer_tpu_torch.data.build import build_dataset
+    from fusiontransformer_tpu_torch.data.collate import get_collate
+    ds = build_dataset(cfg, "train")
+    sc = cfg.DATASET.SyntheticSCN
+    collate = get_collate(TRAIN_BATCH, cfg.TPU.POINT_CAPACITY,
+                          sc.image_height, sc.image_width,
+                          tuple(cfg.TPU.CAPACITY_BUCKETS),
+                          level_counts=1 + len(
+                              cfg.TPU.LEVEL_CAPACITY_FRACTIONS))
+    np.random.seed(seed)
+    return collate([ds[i] for i in range(TRAIN_BATCH)])
+
+
+def with_keys(cfg, **keys):
+    """``cfg`` with dotted ``keys`` set (``TPU__ZERO_OPTIMIZER`` style)."""
+    out = cfg.clone()
+    for k, v in keys.items():
+        node = out
+        *head, last = k.split("__")
+        for h in head:
+            node = node[h]
+        node[last] = v
+    out.freeze()
+    return out
+
+
+def free_card():
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def par_zero(rank, world, convs_per_step, gb):
+    """24 (a): the replicated data-parallel trainer and the ZeRO one, each
+    one step from the same seeded state on this rank's 5 scans: the
+    parameters and buffers after it bit for bit the same; the optimizer
+    state's bytes; the ZeRO replay bit for bit its eager step; launches
+    and peak memory."""
+    import torch
+    from fusiontransformer_tpu_torch.modules.DistributedTrainer import (
+        DistributedTrainer)
+    from fusiontransformer_tpu_torch.ops.kernels import (LAUNCHES,
+                                                         reset_launches)
+    from fusiontransformer_tpu_torch.ops.kernels.segment_sum import (
+        launch_name)
+    from fusiontransformer_tpu_torch.parallel.data_parallel import shard_of
+    cfg = per_voxel(train_cfg())
+    local = shard_of(gb, rank, world)
+    res = {}
+    for name, c in (("replicated", cfg),
+                    ("zero", with_keys(cfg, TPU__ZERO_OPTIMIZER=True))):
+        free_card()
+        torch.cuda.reset_peak_memory_stats()
+        tr = DistributedTrainer(c, "", device=DP_DEVICE, backend="gloo")
+        part = {"start": _digest(list(tr.model.parameters())
+                                 + list(tr.model.buffers()))}
+        reset_launches()
+        t0 = time.perf_counter()
+        tr.run_train_step(local).numpy()    # eager run, then its capture
+        part["first_step_s"] = time.perf_counter() - t0
+        part["first_step_peak_GB"] = torch.cuda.max_memory_allocated() / 1e9
+        part["launches"] = dict(LAUNCHES)
+        check_launches(f"rank {rank}'s {name} step", part["launches"],
+                       trainer_launches_expected(
+                           dict(tr.captures), convs_per_step,
+                           launch_name(1), launch_name(8), "slots"))
+        part["after"] = _digest(list(tr.model.parameters())
+                                + list(tr.model.buffers()))
+        part["state_bytes"] = tr.optimizer_state_bytes()
+        if name == "zero":
+            s0 = train_state(tr)
+            replayed = tr.run_train_step(local).numpy()
+            after = train_state(tr)
+            set_train_state(tr, s0)
+            tr.step -= 1
+            eager = eager_dp_step(tr, local)
+            diffs = state_diffs(after, train_state(tr)) + metric_diffs(
+                replayed, eager)
+            if diffs:
+                raise AssertionError(f"rank {rank}: the ZeRO replay differs "
+                                     f"from its eager step in {diffs[:12]}")
+            tr.step_times()
+            for _ in range(ZERO_TIMED_REPLAYS):
+                tr.run_train_step(local).numpy()
+            part["steps_ms"] = tr.step_times()
+        part["peak_GB"] = torch.cuda.max_memory_allocated() / 1e9
+        res[name] = part
+        del tr
+    for key in ("start", "after"):
+        if res["zero"][key] != res["replicated"][key]:
+            raise AssertionError(f"rank {rank}: the ZeRO trainer's state "
+                                 f"({key} the step) differs from the "
+                                 f"replicated trainer's")
+    res["state_share"] = res["zero"]["state_bytes"] \
+        / res["replicated"]["state_bytes"]
+    if not 0.5 <= res["state_share"] < 0.51:
+        raise AssertionError(f"rank {rank} keeps {res['state_share']} of "
+                             f"the optimizer state")
+    return res
+
+
+def merged_grads(tr):
+    """The tensor-parallel trainer's gradients in the canonical layout, on
+    the host (a gather over the model group)."""
+    from fusiontransformer_tpu_torch.parallel.tensor_parallel import (
+        merge_state)
+    grads = {n: p.grad for n, p in tr.model.named_parameters()}
+    return {n: g.to("cpu", copy=True) for n, g in merge_state(
+        grads, tr.mesh.model_group, tr.heads).items()}
+
+
+def psum_ms(group, shape, rounds=TP_PSUMS_A_STEP):
+    """One all-reduce of an f32 tensor of ``shape`` over ``group`` alone,
+    after the card is idle: the median over ``rounds``, in ms, host
+    clock (gloo stages the tensor through host memory and waits)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    x = torch.ones(shape, device=DP_DEVICE)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        dist.barrier(group=group)
+        t0 = time.perf_counter()
+        dist.all_reduce(x, group=group)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def par_tp(rank, world, convs_per_step, gb, conv_names):
+    """24 (b): the trainer at (data 1, model 2), every rank the whole
+    global batch: one f32 step against one process's tp=1 step from the
+    same state, the replicated parameters bit for bit equal on both ranks;
+    then bf16 eager steps (CUDA events; the all-reduces' share of the host
+    time from their profiler ranges, and one all-reduce alone), launches,
+    peak memory; the single-device eager step beside it on rank 0."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from fusiontransformer_tpu_torch.models.build import build_model
+    from fusiontransformer_tpu_torch.modules.DistributedTrainer import (
+        DistributedTrainer)
+    from fusiontransformer_tpu_torch.modules.steps import (device_batch,
+                                                           make_train_step)
+    from fusiontransformer_tpu_torch.ops.kernels import (LAUNCHES,
+                                                         reset_launches)
+    from fusiontransformer_tpu_torch.ops.kernels.segment_sum import (
+        launch_name)
+    from fusiontransformer_tpu_torch.parallel.data_parallel import (
+        rank_seed, shard_of)
+    from fusiontransformer_tpu_torch.parallel.tensor_parallel import (
+        tp_rule_for_path)
+    from fusiontransformer_tpu_torch.solver.build import build_optimizer
+    cfg = with_keys(per_voxel(train_cfg()), TPU__MODEL_PARALLEL=world)
+    cfg32 = with_keys(cfg, TPU__COMPUTE_DTYPE="float32")
+    one32 = with_keys(cfg32, TPU__MODEL_PARALLEL=1)
+    res = {}
+
+    # One f32 step against one process's tp=1 step.
+    free_card()
+    tr = DistributedTrainer(cfg32, "", device=DP_DEVICE, backend="gloo")
+    local = shard_of(gb, tr.data_rank, tr.data_size)
+    start = {k: v.detach().cpu().clone()
+             for k, v in tr.eval_model.state_dict().items()}
+    kept = {}
+    update = tr.train_step.update
+
+    def keep():
+        kept["grads"] = merged_grads(tr)
+        update()
+
+    tr.train_step.update = keep
+    metrics = tr.run_train_step(local).numpy()
+    model, _ = tr.canonical_state()
+    names = [n for n, _ in tr.model.named_parameters()]
+    digests = {n: _digest([p]) for n, p in tr.model.named_parameters()}
+    every = tr.reducer.gather_objects(digests)
+    replicated = [n for n in names if tp_rule_for_path(n) is None]
+    res["replicated_equal"] = all(d[n] == every[0][n] for d in every
+                                  for n in replicated)
+    res["replicated_params"] = len(replicated)
+    if not res["replicated_equal"]:
+        raise AssertionError("the replicated parameters differ between the "
+                             "model ranks after a step")
+    caps = tr.level_caps(local)
+    del tr
+    free_card()
+    dist.barrier()
+    if rank == 0:
+        ref = build_model(one32, DP_DEVICE)
+        ref.load_state_dict(start)
+        opt, _ = build_optimizer(one32, ref.parameters())
+        step = make_train_step(one32, ref, opt)
+        gen = torch.Generator(device=DP_DEVICE).manual_seed(
+            rank_seed(one32.RNG_SEED, 0))
+        ref_metrics = step(device_batch(local, DP_DEVICE), gen, caps,
+                           update=False)
+        ref_grads = {n: p.grad.cpu().clone()
+                     for n, p in ref.named_parameters()}
+        step.update()
+        buffers = {n for n, _ in ref.named_buffers()}
+        got = ({k: torch.as_tensor(v) for k, v in metrics.items()},
+               kept["grads"], {n: model[n].cpu() for n in buffers}, 0)
+        want = ({k: v.cpu() for k, v in ref_metrics.items()}, ref_grads,
+                {n: b.cpu() for n, b in ref.named_buffers()}, 0)
+        readings = grad_readings(want, got, conv_names, TP_GATES)
+        for stream in ("image", "lidar"):
+            readings[f"{stream}_median"] = float(np.median([
+                float((kept["grads"][n] - g).abs().max())
+                / max(float(g.abs().max()), 1e-30)
+                for n, g in ref_grads.items()
+                if n.startswith(f"{stream}_backbone")]))
+        p_err = max(float((model[n].cpu() - p.detach().cpu()).abs().max())
+                    for n, p in ref.named_parameters())
+        readings["param_max_abs"] = p_err
+        res["f32_vs_tp1"] = {k: v for k, v in readings.items()
+                             if k != "beyond_leaf_bound"}
+        lr = one32.OPTIMIZER.BASE_LR
+        if readings["fails"] or p_err > 2 * lr:
+            raise AssertionError(f"the tensor-parallel f32 step against "
+                                 f"one process's tp=1 step: {readings}")
+        del ref, step, opt, ref_grads
+    del model, start, kept
+    free_card()
+    dist.barrier()
+    res["vit_f32_vs_tp1"] = tp_vit_alone(rank, cfg32)
+    free_card()
+    dist.barrier()
+
+    # bf16 eager steps.
+    torch.cuda.reset_peak_memory_stats()
+    tr = DistributedTrainer(cfg, "", device=DP_DEVICE, backend="gloo")
+    local = shard_of(gb, tr.data_rank, tr.data_size)
+    reset_launches()
+    tr.run_train_step(local).numpy()            # warm-up
+    tr.step_times()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(PAR_TIMED_STEPS):
+            tr.run_train_step(local).numpy()
+    steps = PAR_TIMED_STEPS + 1
+    res["launches"] = dict(LAUNCHES)
+    check_launches(f"rank {rank}'s tensor-parallel eager steps",
+                   res["launches"], trainer_launches_expected(
+                       dict(tr.captures), convs_per_step, launch_name(1),
+                       launch_name(8), "slots", eager_steps=steps))
+    res["steps_ms"] = tr.step_times()
+    psum = [e for e in prof.key_averages()
+            if e.key == "tensor_parallel.psum"]
+    res["psum_calls_a_step"] = sum(e.count for e in psum) / PAR_TIMED_STEPS
+    res["psum_host_ms_a_step"] = sum(e.cpu_time_total for e in psum) \
+        / 1e3 / PAR_TIMED_STEPS
+    res["psum_share"] = res["psum_host_ms_a_step"] / res["steps_ms"]["step"]
+    res["peak_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    tokens = (cfg.MODEL.VIT_IMG_SIZE // cfg.MODEL.VIT_PATCH) ** 2 + 2
+    shape = (TRAIN_BATCH, tokens, cfg.MODEL.VIT_EMBED_DIM)
+    res["psum_alone_ms"] = psum_ms(tr.mesh.model_group, shape)
+    del tr
+    free_card()
+    dist.barrier()
+    if rank == 0:
+        one = with_keys(cfg, TPU__MODEL_PARALLEL=1)
+        model = build_model(one, DP_DEVICE)
+        opt, _ = build_optimizer(one, model.parameters())
+        step = make_train_step(one, model, opt)
+        gen = torch.Generator(device=DP_DEVICE).manual_seed(1)
+        db = device_batch(local, DP_DEVICE)
+        times = []
+        for i in range(steps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            step(db, gen, caps)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        res["single_eager_ms"] = float(np.median(times[1:]))
+        del model, opt, step, db
+        free_card()
+    dist.barrier()
+    return res
+
+
+def tp_vit_alone(rank, cfg32):
+    """The flagship's ViT alone, f32 (TF32 off), tensor-parallel over the
+    default group against tp=1 on rank 0 from the same seeded weights: the
+    largest difference of its taps and of the gradients of their sum of
+    squares (the shards merged), each as a share of the largest value."""
+    import torch
+    import torch.distributed as dist
+    from fusiontransformer_tpu_torch.models.layers import init_weights
+    from fusiontransformer_tpu_torch.models.vit import VisionTransformer2D
+    from fusiontransformer_tpu_torch.parallel.tensor_parallel import (
+        merge_state, shard_state)
+    m = cfg32.MODEL
+    world = dist.get_world_size()
+
+    def vit(tp=1, group=None):
+        return VisionTransformer2D(
+            img_size=m.VIT_IMG_SIZE, patch_size=m.VIT_PATCH,
+            embed_dim=m.VIT_EMBED_DIM, depth=m.VIT_DEPTH,
+            num_heads=m.VIT_HEADS, compute_dtype=torch.float32, tp=tp,
+            tp_group=group)
+
+    full = init_weights(vit(), 24)
+    local = vit(world, dist.group.WORLD)
+    local.load_state_dict(shard_state(full.state_dict(), world, rank,
+                                      m.VIT_HEADS))
+    gen = torch.Generator().manual_seed(24)
+    images = torch.randn(TP_VIT_BATCH, m.VIT_IMG_SIZE, m.VIT_IMG_SIZE, 3,
+                         generator=gen).to(DP_DEVICE)
+
+    def run(model):
+        model.to(DP_DEVICE).train()
+        taps = model(images)
+        loss = sum((v ** 2).sum() for v in taps.values())
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        names = [n for n, _ in model.named_parameters()]
+        return ({k: v.detach() for k, v in taps.items()},
+                dict(zip(names, grads)))
+
+    taps, grads = run(local)
+    grads = merge_state(grads, dist.group.WORLD, m.VIT_HEADS)
+    res = None
+    if rank == 0:
+        want_taps, want_grads = run(full)
+        res = {"tap_share": max(
+            float((taps[k] - v).abs().max()) / float(v.abs().max())
+            for k, v in want_taps.items()), "grad_share": max(
+            float((grads[n] - g).abs().max()) / max(float(g.abs().max()),
+                                                    1e-30)
+            for n, g in want_grads.items())}
+        if max(res.values()) > TP_VIT_RTOL:
+            raise AssertionError(f"the tensor-parallel ViT against tp=1: "
+                                 f"{res}")
+    return res
+
+
+def par_pipeline(rank, world):
+    """24 (c): DeiT-B/384 in ``world`` stages (``pp_vit_apply``, the
+    hand-off through ``all_gather``: gloo on the card), batch 8 in 4
+    microbatches, the flagship's taps, from seeded weights: f32 taps and
+    gradients against the sequential backbone in one process (each rank
+    its stage); then the seconds of a bf16 forward + backward of each."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from fusiontransformer_tpu_torch.models.layers import init_weights
+    from fusiontransformer_tpu_torch.models.vit import VisionTransformer2D
+    from fusiontransformer_tpu_torch.parallel import pipeline_parallel as pp
+    m = train_cfg().MODEL
+    vits = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        vits[dtype] = VisionTransformer2D(
+            img_size=m.VIT_IMG_SIZE, patch_size=m.VIT_PATCH,
+            embed_dim=m.VIT_EMBED_DIM, depth=m.VIT_DEPTH,
+            num_heads=m.VIT_HEADS, compute_dtype=dtype)
+    init_weights(vits[torch.float32], 24)
+    vits[torch.bfloat16].load_state_dict(vits[torch.float32].state_dict())
+    for vit in vits.values():
+        vit.to(DP_DEVICE).train()
+    gen = torch.Generator().manual_seed(24)
+    images = torch.randn(PP_BATCH, m.VIT_IMG_SIZE, m.VIT_IMG_SIZE, 3,
+                         generator=gen).to(DP_DEVICE)
+    staged, rest = pp.stack_vit_blocks(
+        {n: p.detach() for n, p in vits[torch.float32].named_parameters()},
+        world)
+    mode = pp.handoff_mode(None, images.device)
+    keys = [str(k) for k in sorted(set(PP_TAPS) | {m.VIT_DEPTH - 1})]
+
+    def pipelined(vit):
+        local = {k: v[rank].clone().requires_grad_()
+                 for k, v in staged.items()}
+        rst = {k: v.clone().requires_grad_() for k, v in rest.items()}
+        out = pp.pp_vit_apply(vit, local, rst, images, None, PP_MICRO,
+                              PP_TAPS)
+        sum((out[k].float() ** 2).sum() for k in keys).backward()
+        return out, local, rst
+
+    def sequential(vit):
+        vit.zero_grad(set_to_none=True)
+        out = vit(images)
+        sum((out[k].float() ** 2).sum() for k in keys).backward()
+        return out
+
+    def seconds(fn):
+        times = []
+        for _ in range(1 + PAR_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times[1:]))
+
+    out, local, rst = pipelined(vits[torch.float32])
+    ref = sequential(vits[torch.float32])
+    ref_grads = {n: p.grad for n, p in
+                 vits[torch.float32].named_parameters()}
+    want_staged, want_rest = pp.stack_vit_blocks(ref_grads, world)
+    tap_share = max(float((out[k] - ref[k]).detach().abs().max())
+                    / float(ref[k].detach().abs().max()) for k in keys)
+    grad_share = max(
+        float((g.grad - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+        for g, want in [(local[k], want_staged[k][rank]) for k in local]
+        + [(rst[k], want_rest[k]) for k in rst])
+    res = {"mode": mode, "keys": keys, "tap_share": tap_share,
+           "grad_share": grad_share}
+    if tap_share > PP_TAP_RTOL or grad_share > PP_GRAD_RTOL:
+        raise AssertionError(f"rank {rank}: the pipelined ViT against the "
+                             f"sequential one: {res}")
+    del out, local, rst, ref, ref_grads
+    free_card()
+    res["pipelined_s"] = seconds(lambda: pipelined(vits[torch.bfloat16]))
+    dist.barrier()
+    if rank == 0:
+        res["sequential_s"] = seconds(
+            lambda: sequential(vits[torch.bfloat16]))
+    dist.barrier()
+    return res
+
+
+def par_rank(rank, world, port, out_tmpl, convs_per_step, conv_names):
+    """Phase 24, one of ``world`` gloo ranks sharing cuda:0 (a spawned
+    process): (a), (b), (c) in turn, each part's seconds; the result, or
+    the traceback, to ``out_tmpl % rank``."""
+    import os
+    import traceback
+    import torch
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {"ok": True, "seconds": {}}
+    try:
+        gb = global_train_batch(per_voxel(train_cfg()))
+        for part, fn in (("a", lambda: par_zero(rank, world, convs_per_step,
+                                                gb)),
+                         ("b", lambda: par_tp(rank, world, convs_per_step,
+                                              gb, conv_names)),
+                         ("c", lambda: par_pipeline(rank, world))):
+            t0 = time.perf_counter()
+            res[part] = fn()
+            res["seconds"][part] = time.perf_counter() - t0
+    except BaseException:
+        res = {"ok": False, "error": traceback.format_exc()}
+    with open(out_tmpl % rank, "w") as f:
+        json.dump(res, f)
+
+
+def _p2p_probe(rank, port, out):
+    """One of two gloo ranks: rank 0 sends a CUDA tensor, rank 1 receives
+    one."""
+    import os
+    import traceback
+    from datetime import timedelta
+    import torch
+    import torch.distributed as dist
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    try:
+        dist.init_process_group("gloo", rank=rank, world_size=2,
+                                timeout=timedelta(seconds=30))
+        x = torch.full((1024,), 7.0, device=DP_DEVICE)
+        if rank == 0:
+            dist.send(x, 1)
+            text = "sent"
+        else:
+            y = torch.zeros_like(x)
+            dist.recv(y, 0)
+            torch.cuda.synchronize()
+            text = "received equal" if torch.equal(x, y) else \
+                "received different values"
+    except Exception as e:       # the probe reports what the backend does
+        text = f"raised {type(e).__name__}: {str(e)[:200]}"
+        traceback.print_exc()
+    with open(out % rank, "w") as f:
+        f.write(text)
+
+
+def probe_gloo_p2p_cuda(work):
+    """Whether gloo's ``send`` / ``recv`` take CUDA tensors on this torch:
+    two spawned processes, joined within 60 s (a hung or crashed pair
+    reads as not)."""
+    import multiprocessing as mp
+    import os
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    out = os.path.join(work, "p2p%d.txt")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_p2p_probe, args=(r, port, out))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + 60
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    result = []
+    for r, p in enumerate(procs):
+        if p.is_alive():
+            p.kill()
+            p.join()
+            result.append("hung")
+        elif os.path.exists(out % r):
+            result.append(open(out % r).read())
+        else:
+            result.append(f"exit code {p.exitcode}")
+    return result
+
+
+def phase_parallel(card, convs_per_step, conv_names, work):
+    """Phase 24: ``PAR_RANKS`` gloo ranks, each a spawned process on cuda:0
+    (NCCL refuses two ranks on one card), at the flagship's widths, bf16,
+    per-voxel, global batch 10: (a) ZeRO-1 against the replicated
+    data-parallel step; (b) tensor parallelism at (data 1, model 2); (c)
+    the GPipe ViT; then whether gloo's send / recv take CUDA tensors."""
+    import multiprocessing as mp
+    import os
+    import socket
+
+    import torch
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    tmpl = os.path.join(work, "par_rank%d.json")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=par_rank,
+                         args=(r, PAR_RANKS, port, tmpl, convs_per_step,
+                               sorted(conv_names)))
+             for r in range(PAR_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + 600
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    seconds = time.perf_counter() - t0
+    ranks = []
+    for r in range(PAR_RANKS):
+        path = tmpl % r
+        ranks.append(json.load(open(path)) if os.path.exists(path)
+                     else {"ok": False, "error": "no result (killed?)"})
+    if not all(r["ok"] for r in ranks):
+        raise AssertionError("phase 24 ranks: " + " | ".join(
+            r.get("error", "ok") for r in ranks))
+    for r, out in enumerate(ranks):
+        a, b, c = out["a"], out["b"], out["c"]
+        log(f"  rank {r}, parts' seconds {out['seconds']}")
+        log(f"  (a) ZeRO: after one step parameters and buffers bit for bit "
+            f"the replicated trainer's; optimizer state "
+            f"{a['zero']['state_bytes']} bytes against "
+            f"{a['replicated']['state_bytes']} ({a['state_share']:.4f}); "
+            f"peak over the first step (eager + capture + update) "
+            f"{a['zero']['first_step_peak_GB']:.2f} GB (replicated "
+            f"{a['replicated']['first_step_peak_GB']:.2f}), over the "
+            f"whole part {a['zero']['peak_GB']:.2f} (with the replay "
+            f"check's state copies); the replay bit for bit "
+            f"its eager step; {ZERO_TIMED_REPLAYS} replays: "
+            f"{a['zero']['steps_ms']}; first steps (eager + capture) "
+            f"{a['zero']['first_step_s']:.1f} / "
+            f"{a['replicated']['first_step_s']:.1f} s; launches "
+            f"{a['zero']['launches']}; {card}")
+        log(f"  (b) TP (data 1, model 2): {b['replicated_params']} "
+            f"replicated parameters bit for bit equal on both ranks; "
+            + (f"f32 step against tp=1: {b['f32_vs_tp1']}; the ViT alone "
+               f"(f32, batch {TP_VIT_BATCH}) against tp=1: "
+               f"{b['vit_f32_vs_tp1']}; " if r == 0 else "")
+            + f"bf16 eager steps ({PAR_TIMED_STEPS} timed): "
+            f"{b['steps_ms']}; all-reduces {b['psum_calls_a_step']:.0f} a "
+            f"step, {b['psum_host_ms_a_step']:.1f} ms of host time a step "
+            f"({b['psum_share']:.3f} of the step, each waiting for the "
+            f"card's queued work), one alone {b['psum_alone_ms']:.2f} ms; "
+            + (f"the single-device eager step {b['single_eager_ms']:.2f} "
+               f"ms (the card unshared); " if r == 0 else "")
+            + f"peak {b['peak_GB']:.2f} GB; launches {b['launches']}; "
+            f"{card}")
+        log(f"  (c) GPipe, {PAR_RANKS} stages, batch {PP_BATCH} in "
+            f"{PP_MICRO} microbatches, taps {c['keys']}, hand-off "
+            f"'{c['mode']}': f32 taps {c['tap_share']:.2e} and gradients "
+            f"{c['grad_share']:.2e} of their largest off the sequential "
+            f"backbone's; bf16 forward + backward {c['pipelined_s']:.3f} s"
+            + (f", sequential in one process {c['sequential_s']:.3f} s"
+               if r == 0 else "") + f"; {card}")
+    probe = probe_gloo_p2p_cuda(work)
+    log(f"  gloo send / recv of a CUDA tensor on torch {torch.__version__}: "
+        f"{probe} (the pipeline's hand-off on a gloo group on the card goes "
+        f"through all_gather)")
+    return {"ranks": ranks, "seconds": seconds, "p2p_probe": probe}
 
 
 def main() -> int:
@@ -4684,6 +5339,16 @@ def main() -> int:
         dp["engine"] = phase_dp_engine(per_voxel(cfg32), serve_state, recs,
                                        k1p_per_request, card)
         phase_end("23")
+
+        # ---- 24. ZeRO, tensor parallelism, the GPipe ViT
+        log("== 24. ZeRO-1, tensor parallelism and the GPipe ViT on two gloo "
+            "ranks sharing cuda:0: (a) ZeRO against the replicated "
+            "data-parallel step; (b) the trainer at (data 1, model 2): f32 "
+            "against tp=1, bf16 eager steps; (c) DeiT-B/384 in 2 stages "
+            "against the sequential backbone")
+        torch.cuda.empty_cache()
+        parallel = phase_parallel(card, convs_per_step, conv_names, work)
+        phase_end("24")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4803,7 +5468,7 @@ def main() -> int:
               "train_graphs": train_graphs,
               "server": server, "real_format": real, "unimodal": unimodal,
               "exported": exported, "trainer_keys": trainer_keys,
-              "data_parallel": dp, "phase_s": phase_s}
+              "data_parallel": dp, "parallel": parallel, "phase_s": phase_s}
     log("== 13. kernels (ms, plain_ms, bound_ms, library_ms: K1, K1' and K3 "
         "per inference request at batch 1 (K1 and K1' also per train step "
         "under train_step), K2, K2' and K3[E=8] per train "
@@ -4842,12 +5507,19 @@ def main() -> int:
     fwd_names = ("binned_conv_fwd_mma_kernel",)
 
     def dp_of(name):
-        """A kernel's launches in phase 23: each gloo rank's data-parallel
-        step (eager run and capture), and the two-replica engine's."""
+        """A kernel's launches in phases 23 and 24: each gloo rank's
+        data-parallel step (eager run and capture), the two-replica
+        engine's; each rank's ZeRO step (eager run and capture) and its
+        tensor-parallel eager steps."""
         out = {f"train_rank{r}": rank["launches"].get(name, 0)
                for r, rank in enumerate(dp["gloo"]["ranks"])}
         out["sharded_engine"] = dp["engine"]["launches"].get(name, 0)
-        return {"dp_launches": out}
+        ranks = parallel["ranks"]
+        return {"dp_launches": out,
+                "zero_launches": {f"rank{r}": rank["a"]["zero"][
+                    "launches"].get(name, 0) for r, rank in enumerate(ranks)},
+                "tp_launches": {f"rank{r}": rank["b"]["launches"].get(name, 0)
+                                for r, rank in enumerate(ranks)}}
     bwd_names = ("bin_rows_kernel", "binned_conv_dw_mma_kernel",
                  "reduce_chunks_kernel")
     print(json.dumps({"kernels": [

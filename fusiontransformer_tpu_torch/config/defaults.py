@@ -307,14 +307,15 @@ _C.TPU.NUM_DEVICES = 0
 # over a 'model' mesh axis; parallel/tensor_parallel.py).  Composes with
 # data parallelism into a (data, model) mesh: NUM_DEVICES must be a
 # multiple of MODEL_PARALLEL; the data axis gets the quotient.  Requires a
-# ViT-stream model and vit_heads % MODEL_PARALLEL == 0.  Checkpoints stay
-# canonical tp=1 layout (merged on save, re-split on restore).
+# ViT-stream model, vit_heads % MODEL_PARALLEL == 0 and GRAD_ACCUM_STEPS 1
+# (modules/DistributedTrainer.py).  Checkpoints stay canonical tp=1 layout
+# (merged on save, re-split on restore).
 _C.TPU.MODEL_PARALLEL = 1
 # ZeRO-1: shard optimizer moments 1/n across the data axis
 # (parallel/zero.py).  Optimizer math is bitwise identical; adds one
-# params-sized all_gather per step, saves 2x-params-/n of HBM per chip.
+# params-sized all_gather per step, saves 2x-params-/n of memory per card.
 # Checkpoints stay canonical (merged on save, re-split on restore).
-# Requires MODEL_PARALLEL == 1 and single-host for now.
+# Requires MODEL_PARALLEL == 1 and GRAD_ACCUM_STEPS 1.
 _C.TPU.ZERO_OPTIMIZER = False
 # Remat (checkpoint) the ViT blocks to save HBM during training.
 _C.TPU.REMAT_VIT = False

@@ -8,11 +8,19 @@ STN ``ImageSeg``) filled with random weights from a seeded
 Parameters are float32; the compute dtype (``TPU.COMPUTE_DTYPE``) only sets
 the operand type of the matmuls and sparse ops.  The legacy families of the
 ``legacy_*.yaml`` configs raise ``NotImplementedError``.
+
+``vit_tp`` > 1 with ``vit_tp_group`` builds the ViT tensor-parallel over
+that model group (``parallel/tensor_parallel.py``, the JAX package's
+``build_model(cfg, vit_tp, vit_tp_axis)``): the model holds this rank's
+shard of the canonical tp=1 model's weights (``canonical``, or the seeded
+model ``build_model(cfg, seed=seed)`` would give), so a run at any degree
+starts from the same weights.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from fusiontransformer_tpu_torch.models.fusion import (EarlyFusionTransformer,
                                                        LateFusionTransformer,
@@ -21,6 +29,7 @@ from fusiontransformer_tpu_torch.models.image_models import ImageSegBilinear
 from fusiontransformer_tpu_torch.models.image_models_stn import ImageSegSTN
 from fusiontransformer_tpu_torch.models.layers import init_weights
 from fusiontransformer_tpu_torch.models.lidar_model import LidarSeg
+from fusiontransformer_tpu_torch.parallel.tensor_parallel import shard_state
 from fusiontransformer_tpu_torch.utils.device import resolve_device
 
 _FUSION = {
@@ -36,7 +45,7 @@ def compute_dtype(cfg):
             "float32": torch.float32}[cfg.TPU.COMPUTE_DTYPE]
 
 
-def _construct(cfg):
+def _construct(cfg, vit_tp=1, vit_tp_group=None):
     cdt = compute_dtype(cfg)
     m = cfg.MODEL
     ds = cfg.DATASET.get(cfg.DATASET.TYPE, {})
@@ -53,7 +62,11 @@ def _construct(cfg):
                vit_img_size=m.VIT_IMG_SIZE, vit_patch=m.VIT_PATCH,
                vit_embed_dim=m.VIT_EMBED_DIM, vit_depth=m.VIT_DEPTH,
                vit_heads=m.VIT_HEADS, compute_dtype=cdt,
-               remat_vit=bool(cfg.TPU.REMAT_VIT), **dims)
+               remat_vit=bool(cfg.TPU.REMAT_VIT), vit_tp=vit_tp,
+               vit_tp_group=vit_tp_group, **dims)
+    if vit_tp > 1 and not (m.USE_FUSION or m.TYPE == "ImageSegBilinear"):
+        raise ValueError(f"TPU.MODEL_PARALLEL shards a ViT stream; {m.TYPE} "
+                         f"has none that tensor parallelism splits")
     if m.USE_FUSION:
         if m.TYPE not in _FUSION:
             raise KeyError(f"{m.TYPE} is not a fusion model")
@@ -71,8 +84,17 @@ def _construct(cfg):
     raise ValueError(f"Unsupported model config: {m.TYPE}")
 
 
-def build_model(cfg, device=None, seed: int = 0):
+def build_model(cfg, device=None, seed: int = 0, vit_tp: int = 1,
+                vit_tp_group=None, canonical=None):
     dev = resolve_device(device)
-    model = _construct(cfg)
-    init_weights(model, seed)
+    if vit_tp <= 1:
+        model = _construct(cfg)
+        init_weights(model, seed)
+        return model.to(dev).eval()
+    if canonical is None:
+        canonical = build_model(cfg, "cpu", seed)
+    model = _construct(cfg, vit_tp, vit_tp_group)
+    model.load_state_dict(shard_state(
+        canonical.state_dict(), vit_tp, dist.get_rank(vit_tp_group),
+        cfg.MODEL.VIT_HEADS))
     return model.to(dev).eval()

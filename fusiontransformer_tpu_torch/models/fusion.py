@@ -10,7 +10,9 @@ Port of ``fusiontransformer_tpu/models/fusion.py``.  All three pair a
 
 Image features are detached before they enter the lidar stream, so the
 lidar losses send no gradient into the image stream (the JAX package's
-``stop_gradient``).
+``stop_gradient``).  ``vit_tp`` / ``vit_tp_group`` shard the ViT over a
+model group (``parallel/tensor_parallel.py``); the 3D stream is
+replicated.
 """
 
 from __future__ import annotations
@@ -60,7 +62,7 @@ class FusionTransformerBase(nn.Module):
                  vit_img_size: int = 384, vit_patch: int = 16,
                  vit_embed_dim: int = 768, vit_depth: int = 12,
                  vit_heads: int = 12, compute_dtype=torch.bfloat16,
-                 remat_vit: bool = False):
+                 remat_vit: bool = False, vit_tp: int = 1, vit_tp_group=None):
         super().__init__()
         self.fusion = fusion
         self.dual_head = dual_head
@@ -72,7 +74,7 @@ class FusionTransformerBase(nn.Module):
             vit_img_size=vit_img_size, vit_patch=vit_patch,
             vit_embed_dim=vit_embed_dim, vit_depth=vit_depth,
             vit_heads=vit_heads, compute_dtype=compute_dtype,
-            remat_vit=remat_vit)
+            remat_vit=remat_vit, vit_tp=vit_tp, vit_tp_group=vit_tp_group)
         self.lidar_backbone = Net3DSeg(
             num_classes=num_classes, dual_head=dual_head, fusion=fusion,
             cr=cr, compute_dtype=compute_dtype)

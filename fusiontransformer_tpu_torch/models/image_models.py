@@ -12,6 +12,9 @@ Port of ``fusiontransformer_tpu/models/image_models.py``:
   ``(r * g) // H``, ``(c * g) // W``: the nearest-upsample-then-gather of
   the reference, with no upsampled map in memory;
 * ``ImageSegBilinear`` — the image-only model around it.
+
+``vit_tp`` / ``vit_tp_group`` build the ViT tensor-parallel
+(``parallel/tensor_parallel.py``); the rest of the stream is replicated.
 """
 
 from __future__ import annotations
@@ -83,7 +86,7 @@ class Net2DBilinear(nn.Module):
                  vit_img_size: int = 384, vit_patch: int = 16,
                  vit_embed_dim: int = 768, vit_depth: int = 12,
                  vit_heads: int = 12, compute_dtype=torch.bfloat16,
-                 remat_vit: bool = False):
+                 remat_vit: bool = False, vit_tp: int = 1, vit_tp_group=None):
         super().__init__()
         cdt = compute_dtype
         self.image_height = image_height
@@ -95,7 +98,8 @@ class Net2DBilinear(nn.Module):
         self.backbone = VisionTransformer2D(
             img_size=vit_img_size, patch_size=vit_patch,
             embed_dim=vit_embed_dim, depth=vit_depth, num_heads=vit_heads,
-            compute_dtype=cdt, remat=remat_vit)
+            compute_dtype=cdt, remat=remat_vit, tp=vit_tp,
+            tp_group=vit_tp_group)
         self.add_module(f"up_{late_feat_block}",
                         TokenBilinearModule(vit_embed_dim, FEAT_CHANNELS, cdt))
         self.linear = TorchLinear(FEAT_CHANNELS, num_classes,

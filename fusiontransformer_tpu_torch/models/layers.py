@@ -18,6 +18,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from fusiontransformer_tpu_torch.ops.sparse_conv import cdt_matmul
+from fusiontransformer_tpu_torch.parallel.tensor_parallel import (
+    psum_fwd_identity_bwd)
 
 
 def torch_uniform_(t, fan_in: int, gen: torch.Generator):
@@ -50,12 +52,18 @@ def init_weights(model: nn.Module, seed: int = 0):
 
 
 class TorchLinear(nn.Module):
-    """nn.Linear with torch default init and an [in, out] ``kernel``."""
+    """nn.Linear with torch default init and an [in, out] ``kernel``.
+
+    ``reduce_group`` makes the layer the row-parallel half of a Megatron
+    pair (``parallel/tensor_parallel.py``): the matmul contracts this
+    rank's input shard, an all-reduce over the group rebuilds the full
+    product, and the (replicated) bias is added after it, once."""
 
     def __init__(self, in_features: int, features: int,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, reduce_group=None):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.reduce_group = reduce_group
         self.kernel = nn.Parameter(torch.zeros(in_features, features))
         self.bias = nn.Parameter(torch.zeros(features))
 
@@ -65,7 +73,10 @@ class TorchLinear(nn.Module):
         torch_uniform_(self.bias, fan_in, gen)
 
     def forward(self, x):
-        return cdt_matmul(x, self.kernel, self.compute_dtype) + self.bias
+        y = cdt_matmul(x, self.kernel, self.compute_dtype)
+        if self.reduce_group is not None:
+            y = psum_fwd_identity_bwd(y, self.reduce_group)
+        return y + self.bias
 
 
 class LayerNorm(nn.Module):

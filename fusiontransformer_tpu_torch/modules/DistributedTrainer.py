@@ -8,8 +8,9 @@ process per card by ``python -m torch.distributed.run`` (torchrun):
   (``parallel.data_parallel.init_distributed``: NCCL on the card, gloo on
   the CPU), the device ``cuda:LOCAL_RANK``;
 * ``TRAIN.BATCH_SIZE`` is the global batch: each process loads
-  ``BATCH_SIZE / world_size`` scans a step from its ``ShardedView`` of the
-  split with loader seed ``rank``, and validates and tests its own shard of
+  ``BATCH_SIZE / data_size`` scans a step from its ``ShardedView`` of the
+  split with loader seed ``data_rank`` (without tensor parallelism the
+  rank and the world size), and validates and tests its own shard of
   those splits; batches carry no group-pooled maps (per-voxel K-slot maps,
   K1' / K2');
 * every process starts from rank 0's parameters and buffers
@@ -49,12 +50,49 @@ process per card by ``python -m torch.distributed.run`` (torchrun):
   rank's shard with the JAX package's keys, and ``validate`` with the
   matrices summed.
 
+With ``TPU.ZERO_OPTIMIZER`` (ZeRO-1, ``parallel/zero.py``) each rank keeps
+``1/world_size`` of the optimizer's moments: the train step replays its
+graph with ``update=False`` as above, then the reductions and the ZeRO
+update (this rank's chunks, then an ``all_gather`` of the parameters) run
+eagerly.
+
+With ``TPU.MODEL_PARALLEL`` = mp > 1 (``parallel/tensor_parallel.py``) the
+ranks form a (data, model) mesh, rank = d * mp + m, and each holds its
+model group's m-th shard of the ViT blocks (heads and MLP width), the rest
+replicated:
+
+* the loader shards, loader seeds and dropout generators are keyed on the
+  data index d, not the rank: the ranks of a model group step the same
+  scans with the same masks, as JAX folds only ``axis_index("data")`` into
+  its key, so that their replicated parameters stay equal;
+* gradients, BatchNorm buffers, metrics and the validation's matrices are
+  reduced over the data group only: the f / g pair already makes the
+  replicated parameters' gradients full sums within a model group, and the
+  sharded ones are local; the bucket and caps agreement stays world-wide,
+  so that every rank runs the same shapes;
+* the train step runs eagerly, on the card too: its all-reduces sit inside
+  every ViT block's forward and backward, which gloo cannot capture;
+* validation and ``test()`` run the canonical tp=1 model (``eval_model``,
+  its eval steps through their CUDA graphs) on the merged parameters,
+  merged once a validation and copied in place into its parameters.
+
+Checkpoints, the preemption checkpoint, ``test()``'s load and the
+summaries' histograms hold the canonical single-device layout, with
+``torch.optim``'s own ``state_dict`` for the moments, so a checkpoint
+loads across TP degrees and with or without ZeRO; a load splits it again.
+The gathers that build it are collectives: every rank runs them
+(``canonical_state``, ``canonical_model``) before the rank-0 guard, where
+a gather on rank 0 alone would wait for ever.  ``GRAD_ACCUM_STEPS`` > 1
+composes with neither key, and the two keys not with each other, as in
+JAX; these and the mesh's divisibility are checked before the process
+group is joined.
+
 Deliberate differences from the JAX package (ROADMAP.md, Queue 3): one
 process per device where JAX runs one process over a mesh; the collectives
-outside the CUDA graphs; dropout generators seeded per rank
-(``rank_seed``) where JAX folds the device index into its key.  Tensor
-parallelism and ZeRO (``TPU.MODEL_PARALLEL`` > 1, ``TPU.ZERO_OPTIMIZER``)
-raise ``NotImplementedError`` (Queue 1 item 4).
+outside the CUDA graphs; dropout generators seeded per data rank
+(``rank_seed``) where JAX folds the device index into its key; the TP
+train step eager; the collective merges before the rank-0 guard, where
+JAX assembles its addressable shards on the host.
 """
 
 from __future__ import annotations
@@ -68,12 +106,23 @@ import torch
 
 from fusiontransformer_tpu_torch.data.build import build_dataloader
 from fusiontransformer_tpu_torch.data.utils.validate import validate
+from fusiontransformer_tpu_torch.models.build import build_model
 from fusiontransformer_tpu_torch.modules.SemanticTrainer import (
     SemanticTrainer, check_ported_keys)
 from fusiontransformer_tpu_torch.modules.steps import (adaptive_level_caps,
+                                                       device_batch,
+                                                       make_eval_step,
                                                        read_back)
 from fusiontransformer_tpu_torch.parallel.data_parallel import (
     Reducer, init_distributed, repad)
+from fusiontransformer_tpu_torch.parallel.tensor_parallel import (
+    Mesh2D, merge_state, shard_state)
+from fusiontransformer_tpu_torch.parallel.tensor_parallel import (
+    merge_opt_state as tp_merge_opt_state,
+    shard_opt_state as tp_shard_opt_state)
+from fusiontransformer_tpu_torch.parallel.zero import Zero1
+from fusiontransformer_tpu_torch.solver.build import (build_optimizer,
+                                                      make_lr_schedule)
 from fusiontransformer_tpu_torch.utils.checkpoint import Checkpointer
 from fusiontransformer_tpu_torch.utils.device import resolve_device
 from fusiontransformer_tpu_torch.utils.metric_logger import MetricLogger
@@ -107,51 +156,199 @@ class StepMarks:
         return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
 
 
+def check_parallel_keys(cfg, world_size: int):
+    """The config checks of a run of ``world_size`` ranks (the JAX
+    trainer's asserts), before any process group is joined: ``ValueError``
+    where the keys do not compose or the mesh does not divide."""
+    mp = int(cfg.TPU.MODEL_PARALLEL)
+    zero = bool(cfg.TPU.ZERO_OPTIMIZER)
+    accum = int(cfg.TRAIN.GRAD_ACCUM_STEPS)
+    if mp < 1:
+        raise ValueError(f"TPU.MODEL_PARALLEL = {mp} must be >= 1")
+    if mp > 1 and zero:
+        raise ValueError("TPU.ZERO_OPTIMIZER composes with data parallelism "
+                         "only: unset it or TPU.MODEL_PARALLEL")
+    if mp > 1 and accum > 1:
+        raise ValueError("TPU.MODEL_PARALLEL > 1 does not compose with "
+                         "TRAIN.GRAD_ACCUM_STEPS > 1 (as in the JAX package): "
+                         "run tensor parallelism with accumulation disabled")
+    if zero and accum > 1:
+        raise ValueError("TPU.ZERO_OPTIMIZER does not compose with "
+                         "TRAIN.GRAD_ACCUM_STEPS > 1: the accumulated "
+                         "gradients are whole on every rank")
+    if mp > 1:
+        m = cfg.MODEL
+        if not (m.USE_FUSION or m.TYPE == "ImageSegBilinear"):
+            raise ValueError(f"TPU.MODEL_PARALLEL shards a ViT stream; "
+                             f"{m.TYPE} has none that it splits")
+        if m.VIT_HEADS % mp:
+            raise ValueError(f"MODEL.VIT_HEADS = {m.VIT_HEADS} must divide "
+                             f"over TPU.MODEL_PARALLEL = {mp}")
+    if world_size % mp:
+        raise ValueError(f"TPU.NUM_DEVICES = {world_size} (the world size) "
+                         f"must be a multiple of TPU.MODEL_PARALLEL = {mp}")
+    data, bs = world_size // mp, int(cfg.TRAIN.BATCH_SIZE)
+    if bs % data:
+        raise ValueError(f"TRAIN.BATCH_SIZE = {bs} (the global batch) must "
+                         f"divide over the data axis of {data} rank(s)")
+
+
+def expected_world_size(cfg) -> int:
+    """The world size a trainer will join: the group's where one exists,
+    else torchrun's ``WORLD_SIZE``, else ``TPU.NUM_DEVICES`` (or 1)."""
+    if torch.distributed.is_initialized():
+        return torch.distributed.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", 0)) \
+        or int(cfg.TPU.NUM_DEVICES) or 1
+
+
 class DistributedTrainer(SemanticTrainer):
     """``SemanticTrainer`` on this process's rank of the default process
     group (made from torchrun's environment, or the caller's).  ``backend``
     names the group's backend (default: NCCL on the card, gloo on the
     CPU)."""
 
+    distributed = True
+
     def __init__(self, cfg, output_dir="", run_name="", device=None,
                  backend=None):
-        # The keys that would ask for another kind of parallelism raise
+        # Keys that do not compose, and a mesh that does not divide, raise
         # before the process group is joined.
-        check_ported_keys(cfg, int(cfg.TPU.NUM_DEVICES) or 1)
+        world = expected_world_size(cfg)
+        check_ported_keys(cfg, world, distributed=True)
+        check_parallel_keys(cfg, world)
         device = resolve_device(device)
         self.rank, self.world_size = init_distributed(device, backend)
+        check_parallel_keys(cfg, self.world_size)
+        self.model_parallel = int(cfg.TPU.MODEL_PARALLEL)
+        self.zero = bool(cfg.TPU.ZERO_OPTIMIZER)
+        self.heads = int(cfg.MODEL.VIT_HEADS)
+        if self.model_parallel > 1:
+            self.mesh = Mesh2D(self.model_parallel)
+            self.data_rank, self.data_size = (self.mesh.data_index,
+                                              self.mesh.data)
+            data_group = self.mesh.data_group
+        else:
+            self.mesh = None
+            self.data_rank, self.data_size = self.rank, self.world_size
+            data_group = None
+        # World-wide: the agreement, barriers, the generators' gather.
         self.reducer = Reducer(device)
-        bs = int(cfg.TRAIN.BATCH_SIZE)
-        if bs % self.world_size:
-            raise ValueError(f"TRAIN.BATCH_SIZE = {bs} (the global batch) "
-                             f"must divide over {self.world_size} ranks")
-        self.scans_per_rank = bs // self.world_size
+        # Over the data group: gradients, buffers, metrics, matrices.
+        self.data_reducer = Reducer(device, data_group) \
+            if data_group is not None else self.reducer
+        self.scans_per_rank = int(cfg.TRAIN.BATCH_SIZE) // self.data_size
         self._stop = False
-        self.step_marks = []        # StepMarks of the train replays
+        self.step_marks = []        # StepMarks of the train steps
         # A checkpoint that rank 0 was writing (an earlier trainer of this
         # process group) is on disk before any rank looks for one.
         self.reducer.barrier()
         super().__init__(cfg, output_dir, run_name, device)
-        self.train_step.reduce = self.reducer
+        self.train_step.reduce = self.data_reducer
+        if self.model_parallel > 1:
+            self.eval_step = make_eval_step(cfg, self.eval_model)
         self.broadcast_state()
 
     # ------------------------------------------------------------------ #
+    def build_train_model(self, cfg, device):
+        """Under tensor parallelism this rank's shard of the canonical
+        model, which stays beside it as ``eval_model``; else the model."""
+        model = super().build_train_model(cfg, device)
+        if self.model_parallel == 1:
+            return model
+        self.eval_model = model
+        return build_model(cfg, device, vit_tp=self.model_parallel,
+                           vit_tp_group=self.mesh.model_group,
+                           canonical=model)
+
+    def build_train_optimizer(self, cfg, steps_per_epoch):
+        """Under ZeRO the optimizer on this rank's chunks (``Zero1``)."""
+        if not self.zero:
+            return super().build_train_optimizer(cfg, steps_per_epoch)
+        opt = Zero1(lambda chunks: build_optimizer(cfg, chunks,
+                                                   steps_per_epoch)[0],
+                    self.model.parameters(), self.data_reducer.group)
+        return opt, make_lr_schedule(cfg, steps_per_epoch)
+
     def build_loader(self, mode):
-        """This rank's shard of ``mode``'s split: a ``1/world_size`` share
-        of the global train batch with loader seed ``rank``; val and test
-        at their batch sizes."""
+        """This data rank's shard of ``mode``'s split: a ``1/data_size``
+        share of the global train batch with loader seed ``data_rank``;
+        val and test at their batch sizes."""
         if mode == "train":
             return build_dataloader(
-                self.cfg, "train", seed=self.rank,
+                self.cfg, "train", seed=self.data_rank,
                 batch_size=self.scans_per_rank, use_distributed=True,
-                rank=self.rank, world_size=self.world_size)
+                rank=self.data_rank, world_size=self.data_size)
         return build_dataloader(self.cfg, mode, use_distributed=True,
-                                rank=self.rank, world_size=self.world_size)
+                                rank=self.data_rank,
+                                world_size=self.data_size)
 
     def broadcast_state(self):
-        """Rank 0's parameters and buffers on every rank."""
-        self.reducer.broadcast_(list(self.model.parameters())
-                                + list(self.model.buffers()))
+        """The data group's rank 0's parameters and buffers on every rank
+        of the group (each model shard from its own)."""
+        self.data_reducer.broadcast_(list(self.model.parameters())
+                                     + list(self.model.buffers()))
+
+    # ------------------------------------------------------------------ #
+    def _param_names(self):
+        return [n for n, _ in self.model.named_parameters()]
+
+    def canonical_state(self):
+        """The canonical single-device ``(model, optimizer)`` state dicts:
+        under tensor parallelism the shards gathered over the model group,
+        under ZeRO the moments over the data group (collectives: every
+        rank calls this)."""
+        model, opt = self.model.state_dict(), self.optimizer.state_dict()
+        if self.model_parallel > 1:
+            group = self.mesh.model_group
+            model = merge_state(model, group, self.heads)
+            opt = tp_merge_opt_state(opt, self._param_names(), group,
+                                     self.heads)
+        return model, opt
+
+    def canonical_model(self):
+        """Under tensor parallelism ``eval_model`` with the merged weights
+        (``prepare_eval``); else the model."""
+        if self.model_parallel == 1:
+            return self.model
+        self.prepare_eval()
+        return self.eval_model
+
+    def prepare_eval(self):
+        """Under tensor parallelism: the shards merged over the model group
+        (a collective) and copied in place into ``eval_model``, whose eval
+        graphs read them."""
+        if self.model_parallel == 1:
+            return
+        merged = merge_state(self.model.state_dict(), self.mesh.model_group,
+                             self.heads)
+        with torch.no_grad():
+            for k, v in self.eval_model.state_dict().items():
+                v.copy_(merged[k])
+
+    def load_model_state(self, state):
+        """A canonical model state: under tensor parallelism into
+        ``eval_model`` and this rank's shard into the model."""
+        if self.model_parallel == 1:
+            return super().load_model_state(state)
+        self.eval_model.load_state_dict(state)
+        self.model.load_state_dict(shard_state(
+            state, self.model_parallel, self.mesh.model_index, self.heads))
+
+    def load_optimizer(self, state):
+        """A canonical optimizer state, this rank's part of it kept (ZeRO
+        splits it in ``Zero1.load_state_dict``)."""
+        if self.model_parallel > 1:
+            state = tp_shard_opt_state(state, self._param_names(),
+                                       self.model_parallel,
+                                       self.mesh.model_index, self.heads)
+        super().load_optimizer(state)
+
+    def optimizer_state_bytes(self):
+        """Bytes of this rank's optimizer state tensors."""
+        return sum(v.numel() * v.element_size()
+                   for s in self.optimizer.state.values()
+                   for v in s.values() if torch.is_tensor(v))
 
     def agree(self, host_batch):
         """``(host_batch, level_caps)`` that every rank steps with: the batch
@@ -179,17 +376,23 @@ class DistributedTrainer(SemanticTrainer):
 
     def run_train_step(self, host_batch):
         """One data-parallel train step on this rank's share of the global
-        batch: the local step (its graph on the card), then its metrics
-        reduced and the BatchNorm buffers averaged; at a window's last
-        micro-step the gradients averaged and the optimizer update."""
+        batch: the local step (its graph on the card; eager under tensor
+        parallelism), then its metrics reduced and the BatchNorm buffers
+        averaged; at a window's last micro-step the gradients averaged and
+        the optimizer update."""
         host_batch, caps = self.agree(host_batch)
         captures = self.captures["train"]
         marks = StepMarks(self.device)
-        out, graph = self._launch(
-            "train", self.train_graphs,
-            lambda batch: self.train_step(batch, self.generator, caps,
-                                          update=False),
-            host_batch, caps, self.generator)
+        if self.model_parallel > 1:
+            graph = None
+            out = self.train_step(device_batch(host_batch, self.device),
+                                  self.generator, caps, update=False)
+        else:
+            out, graph = self._launch(
+                "train", self.train_graphs,
+                lambda batch: self.train_step(batch, self.generator, caps,
+                                              update=False),
+                host_batch, caps, self.generator)
         marks.mark()
         self.step += 1
         self.window += 1
@@ -200,12 +403,22 @@ class DistributedTrainer(SemanticTrainer):
             self._update()
             self.window = 0
         marks.mark()
-        if self.captures["train"] == captures:      # a replay
+        if self.captures["train"] == captures:      # a replay, or eager TP
             self.step_marks.append(marks)
         return read_back(metrics, graph)
 
+    def _update(self):
+        """The optimizer update: under ZeRO (its gather) and tensor
+        parallelism eagerly, else as on one device (its graph on the
+        card)."""
+        if self.zero or self.model_parallel > 1:
+            self.train_step.update()
+        else:
+            super()._update()
+
     def step_times(self):
-        """Medians over the train replays since the last call, in ms:
+        """Medians over the train replays (eager steps under tensor
+        parallelism) since the last call, in ms:
         ``local`` (the rank's own step: the batch's copy into the graph's
         inputs and the replay), ``reduce`` (metrics,
         buffers and, at an update, gradients), ``update`` and ``step``
@@ -235,7 +448,7 @@ class DistributedTrainer(SemanticTrainer):
                 times["update"], times["step"])
 
     def cm_allreduce(self):
-        return self.reducer.sum_array
+        return self.data_reducer.sum_array
 
     # ------------------------------------------------------------------ #
     def update_checkpoint(self, epoch):
@@ -248,7 +461,7 @@ class DistributedTrainer(SemanticTrainer):
             # Inside a window: its gradients averaged now, so that rank 0's
             # state is every rank's (the update at the window's end takes
             # the same mean).
-            self.reducer.mean_(self.train_step.grads)
+            self.data_reducer.mean_(self.train_step.grads)
         super()._save(name, next_epoch)
 
     def _rank_states(self):
@@ -279,9 +492,10 @@ class DistributedTrainer(SemanticTrainer):
         payload = Checkpointer(self.output_dir, self.logger).load(
             path, resume=bool(self.output_dir))
         if payload:
-            self.model.load_state_dict(payload["model"])
+            self.load_model_state(payload["model"])
             self.clear_graphs()
             self.broadcast_state()
+        self.prepare_eval()
         loader = self.build_loader("test")
         meters = MetricLogger(delimiter="  ")
         try:

@@ -63,15 +63,21 @@ As the JAX trainer, it also:
 * logs the host's resident set after every epoch (``utils/memdiag.py``)
   and writes it to ``metrics.jsonl`` as ``host_rss_mb``.
 
-Data parallelism is ``modules/DistributedTrainer.py``, a subclass: this
-class holds its rank guards (``rank`` / ``world_size``, 0 / 1 here): only
-rank 0 writes summaries, ``metrics.jsonl``, checkpoints and the per-class
-tables, and each rank's dropout generator has a seed of its own
-(``parallel.data_parallel.rank_seed``; rank 0's is ``RNG_SEED``).
-``TPU.NUM_DEVICES``, where set, must equal the number of processes.
-Tensor parallelism and ZeRO are not ported (ROADMAP.md, Queue 1 item 4);
-their keys raise (``check_ported_keys``).  ``TPU.REMAT_VIT`` is honoured by
-the model (``models/vit.py``).
+Data, tensor and ZeRO parallelism are ``modules/DistributedTrainer.py``, a
+subclass: this class holds its rank guards (``rank`` / ``world_size``, 0 /
+1 here): only rank 0 writes summaries, ``metrics.jsonl``, checkpoints and
+the per-class tables, and each data rank's dropout generator has a seed of
+its own (``parallel.data_parallel.rank_seed`` of ``data_rank``; rank 0's
+is ``RNG_SEED``).  What a checkpoint or a histogram holds comes from
+``canonical_state`` / ``canonical_model``, which every rank calls before
+the rank-0 guard (the subclass gathers sharded state there: a collective);
+a load goes through ``load_model_state`` / ``load_optimizer``, and a
+validation first runs ``prepare_eval`` on every rank.
+``TPU.NUM_DEVICES``, where set, must equal the number of processes;
+``TPU.MODEL_PARALLEL`` > 1 and ``TPU.ZERO_OPTIMIZER`` shard over the ranks
+of a distributed run, and this trainer, which runs one device, refuses
+them (``check_ported_keys``).  ``TPU.REMAT_VIT`` is honoured by the model
+(``models/vit.py``).
 """
 
 from __future__ import annotations
@@ -114,11 +120,18 @@ from fusiontransformer_tpu_torch.utils.torch_checkpoint import (
 
 # Keys the port does not honour yet, the test that a key is set away from
 # its default, and the ROADMAP.md item that will port it.
-UNPORTED_KEYS = (
-    ("TPU.MODEL_PARALLEL", lambda v: v > 1,
-     "Queue 1 item 4 (tensor parallelism)"),
-    ("TPU.ZERO_OPTIMIZER", bool, "Queue 1 item 4 (ZeRO)"),
-)
+UNPORTED_KEYS = ()
+# Keys that shard over the ranks of a distributed run, and the test that a
+# key is set away from its default.
+DISTRIBUTED_KEYS = (("TPU.MODEL_PARALLEL", lambda v: v > 1),
+                    ("TPU.ZERO_OPTIMIZER", bool))
+
+
+def cfg_value(cfg, key):
+    node = cfg
+    for part in key.split("."):
+        node = node[part]
+    return node
 
 
 def modalities(cfg):
@@ -130,18 +143,27 @@ def modalities(cfg):
         else ["2d"]
 
 
-def check_ported_keys(cfg, world_size=1):
+def check_ported_keys(cfg, world_size=1, distributed=False):
     """Raise ``NotImplementedError`` for a key of UNPORTED_KEYS that ``cfg``
-    sets away from its default: the port would ignore it; and
-    ``ValueError`` where ``TPU.NUM_DEVICES`` is set to another number than
-    the run's ``world_size`` (one process a device)."""
+    sets away from its default: the port would ignore it; ``ValueError``
+    for a key of DISTRIBUTED_KEYS in a run that is not ``distributed`` (one
+    device has nothing to shard over); and ``ValueError`` where
+    ``TPU.NUM_DEVICES`` is set to another number than the run's
+    ``world_size`` (one process a device)."""
     for key, is_set, item in UNPORTED_KEYS:
-        node = cfg
-        for part in key.split("."):
-            node = node[part]
+        node = cfg_value(cfg, key)
         if is_set(node):
             raise NotImplementedError(f"{key} = {node} is not ported yet "
                                       f"(ROADMAP.md, {item})")
+    for key, is_set in () if distributed else DISTRIBUTED_KEYS:
+        node = cfg_value(cfg, key)
+        if is_set(node):
+            raise ValueError(
+                f"{key} = {node} shards over the ranks of a distributed "
+                f"run, and this trainer runs one device: launch one process "
+                f"a device with --distributed 1 (python -m "
+                f"torch.distributed.run --nproc_per_node N -m "
+                f"fusiontransformer_tpu_torch.train ... --distributed 1)")
     n = int(cfg.TPU.NUM_DEVICES)
     if n and n != world_size:
         raise ValueError(
@@ -247,21 +269,20 @@ def summary_writer(cfg, output_dir, run_name):
 class SemanticTrainer(StepRunner):
     rank = 0            # this process's rank and the number of processes
     world_size = 1      # (modules/DistributedTrainer.py sets both)
+    data_rank = 0       # the rank's index on the data axis
+    distributed = False
 
     def __init__(self, cfg, output_dir="", run_name="", device=None):
-        check_ported_keys(cfg, self.world_size)
+        check_ported_keys(cfg, self.world_size, self.distributed)
         self.output_dir = output_dir
         self.run_name = run_name
         self.summary_writer = summary_writer(cfg, output_dir, run_name) \
             if self.rank == 0 else None
         device = resolve_device(device)
-        logger = logging.getLogger(f"FusionTransformer.{cfg.MODEL.TYPE}.train")
-        model = build_model(cfg, device, seed=cfg.RNG_SEED)
-        super().__init__(cfg, model, device, logger)
-        if cfg.MODEL.IMAGE_PRETRAINED_PATH:
-            self.logger.info("Loaded %d pretrained image tensors from %s",
-                             load_pretrained_image(cfg, self.model),
-                             cfg.MODEL.IMAGE_PRETRAINED_PATH)
+        self.logger = logging.getLogger(
+            f"FusionTransformer.{cfg.MODEL.TYPE}.train")
+        model = self.build_train_model(cfg, device)
+        super().__init__(cfg, model, device, self.logger)
         self.modalities = modalities(cfg)
         self.train_metrics = {m: SegIoU(cfg.MODEL.NUM_CLASSES,
                                         name=f"seg_iou_{m}")
@@ -278,8 +299,8 @@ class SemanticTrainer(StepRunner):
                 "epoch boundaries — the per-epoch LR change lands mid-window "
                 "and the final partial window of the run is discarded",
                 self.steps_per_epoch, self.accum_steps)
-        self.optimizer, self.lr_schedule = build_optimizer(
-            cfg, self.model.parameters(), self.steps_per_epoch)
+        self.optimizer, self.lr_schedule = self.build_train_optimizer(
+            cfg, self.steps_per_epoch)
         self.logger.info("#Parameters: %.2e",
                          sum(p.numel() for p in self.model.parameters()))
         self.train_step = make_train_step(cfg, self.model, self.optimizer)
@@ -287,7 +308,7 @@ class SemanticTrainer(StepRunner):
         # RNG_SEED (and the rank), advanced by every train step (and every
         # replay).
         self.generator = torch.Generator(device=self.device).manual_seed(
-            rank_seed(cfg.RNG_SEED, self.rank))
+            rank_seed(cfg.RNG_SEED, self.data_rank))
         self.step = 0
         self.window = 0         # micro-steps of the open accumulation window
         # The card's graphs beside the eval step's: the train step's per
@@ -315,9 +336,46 @@ class SemanticTrainer(StepRunner):
         self.preempted = False
 
     # ------------------------------------------------------------------ #
+    def build_train_model(self, cfg, device):
+        """The model this process trains: random weights from ``RNG_SEED``,
+        the pretrained image weights where the config names them."""
+        model = build_model(cfg, device, seed=cfg.RNG_SEED)
+        if cfg.MODEL.IMAGE_PRETRAINED_PATH:
+            self.logger.info("Loaded %d pretrained image tensors from %s",
+                             load_pretrained_image(cfg, model),
+                             cfg.MODEL.IMAGE_PRETRAINED_PATH)
+        return model
+
+    def build_train_optimizer(self, cfg, steps_per_epoch):
+        """``(optimizer, schedule)`` over the trained model's parameters."""
+        return build_optimizer(cfg, self.model.parameters(), steps_per_epoch)
+
     def build_loader(self, mode):
         """The loader of ``mode``'s split for this process."""
         return build_dataloader(self.cfg, mode=mode)
+
+    def canonical_state(self):
+        """``(model state_dict, optimizer state_dict)`` in the canonical
+        single-device layout that checkpoints hold.  Every rank calls it
+        (a sharded subclass gathers here)."""
+        return self.model.state_dict(), self.optimizer.state_dict()
+
+    def canonical_model(self):
+        """The single-device model with the trained weights (histograms and
+        their gradients read it).  Every rank calls it."""
+        return self.model
+
+    def load_model_state(self, state):
+        """A canonical model ``state_dict`` into the trained model."""
+        self.model.load_state_dict(state)
+
+    def load_optimizer(self, state):
+        """A canonical optimizer ``state_dict`` into the optimizer."""
+        load_optimizer_state(self.optimizer, state)
+
+    def prepare_eval(self):
+        """Make the eval step's model current (every rank, before a
+        validation or a test: nothing to do on one device)."""
 
     def _load_checkpoint(self):
         """Restore the newest checkpoint (or ``RESUME_PATH``).  Loading
@@ -338,9 +396,9 @@ class SemanticTrainer(StepRunner):
                     "optimizer state layout depends on it — set the same "
                     "value, or resume with RESUME_STATES False to drop the "
                     "optimizer state")
-        self.model.load_state_dict(payload["model"])
+        self.load_model_state(payload["model"])
         if "optimizer" in payload:
-            load_optimizer_state(self.optimizer, payload["optimizer"])
+            self.load_optimizer(payload["optimizer"])
         # The gradients of a window that was open at the save, and how many
         # micro-steps it had taken.
         for g, saved in zip(self.train_step.grads,
@@ -475,6 +533,7 @@ class SemanticTrainer(StepRunner):
                 or epoch == self.cfg.SCHEDULER.MAX_EPOCH - 1):
             return False
         self.val_metric_logger.reset()
+        self.prepare_eval()
         validate(self.cfg, self.run_eval_batch, self.val_dataloader,
                  self.val_metric_logger, log_tables=self.rank == 0,
                  cm_allreduce=self.cm_allreduce())
@@ -517,15 +576,16 @@ class SemanticTrainer(StepRunner):
         extra = {f"{m}_{self.best_metric_name}": float(self.best_metric[m])
                  for m in self.modalities if self.best_metric[m] is not None}
         extra.update(self._rank_states())
+        model_state, optimizer_state = self.canonical_state()
         if self.rank != 0:
             return
         if self.accum_steps > 1:
             extra["grad_accum"] = list(self.train_step.grads)
             extra["grad_accum_window"] = self.window
         self.checkpointer.save(
-            name, model=self.model.state_dict(),
-            optimizer=self.optimizer.state_dict(), step=self.step,
-            epoch=next_epoch, grad_accum_steps=self.accum_steps,
+            name, model=model_state, optimizer=optimizer_state,
+            step=self.step, epoch=next_epoch,
+            grad_accum_steps=self.accum_steps,
             generator=self.generator.get_state(), **extra)
 
     def _rank_states(self):
@@ -578,26 +638,28 @@ class SemanticTrainer(StepRunner):
                              memdiag.rss_mb())
 
     # ------------------------------------------------------------------ #
-    def gradient_pass(self, host_batch):
+    def gradient_pass(self, host_batch, model=None):
         """``{parameter name: gradient}`` of the train loss at the current
-        weights on ``host_batch``, with per-voxel maps (its ``gslot_*``
-        maps stripped, the capacities sized from its buffer), as the JAX
-        package's ``make_grads_fn``: an eager forward in train mode and
+        weights of ``model`` (the trained one by default) on
+        ``host_batch``, with per-voxel maps (its ``gslot_*`` maps stripped,
+        the capacities sized from its buffer), as the JAX package's
+        ``make_grads_fn``: an eager forward in train mode and
         ``torch.autograd.grad``, so the static ``.grad`` tensors, the
         optimizer and the open window are not touched; the BatchNorm
         statistics and the dropout generator are put back as they were.  A
         parameter the loss does not reach gets zeros."""
+        model = self.model if model is None else model
         hb = {k: v for k, v in host_batch.items()
               if not k.startswith(("gslot_src_", "gslot_bin_"))}
         batch = device_batch(hb, self.device)
-        named = list(self.model.named_parameters())
-        buffers = list(self.model.buffers())
+        named = list(model.named_parameters())
+        buffers = list(model.buffers())
         saved = [b.clone() for b in buffers]
         gen_state = self.generator.get_state()
-        self.model.train()
+        model.train()
         try:
-            out = self.model(batch, step_hier(self.cfg, batch),
-                             generator=self.generator)
+            out = model(batch, step_hier(self.cfg, batch),
+                        generator=self.generator)
             total, _ = losses(self.cfg, out, batch,
                               self.train_step.class_weights)
             grads = torch.autograd.grad(total, [p for _, p in named],
@@ -612,20 +674,27 @@ class SemanticTrainer(StepRunner):
 
     def update_summary(self, epoch):
         """TensorBoard summaries of ``epoch`` every SUMMARY_PERIOD epochs
-        (the JAX trainer's ``update_summary``)."""
-        sw, period = self.summary_writer, self.cfg.TRAIN.SUMMARY_PERIOD
-        if sw is None or period <= 0 or epoch % period:
+        (the JAX trainer's ``update_summary``), written by rank 0; the
+        histograms read ``canonical_model``, which every rank calls."""
+        period = self.cfg.TRAIN.SUMMARY_PERIOD
+        if not self.output_dir or period <= 0 or epoch % period:
+            return
+        model = self.canonical_model() if self.cfg.TRAIN.LOG_HISTOGRAM \
+            else None
+        sw = self.summary_writer
+        if sw is None:
             return
         for name, meter in self.train_metric_logger.meters.items():
             if any(k in name for k in ("loss", "acc", "iou")):
                 sw.add_scalar("train/" + name, meter.avg, global_step=epoch)
         if self.cfg.TRAIN.LOG_HISTOGRAM:
-            for name, p in self.model.named_parameters():
+            for name, p in model.named_parameters():
                 sw.add_histogram("params/" + "/".join(jax_leaf_path(name)),
                                  p.detach().float().cpu().numpy().ravel(),
                                  global_step=epoch)
             if self.last_batch is not None:
-                for name, g in self.gradient_pass(self.last_batch).items():
+                for name, g in self.gradient_pass(self.last_batch,
+                                                  model).items():
                     sw.add_histogram(
                         "grads/" + "/".join(jax_leaf_path(name)),
                         g.float().cpu().numpy().ravel(), global_step=epoch)

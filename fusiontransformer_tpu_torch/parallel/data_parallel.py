@@ -135,15 +135,19 @@ def repad(batch, cap: int, target: int):
 
 
 class Reducer:
-    """The collectives of a data-parallel step over the default group:
-    every call is one collective (tensors of one dtype coalesced into one
-    buffer), run by every rank in the same order.  ``device`` is where the
+    """The collectives of a data-parallel step over ``group`` (None: the
+    default group; under tensor parallelism the data group): every call is
+    one collective (tensors of one dtype coalesced into one buffer), run by
+    every rank of the group in the same order.  ``device`` is where the
     group's integer tensors live: the card for NCCL, the CPU for gloo."""
 
-    def __init__(self, device):
-        self.world_size = dist.get_world_size()
-        self.rank = dist.get_rank()
-        self.backend = dist.get_backend()
+    def __init__(self, device, group=None):
+        self.group = group
+        self.world_size = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+        self.backend = dist.get_backend(group)
+        # The global rank of the group's rank 0 (a broadcast's source).
+        self.root = 0 if group is None else dist.get_global_rank(group, 0)
         self.comm_device = torch.device(device) \
             if self.backend == "nccl" else torch.device("cpu")
 
@@ -162,15 +166,17 @@ class Reducer:
     def mean_(self, tensors):
         """Average ``tensors`` over the ranks, in place (``lax.pmean``)."""
         def op(flat):
-            dist.all_reduce(flat)
+            dist.all_reduce(flat, group=self.group)
             flat.div_(self.world_size)
         with torch.no_grad():
             self._coalesced(list(tensors), op)
 
-    def broadcast_(self, tensors, src=0):
-        """Rank ``src``'s values of ``tensors`` on every rank, in place."""
+    def broadcast_(self, tensors):
+        """The group's rank 0's values of ``tensors`` on every rank of the
+        group, in place."""
         with torch.no_grad():
-            self._coalesced(list(tensors), lambda f: dist.broadcast(f, src))
+            self._coalesced(list(tensors), lambda f: dist.broadcast(
+                f, self.root, group=self.group))
 
     def metrics(self, metrics):
         """A train step's metrics reduced over the ranks, as new tensors:
@@ -179,7 +185,7 @@ class Reducer:
         keys = list(metrics)
         flat = torch.cat([metrics[k].reshape(-1).to(torch.float64)
                           for k in keys])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=self.group)
         out, at = {}, 0
         for k in keys:
             v = metrics[k]
@@ -194,7 +200,7 @@ class Reducer:
         mine = torch.as_tensor(np.asarray(values, np.int64),
                                device=self.comm_device)
         parts = [torch.empty_like(mine) for _ in range(self.world_size)]
-        dist.all_gather(parts, mine)
+        dist.all_gather(parts, mine, group=self.group)
         return torch.stack(parts).cpu().numpy()
 
     def sum_array(self, array):
@@ -202,14 +208,14 @@ class Reducer:
         matrices; f64, exact for counts below 2**53)."""
         t = torch.as_tensor(np.asarray(array, np.float64),
                             device=self.comm_device)
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=self.group)
         return t.cpu().numpy().astype(np.asarray(array).dtype)
 
     def gather_objects(self, obj):
         """Every rank's ``obj`` (picklable), in rank order."""
         out = [None] * self.world_size
-        dist.all_gather_object(out, obj)
+        dist.all_gather_object(out, obj, group=self.group)
         return out
 
     def barrier(self):
-        dist.barrier()
+        dist.barrier(group=self.group)

@@ -13,6 +13,10 @@ Data parallelism, one process per card (``modules/DistributedTrainer.py``):
     python -m torch.distributed.run --standalone --nproc_per_node N \\
         -m fusiontransformer_tpu_torch.train --cfg ... --distributed 1
 
+With ``TPU.ZERO_OPTIMIZER True`` each process keeps 1/N of the optimizer's
+moments; with ``TPU.MODEL_PARALLEL m`` the processes form a (data, model)
+layout whose model groups of m shard the ViT.
+
 ``--distributed 1`` or ``--use_torchpack 1`` trains, ``--use_torchpack_test
 1`` scores the test split with the newest best-IoU checkpoint and dumps the
 predictions (the JAX CLI's flags).  Each process takes ``cuda:LOCAL_RANK``

@@ -11,6 +11,11 @@ flax convs keep their ``[kh, kw, Cin, Cout]`` kernels as the parameter
 raw ``fc2_kernel`` / ``fc2_bias`` params are parameters of those names.  A
 missing or extra key, or a shape that differs, raises.
 
+With ``tp`` > 1 the module is one rank's tensor-parallel model
+(``parallel/tensor_parallel.py``): each ViT-block leaf the split rules
+address is cut to rank ``tp_rank``'s shard of JAX's canonical (tp=1)
+array before the copy, so the rank loads its part of the same weights.
+
 ``jax_leaf_paths(module)`` is the map the other way: each parameter and
 buffer name of the port to its collection (``params`` / ``batch_stats``) and
 its flax leaf path, so gradients and updated values can be compared leaf by
@@ -34,7 +39,8 @@ def _flatten(tree, prefix=""):
     return out
 
 
-def load_jax_variables(module: torch.nn.Module, params, batch_stats=None):
+def load_jax_variables(module: torch.nn.Module, params, batch_stats=None,
+                       tp: int = 1, tp_rank: int = 0, num_heads=None):
     flat = _flatten(params)
     stats = _flatten(batch_stats or {})
     overlap = flat.keys() & stats.keys()
@@ -42,6 +48,12 @@ def load_jax_variables(module: torch.nn.Module, params, batch_stats=None):
         raise ValueError(f"keys in both params and batch_stats: "
                          f"{sorted(overlap)[:5]}")
     flat.update(stats)
+    if tp > 1:
+        from fusiontransformer_tpu_torch.parallel.tensor_parallel import (
+            shard_state)
+        flat = {k: np.asarray(v) for k, v in shard_state(
+            {k: torch.from_numpy(np.array(v)) for k, v in flat.items()},
+            tp, tp_rank, num_heads).items()}
     state = module.state_dict()
     missing = sorted(state.keys() - flat.keys())
     extra = sorted(flat.keys() - state.keys())

@@ -4,9 +4,9 @@ each a spawned process (``torch_dp_ranks.py``) joined over a
 ``test_torch_port_trainer.trainer_cfg`` (400-point scans, dropout on): a
 resumed 2-rank run bit for bit an uninterrupted one, ``test()`` and its
 dumps, the rank guards on what is written, ``TPU.NUM_DEVICES`` against
-the world size; the other parallelism keys raising before any process
-group is joined.  The spawned run is joined with a timeout: a hang fails
-its test."""
+the world size; the combinations of the other parallelism keys that the
+JAX trainer refuses raising before any process group is joined.  The
+spawned run is joined with a timeout: a hang fails its test."""
 
 import pytest
 import torch
@@ -77,16 +77,37 @@ def test_a_resumed_two_rank_run_matches_an_uninterrupted_one(tmp_path):
 
 
 def test_other_parallelism_keys_raise_before_the_group_is_joined():
+    """Tensor parallelism and ZeRO are ported (``test_torch_port_zero.py``,
+    ``_tensor_parallel.py``); what the JAX trainer asserts about them
+    raises in the data-parallel trainer before any process group is
+    joined, and the single-device trainer, which runs one device, refuses
+    both keys and names ``--distributed 1``."""
+    bad = (
+        ({"TPU.MODEL_PARALLEL": 2, "TPU.ZERO_OPTIMIZER": True,
+          "TPU.NUM_DEVICES": 2}, "composes with data parallelism only"),
+        ({"TPU.MODEL_PARALLEL": 2, "TRAIN.GRAD_ACCUM_STEPS": 2,
+          "TPU.NUM_DEVICES": 2}, "TRAIN.GRAD_ACCUM_STEPS"),
+        ({"TPU.ZERO_OPTIMIZER": True, "TRAIN.GRAD_ACCUM_STEPS": 2,
+          "TPU.NUM_DEVICES": 2}, "TRAIN.GRAD_ACCUM_STEPS"),
+        ({"TPU.MODEL_PARALLEL": 4, "TPU.NUM_DEVICES": 4},
+         "VIT_HEADS = 2 must divide"),
+        ({"TPU.MODEL_PARALLEL": 2, "TPU.NUM_DEVICES": 3},
+         "must be a multiple of TPU.MODEL_PARALLEL"),
+        ({"TPU.MODEL_PARALLEL": 2, "TPU.NUM_DEVICES": 6},
+         "must divide over the data axis of 3"),
+        ({"TPU.MODEL_PARALLEL": 2}, "must be a multiple"),    # one process
+        ({"TPU.MODEL_PARALLEL": 2, "TPU.NUM_DEVICES": 2, "MODEL.TYPE":
+          "LidarSeg", "MODEL.USE_FUSION": False, "MODEL.USE_IMAGE": False},
+         "has none that it splits"))
+    for over, message in bad:
+        cfg = trainer_cfg("", **{"TRAIN.BATCH_SIZE": 4, **over})
+        with pytest.raises(ValueError, match=message):
+            DistributedTrainer(cfg, "", device="cpu")
     for key, value in (("TPU.MODEL_PARALLEL", 2), ("TPU.ZERO_OPTIMIZER",
                                                    True)):
-        cfg = trainer_cfg("", **{"TRAIN.BATCH_SIZE": 4})
-        cfg.defrost()
-        cfg.merge_from_list([key, value])
-        cfg.freeze()
-        for trainer in (DistributedTrainer, SemanticTrainer):
-            with pytest.raises(NotImplementedError,
-                               match=f"{key}.*Queue 1 item 4"):
-                trainer(cfg, "", device="cpu")
+        cfg = trainer_cfg("", **{"TRAIN.BATCH_SIZE": 4, key: value})
+        with pytest.raises(ValueError, match=f"{key}.*--distributed 1"):
+            SemanticTrainer(cfg, "", device="cpu")
     assert not torch.distributed.is_initialized()
 
 

@@ -53,6 +53,9 @@ def test_importing_every_module_loads_no_jax():
     mods = _port_modules()
     assert len(mods) > 20, mods
     assert {"fusiontransformer_tpu_torch.parallel.data_parallel",
+            "fusiontransformer_tpu_torch.parallel.tensor_parallel",
+            "fusiontransformer_tpu_torch.parallel.zero",
+            "fusiontransformer_tpu_torch.parallel.pipeline_parallel",
             "fusiontransformer_tpu_torch.modules.DistributedTrainer",
             "fusiontransformer_tpu_torch.modules.TorchpackInterface",
             "fusiontransformer_tpu_torch.modules.callbacks",

@@ -213,19 +213,20 @@ def test_a_checkpoint_that_does_not_fit_raises(tmp_path, broken):
     ("TPU.NUM_DEVICES", 4), ("TPU.MODEL_PARALLEL", 2),
     ("TPU.ZERO_OPTIMIZER", True)])
 def test_keys_the_port_does_not_honour_raise(key, value):
-    """Tensor parallelism and ZeRO are not ported; TPU.NUM_DEVICES is (data
-    parallelism, one process a device), and a single-device trainer
-    refuses any number of devices but its one."""
+    """Data parallelism (TPU.NUM_DEVICES), tensor parallelism and ZeRO are
+    ported, none of them in the single-device trainer: it refuses any
+    number of devices but its one, and the sharding keys with a message
+    that names ``--distributed 1`` (``modules/DistributedTrainer.py``)."""
     cfg = tiny_cfg(get_default_cfg)
     cfg.defrost()
     cfg.merge_from_list([key, value])
     cfg.freeze()
+    assert key not in {k for k, _, _ in UNPORTED_KEYS}
     if key == "TPU.NUM_DEVICES":
-        assert key not in {k for k, _, _ in UNPORTED_KEYS}
         with pytest.raises(ValueError, match=f"{key} = 4 but the run has 1 "
                            "process"):
             SemanticTrainer(cfg, "", device="cpu")
         return
-    assert key in {k for k, _, _ in UNPORTED_KEYS}
-    with pytest.raises(NotImplementedError, match=f"{key}.*ROADMAP.md"):
+    with pytest.raises(ValueError, match=f"{key} = {value} shards over the "
+                       "ranks of a distributed run.*--distributed 1"):
         SemanticTrainer(cfg, "", device="cpu")

@@ -404,9 +404,13 @@ def test_remat_vit_gradients_are_bitwise_those_without(monkeypatch):
 
 
 def test_only_the_parallelism_keys_remain_unported():
-    """Data parallelism (TPU.NUM_DEVICES) is ported; tensor parallelism and
-    ZeRO remain."""
-    assert {k for k, _, _ in UNPORTED_KEYS} == {
+    """Data parallelism (TPU.NUM_DEVICES), tensor parallelism and ZeRO are
+    ported: no key remains unported, and the two sharding keys are the
+    distributed trainer's."""
+    from fusiontransformer_tpu_torch.modules.SemanticTrainer import (
+        DISTRIBUTED_KEYS)
+    assert UNPORTED_KEYS == ()
+    assert {k for k, _ in DISTRIBUTED_KEYS} == {
         "TPU.MODEL_PARALLEL", "TPU.ZERO_OPTIMIZER"}
 
 

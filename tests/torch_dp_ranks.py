@@ -1,8 +1,9 @@
-"""The ranks of the port's data-parallel CPU tests: each job runs in one of
-``world`` spawned processes joined in a gloo group over a ``FileStore``
-(no TCP port to clash between test workers), and writes what it returns
-to ``rank<r>.pt``, removed once read (or its traceback to
-``error<r>.txt``).  Imports the port and torch only: no JAX in a rank."""
+"""The ranks of the port's parallel CPU tests (data, ZeRO, tensor and
+pipeline parallelism): each job runs in one of ``world`` spawned processes
+joined in a gloo group over a ``FileStore`` (no TCP port to clash between
+test workers), and writes what it returns to ``rank<r>.pt``, removed once
+read (or its traceback to ``error<r>.txt``).  Imports the port and torch
+only: no JAX in a rank."""
 
 import copy
 import multiprocessing as mp
@@ -279,5 +280,243 @@ def job_abandoned(rank, world):
     Reducer(torch.device("cpu")).mean_([torch.ones(4)])
 
 
+# --------------------------------------------------------------------------- #
+# ZeRO-1, tensor parallelism, the GPipe ViT (test_torch_port_zero.py,
+# _tensor_parallel.py, _pipeline_parallel.py).
+
+def _named(model):
+    return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+
+def _moments(opt_state, names):
+    """``{(parameter name, key): tensor}`` of a canonical optimizer state."""
+    return {(names[i], k): v.clone() for i, s in opt_state["state"].items()
+            for k, v in s.items() if torch.is_tensor(v)}
+
+
+def _canonical(tr):
+    """A trainer's canonical parameters, buffers and optimizer state
+    (collective under ZeRO and tensor parallelism)."""
+    model, opt = tr.canonical_state()
+    names = [n for n, _ in tr.model.named_parameters()]
+    buffers = {n for n, _ in tr.model.named_buffers()}
+    return {"params": {k: v.clone() for k, v in model.items()
+                       if k not in buffers},
+            "buffers": {k: v.clone() for k, v in model.items()
+                        if k in buffers},
+            "moments": _moments(opt, names)}
+
+
+def _record_updates(tr):
+    """Record each optimizer update of ``tr``: the parameters before it,
+    the (averaged) gradients it reads, the parameters and the canonical
+    moments after it."""
+    updates = []
+    real = tr.train_step.update
+
+    def update():
+        names = [n for n, _ in tr.model.named_parameters()]
+        rec = {"before": _named(tr.model),
+               "grads": {n: p.grad.clone()
+                         for n, p in tr.model.named_parameters()}}
+        real()
+        rec["after"] = _named(tr.model)
+        rec["moments"] = _moments(tr.canonical_state()[1], names)
+        updates.append(rec)
+
+    tr.train_step.update = update
+    return updates
+
+
+def job_zero(rank, world, cfgs, dirs):
+    """ZeRO against the replicated optimizer: one epoch (2 steps) of each,
+    their updates recorded; the optimizer state's bytes; then the
+    checkpoints across the two: a ZeRO epoch resumed without ZeRO, a
+    replicated epoch resumed with it, each against an uninterrupted
+    2-epoch replicated run."""
+    from fusiontransformer_tpu_torch.modules.DistributedTrainer import (
+        DistributedTrainer)
+    out = {}
+    for name in ("dp", "zero"):
+        tr = DistributedTrainer(cfgs[name], dirs[name], "r", device="cpu")
+        updates = _record_updates(tr)
+        chunks = [tuple(c.param.shape) for c in tr.optimizer.chunks] \
+            if name == "zero" else None
+        tr.train()
+        out[name] = {"final": _canonical(tr), "updates": updates,
+                     "state_bytes": tr.optimizer_state_bytes(),
+                     "chunks": chunks, "step": tr.step}
+    dist.barrier()                  # rank 0's checkpoint is on disk
+    saved = torch.load(os.path.join(dirs["zero"], "max-MeanIoU-000000.pth"),
+                       weights_only=True)
+    out["saved_shapes"] = {
+        i: {k: tuple(v.shape) for k, v in s.items() if torch.is_tensor(v)}
+        for i, s in saved["optimizer"]["state"].items()}
+    for name in ("whole", "zero_then_dp", "dp_then_zero"):
+        tr = DistributedTrainer(cfgs[name], dirs[name], "r", device="cpu")
+        start = {"epoch": tr.start_epoch, "step": tr.step}
+        tr.train()
+        out[name] = {"final": _canonical(tr), "start": start}
+    return out
+
+
+def job_tp_vit(rank, world, params, images, tps):
+    """The tensor-parallel ViT at each degree of ``tps`` (model groups of
+    consecutive ranks): each rank loads its shard of JAX's canonical
+    parameters, runs the forward and the gradients of the sum of squares
+    of its outputs."""
+    from fusiontransformer_tpu_torch.models.vit import VisionTransformer2D
+    from fusiontransformer_tpu_torch.parallel.tensor_parallel import Mesh2D
+    from fusiontransformer_tpu_torch.utils.convert_jax import (
+        load_jax_variables)
+    out = {}
+    for tp in tps:
+        mesh = Mesh2D(tp)
+        vit = VisionTransformer2D(img_size=32, patch_size=16, embed_dim=64,
+                                  depth=2, num_heads=4,
+                                  compute_dtype=torch.float32, tp=tp,
+                                  tp_group=mesh.model_group)
+        load_jax_variables(vit, params, tp=tp, tp_rank=mesh.model_index,
+                           num_heads=4)
+        taps = vit(torch.as_tensor(images))
+        loss = sum((v ** 2).sum() for v in taps.values())
+        names = [n for n, _ in vit.named_parameters()]
+        grads = torch.autograd.grad(loss, list(vit.parameters()))
+        out[tp] = {"m": mesh.model_index,
+                   "taps": {k: v.detach() for k, v in taps.items()},
+                   "grads": dict(zip(names, grads))}
+    return out
+
+
+def _tp_trainer(cfg, params, stats, out_dir=""):
+    """A tensor-parallel trainer from JAX's canonical weights."""
+    from fusiontransformer_tpu_torch.modules.DistributedTrainer import (
+        DistributedTrainer)
+    from fusiontransformer_tpu_torch.utils.convert_jax import (
+        load_jax_variables)
+    tr = DistributedTrainer(cfg, out_dir, "r", device="cpu")
+    load_jax_variables(tr.model, params, stats, tp=tr.model_parallel,
+                       tp_rank=tr.mesh.model_index,
+                       num_heads=cfg.MODEL.VIT_HEADS)
+    load_jax_variables(tr.eval_model, params, stats)
+    return tr
+
+
+def job_tp_trainer(rank, world, cfgs, params, stats, batch, dirs):
+    """(data 2, model 2): one train step from JAX's initial weights (its
+    metrics, the canonical state after it, each shard's largest |g| per
+    leaf before the data mean, digests of every parameter across the
+    ranks); the same step with REMAT_VIT; then a trainer cycle with
+    adaptive caps (train, validate, checkpoint), resumed at tp = 1 for a
+    second epoch and ``test()``."""
+    import hashlib
+    from fusiontransformer_tpu_torch.models import spvcnn
+    from fusiontransformer_tpu_torch.modules.DistributedTrainer import (
+        DistributedTrainer)
+    from fusiontransformer_tpu_torch.parallel.data_parallel import shard_of
+    spvcnn.DROPOUT = 0.0            # the JAX side runs without dropout too
+    out = {}
+    for name in ("step", "remat"):
+        tr = _tp_trainer(cfgs[name], params, stats)
+        local = shard_of(batch, tr.data_rank, tr.data_size)
+        shard_max = {}
+        mean = tr.data_reducer.mean_
+
+        def keep_max(tensors, _mean=mean, _tr=tr):
+            tensors = list(tensors)
+            if tensors and tensors[0] is _tr.train_step.grads[0]:
+                for (n, _), g in zip(_tr.model.named_parameters(), tensors):
+                    shard_max[n] = float(g.abs().max())
+            _mean(tensors)
+
+        tr.data_reducer.mean_ = keep_max
+        launched = []
+        launch = tr._launch
+
+        def record_launch(kind, *a, _launch=launch, **k):
+            launched.append(kind)
+            return _launch(kind, *a, **k)
+
+        tr._launch = record_launch
+        metrics = tr.run_train_step(local).numpy()
+        digests = {n: hashlib.sha256(p.detach().numpy().tobytes()).hexdigest()
+                   for n, p in tr.model.named_parameters()}
+        out[name] = {"metrics": metrics, "state": _canonical(tr),
+                     "shard_max": shard_max, "m": tr.mesh.model_index,
+                     "d": tr.data_rank, "pt_batch": local["pt_batch"],
+                     "launched": launched,
+                     "generator": tr.generator.get_state(),
+                     "digests": tr.reducer.gather_objects(digests)}
+    caps = []
+    tr = DistributedTrainer(cfgs["cycle"], dirs["cycle"], "r", device="cpu")
+    agree = tr.agree
+
+    def recording(host_batch):
+        hb, c = agree(host_batch)
+        caps.append((len(hb["pt_valid"]), c))
+        return hb, c
+
+    tr.agree = recording
+    tr.train()
+    merged = _canonical(tr)
+    tr.reducer.barrier()
+    path = os.path.join(dirs["cycle"], "max-MeanIoU-000000.pth")
+    saved = torch.load(path, weights_only=True)
+    names = [n for n, _ in tr.model.named_parameters()]
+    out["cycle"] = {
+        "caps": caps, "merged": merged,
+        "saved_model": saved["model"],
+        "saved_moments": _moments(saved["optimizer"], names),
+        "val": sorted(tr.val_metric_logger.meters),
+        "overflow": tr.train_metric_logger.meters[
+            "voxel_overflow"].global_avg,
+        "local_qkv": tuple(tr.model.image_backbone.backbone.block0.attn
+                           .qkv.kernel.shape)}
+    one = DistributedTrainer(cfgs["resume"], dirs["cycle"], "r",
+                             device="cpu")
+    out["resume"] = {"start_epoch": one.start_epoch,
+                     "loaded": _canonical(one)}
+    one.train()
+    meters = one.test(save_predictions=False)
+    out["resume"]["test_iou"] = {k: m.global_avg
+                                 for k, m in meters.meters.items()
+                                 if k.startswith("seg_iou")}
+    return out
+
+
+def job_pp(rank, world, params, images, micros, taps):
+    """The GPipe ViT over ``world`` stages at each microbatch count of
+    ``micros``, from JAX's canonical parameters: its taps and the
+    gradients of the sum of squares of them, this rank's stage and the
+    embedding; the hand-off point to point and through ``all_gather``."""
+    from fusiontransformer_tpu_torch.models.vit import VisionTransformer2D
+    from fusiontransformer_tpu_torch.parallel import pipeline_parallel as pp
+    from fusiontransformer_tpu_torch.utils.convert_jax import (
+        load_jax_variables)
+    vit = VisionTransformer2D(img_size=32, patch_size=16, embed_dim=64,
+                              depth=4, num_heads=4,
+                              compute_dtype=torch.float32)
+    load_jax_variables(vit, params)
+    staged, rest = pp.stack_vit_blocks(
+        {n: p.detach() for n, p in vit.named_parameters()}, world)
+    images = torch.as_tensor(images)
+    out = {}
+    for micro in micros:
+        for mode in ("p2p", "gather"):
+            local = {k: v[rank].clone().requires_grad_()
+                     for k, v in staged.items()}
+            rst = {k: v.clone().requires_grad_() for k, v in rest.items()}
+            res = pp.pp_vit_apply(vit, local, rst, images, None, micro, taps,
+                                  mode=mode)
+            loss = sum((res[str(k)] ** 2).sum() for k in taps)
+            loss.backward()
+            out[(micro, mode)] = {
+                "taps": {k: v.detach() for k, v in res.items()},
+                "stage_grads": {k: v.grad for k, v in local.items()},
+                "rest_grads": {k: v.grad for k, v in rst.items()}}
+    return out
+
+
 JOBS = {"steps": job_steps, "resume": job_resume,
-        "abandoned": job_abandoned}
+        "abandoned": job_abandoned, "zero": job_zero,
+        "tp_vit": job_tp_vit, "tp_trainer": job_tp_trainer, "pp": job_pp}
